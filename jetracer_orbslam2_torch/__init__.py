@@ -1,0 +1,21 @@
+"""jetracer_orbslam2_torch — PyTorch/CUDA port of the visual-SLAM framework.
+
+The counterpart of `jetracer_orbslam2_tpu`, module for module, for one NVIDIA
+Hopper card.  Plain tensor code is PyTorch; the one kernel on the RGB-D
+odometry path (fused FAST + 3x3 NMS, `ops/fused_fast.py` with its CUDA source
+under `csrc/`) is written by hand for sm_90a.
+
+Layout mirrors the JAX package so a reader finds the counterpart of a module
+by its path:
+
+- `ops/`     preprocess, FAST, NMS, patches, ORB, matching, geometry, align
+- `models/`  frontend, tracking, odometry
+- `io/`      synthetic RGB-D sequences with exact ground truth
+- `utils/`   device resolution, float32 precision settings
+- `run.py`   CLI entry (`python -m jetracer_orbslam2_torch.run`)
+
+Every entry point runs on `cuda:0` unless the caller passes `device="cpu"`;
+nothing here imports JAX or the JAX package.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,191 @@
+"""Synthetic RGB-D sequence generator with exact ground truth.
+
+Counterpart of `jetracer_orbslam2_tpu/io/synthetic.py` (the forward-arc RGB-D
+generator; the lap, stereo and IMU generators are not ported yet).  The scene
+is the inside of a textured box "room", ray-cast per pixel: photometrically
+consistent across views, exact depth, exact poses.
+
+Textures come from a numpy generator seeded by `seed` (the JAX package draws
+them with `jax.random`, whose stream cannot be reproduced here);
+`render_frame` takes the textures as an argument, so a test can hand both
+renderers the same ones.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from jetracer_orbslam2_torch.ops import geometry as geo
+from jetracer_orbslam2_torch.utils.device import resolve_device
+
+Tensor = torch.Tensor
+
+
+class SyntheticSequence(NamedTuple):
+    gray: Tensor     # (N, H, W) float32 in [0, 255]
+    depth: Tensor    # (N, H, W) float32 meters (0 where no hit)
+    poses: Tensor    # (N, 4, 4) T_wc ground truth (camera -> world)
+    intrinsics: Tensor  # (4,) fx fy cx cy
+
+
+# Box planes: (normal, offset, texture-axis-u, texture-axis-v)
+# Camera starts at origin looking +z; y is down.
+_PLANES = (
+    ((0.0, 0.0, 1.0), 5.0, (1.0, 0.0, 0.0), (0.0, 1.0, 0.0)),    # back wall z=5
+    ((1.0, 0.0, 0.0), -2.5, (0.0, 0.0, 1.0), (0.0, 1.0, 0.0)),   # left wall x=-2.5
+    ((1.0, 0.0, 0.0), 2.5, (0.0, 0.0, 1.0), (0.0, 1.0, 0.0)),    # right wall x=2.5
+    ((0.0, 1.0, 0.0), 1.8, (1.0, 0.0, 0.0), (0.0, 0.0, 1.0)),    # floor y=1.8
+    ((0.0, 1.0, 0.0), -1.8, (1.0, 0.0, 0.0), (0.0, 0.0, 1.0)),   # ceiling y=-1.8
+    # front wall z=-3: closes the room; forward-facing trajectories never
+    # cast rays toward it
+    ((0.0, 0.0, 1.0), -3.0, (1.0, 0.0, 0.0), (0.0, 1.0, 0.0)),
+)
+NUM_PLANES = len(_PLANES)
+
+
+def make_texture(rng: np.random.Generator, size: int = 256) -> np.ndarray:
+    """High-corner-density texture: random blocky mosaic + multiscale noise.
+
+    Blocky structure gives FAST strong corners; smooth noise decorrelates
+    patches so BRIEF descriptors are distinctive.  (size, size) float32.
+    """
+    coarse = rng.random((size // 16, size // 16), dtype=np.float32)
+    blocks = np.kron(coarse, np.ones((16, 16), np.float32))
+    mid = np.kron(rng.random((size // 4, size // 4), dtype=np.float32),
+                  np.ones((4, 4), np.float32))
+    fine = rng.random((size, size), dtype=np.float32)
+    tex = 0.6 * blocks + 0.3 * mid + 0.1 * fine
+    return (tex * 255.0).astype(np.float32)
+
+
+def make_textures(seed: int = 0, size: int = 256) -> np.ndarray:
+    """(NUM_PLANES, size, size) float32 textures, one per box plane."""
+    rng = np.random.default_rng(seed)
+    return np.stack([make_texture(rng, size) for _ in range(NUM_PLANES)])
+
+
+def _sample_texture(tex: Tensor, u: Tensor, v: Tensor, scale: float = 64.0) -> Tensor:
+    """Bilinear, wrapping texture lookup at world coords scaled to texels."""
+    size = tex.shape[0]
+    x = u * scale
+    y = v * scale
+    xf = torch.floor(x)
+    yf = torch.floor(y)
+    fx = x - xf
+    fy = y - yf
+    x0 = xf.long()
+    y0 = yf.long()
+
+    def at(yi, xi):
+        return tex[torch.remainder(yi, size), torch.remainder(xi, size)]
+
+    return (
+        at(y0, x0) * (1 - fx) * (1 - fy)
+        + at(y0, x0 + 1) * fx * (1 - fy)
+        + at(y0 + 1, x0) * (1 - fx) * fy
+        + at(y0 + 1, x0 + 1) * fx * fy
+    )
+
+
+@torch.no_grad()
+def render_frame(
+    T_wc: Tensor,
+    intrinsics: Tensor,
+    textures: Tensor,   # (num_planes, S, S)
+    shape: tuple = (480, 640),
+    dist: tuple | None = None,
+    dist_model: str = "brown_conrady",
+) -> tuple[Tensor, Tensor]:
+    """Ray-cast one camera view of the box.  Returns (gray, depth), on the
+    device of `T_wc`.
+
+    `dist`: optional lens distortion (FrontendConfig.dist convention) —
+    pixel (x, y) then images the ray through the UNDISTORTED normalized
+    coords; depth stays the camera-z of the hit."""
+    h, w = shape
+    dev = T_wc.device
+    f32 = torch.float32
+    fx, fy, cx, cy = intrinsics[0], intrinsics[1], intrinsics[2], intrinsics[3]
+    yy = torch.arange(h, dtype=f32, device=dev)[:, None].expand(h, w)
+    xx = torch.arange(w, dtype=f32, device=dev)[None, :].expand(h, w)
+    xn, yn = (xx - cx) / fx, (yy - cy) / fy
+    if dist is not None:
+        xyn = geo._UNDISTORT[dist_model](
+            torch.stack([xn, yn], -1),
+            torch.tensor(dist, dtype=f32, device=dev))
+        xn, yn = xyn[..., 0], xyn[..., 1]
+    # camera-frame ray directions (z=1 plane)
+    d_cam = torch.stack([xn, yn, torch.ones((h, w), dtype=f32, device=dev)], -1)
+    R = T_wc[:3, :3]
+    o = T_wc[:3, 3]
+    d_w = d_cam @ R.T                                   # (H, W, 3)
+
+    best_t = torch.full((h, w), float("inf"), dtype=f32, device=dev)
+    best_val = torch.zeros((h, w), dtype=f32, device=dev)
+    for i, (n, c, ax_u, ax_v) in enumerate(_PLANES):
+        n = torch.tensor(n, dtype=f32, device=dev)
+        ax_u = torch.tensor(ax_u, dtype=f32, device=dev)
+        ax_v = torch.tensor(ax_v, dtype=f32, device=dev)
+        denom = d_w @ n
+        t = (c - o @ n) / torch.where(torch.abs(denom) < 1e-9,
+                                      torch.full_like(denom, 1e-9), denom)
+        # o + t*d with ONE rounding (what a fused multiply-add gives, and what
+        # XLA emits for the JAX renderer): texel coordinates are hit * 64, so
+        # a second rounding here shows as ~5e-3 grey levels at texture edges
+        hit = (o.double() + t[..., None].double() * d_w.double()).float()
+        val = _sample_texture(textures[i], hit @ ax_u, hit @ ax_v)
+        ok = (t > 0.1) & (t < best_t)
+        best_t = torch.where(ok, t, best_t)
+        best_val = torch.where(ok, val, best_val)
+
+    # the ray parameter t runs along d_w with d_cam z = 1, so the camera z of
+    # the hit is t itself
+    depth = torch.where(torch.isfinite(best_t), best_t, torch.zeros_like(best_t))
+    return best_val, depth
+
+
+def smooth_trajectory(n_frames: int, step: float = 0.02,
+                      yaw_rate: float = 0.004, device="cpu") -> Tensor:
+    """(N, 4, 4) T_wc poses: gentle forward arc with yaw + small sway."""
+    i = torch.arange(n_frames, dtype=torch.float32, device=device)
+    yaw = yaw_rate * i
+    x = 0.4 * torch.sin(0.05 * i)
+    y = 0.1 * torch.sin(0.03 * i)
+    z = step * i
+    w = torch.stack([torch.zeros_like(yaw), yaw, torch.zeros_like(yaw)], -1)
+    R = geo.so3_exp(w)
+    t = torch.stack([x, y, z], -1)
+    return geo.pose_from_rt(R, t)
+
+
+@torch.no_grad()
+def generate_sequence(
+    n_frames: int = 30,
+    shape: tuple = (480, 640),
+    seed: int = 0,
+    step: float = 0.02,
+    yaw_rate: float = 0.004,
+    dist: tuple | None = None,
+    dist_model: str = "brown_conrady",
+    device=None,
+) -> SyntheticSequence:
+    """Render an RGB-D sequence along `smooth_trajectory`, on `cuda:0` unless
+    `device` says otherwise (frames are made on the device they are used on)."""
+    dev = resolve_device(device)
+    h, w = shape
+    intr = torch.tensor(
+        [0.9 * w, 0.9 * w, (w - 1) / 2.0, (h - 1) / 2.0],
+        dtype=torch.float32, device=dev)
+    textures = torch.from_numpy(make_textures(seed)).to(dev)
+    poses = smooth_trajectory(n_frames, step, yaw_rate, device=dev)
+    grays, depths = [], []
+    for i in range(n_frames):
+        g, d = render_frame(poses[i], intr, textures, shape,
+                            dist=dist, dist_model=dist_model)
+        grays.append(g)
+        depths.append(d)
+    return SyntheticSequence(gray=torch.stack(grays), depth=torch.stack(depths),
+                             poses=poses, intrinsics=intr)

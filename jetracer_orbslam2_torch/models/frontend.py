@@ -1,0 +1,147 @@
+"""ORB front-end: image -> fixed-K features.
+
+Counterpart of `jetracer_orbslam2_tpu/models/frontend.py`: gray -> blur ->
+pyramid -> FAST+NMS (the hand-written kernel, once per level) -> grid NMS ->
+top-K -> patches -> orientation -> BRIEF-256 -> backprojection.  Eager
+PyTorch on one stream; nothing here reads a value back to the host.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from jetracer_orbslam2_torch.config import FrontendConfig
+from jetracer_orbslam2_torch.ops import (
+    align, fused_fast, geometry as geo, nms, orb, patches, preprocess)
+from jetracer_orbslam2_torch.ops.nms import Keypoints
+from jetracer_orbslam2_torch.utils.consts import const_table
+from jetracer_orbslam2_torch.utils.device import as_f32, resolve_device
+from jetracer_orbslam2_torch.utils.precision import set_exact_f32
+
+Tensor = torch.Tensor
+
+
+class Features(NamedTuple):
+    """Fixed-K per-frame feature set.
+
+    `xy` is in IDEAL-PINHOLE pixel coordinates: when the camera has
+    distortion (FrontendConfig.dist), detection runs on the raw image and
+    the keypoint coords are undistorted here, once."""
+
+    xy: Tensor       # (K, 2) float32 level-0 ideal-pinhole pixel coords
+    level: Tensor    # (K,) int32
+    score: Tensor    # (K,) float32
+    angle: Tensor    # (K,) float32 radians
+    desc: Tensor     # (K, 8) int32 packed BRIEF-256 (uint32 bit pattern)
+    valid: Tensor    # (K,) bool detection validity
+    points: Tensor   # (K, 3) float32 camera-frame 3D (0 if no depth)
+    has_point: Tensor  # (K,) bool valid AND has usable depth
+
+
+def extract_features(
+    gray: Tensor,
+    cfg: FrontendConfig,
+) -> tuple[Keypoints, Tensor, Tensor]:
+    """Detect + describe on a grayscale image.
+
+    Returns (keypoints, angles, descriptors).
+    """
+    blurred = preprocess.gaussian_blur_3x3(gray)
+    levels = preprocess.build_pyramid(blurred, cfg.num_levels)
+
+    def cell_winners(img, threshold):
+        resp = fused_fast.fast_nms_response(
+            img.contiguous(), threshold, cfg.fast_arc_length, cfg.fast_border)
+        return nms.grid_nms(resp, cfg.cell_size, suppress=False)
+
+    winners = []
+    for img in levels:
+        hi = cell_winners(img, cfg.fast_threshold)
+        if cfg.fast_min_threshold > 0.0:
+            # two-threshold adaptive detection (ORB-SLAM2 iniThFAST /
+            # minThFAST): cells empty at the primary epsilon take the
+            # low-epsilon winner, so texture-poor views keep features.
+            lo = cell_winners(img, cfg.fast_min_threshold)
+            use_hi = hi.score > cfg.min_score
+            hi = nms.CellWinners(
+                score=torch.where(use_hi, hi.score, lo.score),
+                y=torch.where(use_hi, hi.y, lo.y),
+                x=torch.where(use_hi, hi.x, lo.x))
+        winners.append(hi)
+    kp = nms.select_keypoints(
+        winners, cfg.level_shapes, cfg.max_keypoints, cfg.min_score, cfg.fast_border
+    )
+    patch = patches.extract_patches(levels, kp, cfg.patch_size)
+    angles = orb.orientation(patch)
+    desc = orb.describe(patch, angles, cfg.descriptor_bits, cfg.num_angle_bins)
+    return kp, angles, desc
+
+
+@torch.no_grad()
+def frontend_rgbd(
+    rgb: Tensor,
+    depth: Tensor,
+    intrinsics: Tensor,
+    cfg: FrontendConfig,
+    min_depth: float = 0.05,
+    max_depth: float = 8.0,
+    device=None,
+) -> Features:
+    """Full RGB-D front-end: (H, W, 3) rgb + (H, W) depth [m] -> Features.
+    Runs on `cuda:0` unless `device` says otherwise."""
+    dev = resolve_device(device)
+    gray = preprocess.rgb_to_gray(torch.as_tensor(rgb).to(dev))
+    return frontend_gray_depth(gray, depth, intrinsics, cfg, min_depth,
+                               max_depth, device=dev)
+
+
+@torch.no_grad()
+def frontend_gray_depth(
+    gray: Tensor,
+    depth: Tensor,
+    intrinsics: Tensor,
+    cfg: FrontendConfig,
+    min_depth: float = 0.05,
+    max_depth: float = 8.0,
+    device=None,
+) -> Features:
+    """(H, W) gray + (H, W) registered depth [m] -> Features.
+
+    Runs on `cuda:0` (raising without one) unless `device` says otherwise;
+    inputs may be numpy arrays or tensors on any device."""
+    if cfg.depth_intrinsics is not None:
+        raise NotImplementedError(
+            "unregistered depth (FrontendConfig.depth_intrinsics) needs "
+            "align_depth_to_color, which is not ported yet")
+    set_exact_f32()
+    dev = resolve_device(device)
+    gray = as_f32(gray, dev)
+    depth = as_f32(depth, dev)
+    intrinsics = as_f32(intrinsics, dev)
+    kp, angles, desc = extract_features(gray, cfg)
+    # camera distortion (cfg.dist): depth is registered to the RAW image,
+    # so sampling happens at raw coords; deprojection undistorts the ray
+    # and the published keypoint coords are ideal-pinhole.
+    dist = (None if cfg.dist is None
+            else const_table(("dist", tuple(cfg.dist)),
+                             lambda: np.asarray(cfg.dist, np.float32), dev))
+    pts, has_depth = align.backproject_keypoints(
+        kp.xy, depth, intrinsics, dist=dist, model=cfg.dist_model,
+        min_depth=min_depth, max_depth=max_depth
+    )
+    xy = kp.xy if dist is None else geo.undistort_pixels(
+        kp.xy, intrinsics, dist, cfg.dist_model)
+    has_point = kp.valid & has_depth
+    return Features(
+        xy=xy,
+        level=kp.level,
+        score=kp.score,
+        angle=angles,
+        desc=desc,
+        valid=kp.valid,
+        points=torch.where(has_point[:, None], pts, torch.zeros_like(pts)),
+        has_point=has_point,
+    )

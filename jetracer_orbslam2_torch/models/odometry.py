@@ -1,0 +1,174 @@
+"""Frame-to-frame visual odometry: one step, and a whole-sequence scan.
+
+Counterpart of `jetracer_orbslam2_tpu/models/odometry.py`.  `lax.scan`
+becomes a Python loop over frames with every tensor resident on the device;
+the loop never reads a value back to the host (no `.item()`, no `if tensor`),
+so the host only enqueues work and results are fetched once per scan or
+chunk.  RANSAC draws come from one `torch.Generator` carried in the state and
+advanced once per tracked frame.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from jetracer_orbslam2_torch.config import FrontendConfig, TrackingConfig
+from jetracer_orbslam2_torch.models import tracking
+from jetracer_orbslam2_torch.models.frontend import Features, frontend_gray_depth
+from jetracer_orbslam2_torch.utils.device import as_f32, resolve_device
+from jetracer_orbslam2_torch.utils.precision import set_exact_f32
+
+Tensor = torch.Tensor
+
+
+class OdomState(NamedTuple):
+    T_wc: Tensor        # (4, 4) current world<-camera pose
+    velocity: Tensor    # (4, 4) T_prev_curr motion model
+    prev: Features      # features of the previous frame
+    frame_idx: Tensor   # () int32
+    generator: torch.Generator  # RANSAC draws (the JAX state's base_key)
+
+
+def make_generator(seed: int, device) -> torch.Generator:
+    """One generator per run, on the run's device, seeded from `seed`."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return g
+
+
+@torch.no_grad()
+def init_state(
+    gray0, depth0, intrinsics, fcfg: FrontendConfig,
+    tcfg: TrackingConfig, seed: int = 0, device=None,
+) -> OdomState:
+    """State after the first frame.  Runs on `cuda:0` unless `device` says
+    otherwise; inputs may be numpy arrays or tensors on any device."""
+    dev = resolve_device(device)
+    feats = frontend_gray_depth(
+        gray0, depth0, intrinsics, fcfg,
+        min_depth=tcfg.min_depth, max_depth=tcfg.max_depth, device=dev)
+    return OdomState(
+        T_wc=torch.eye(4, dtype=torch.float32, device=dev),
+        velocity=torch.eye(4, dtype=torch.float32, device=dev),
+        prev=feats,
+        frame_idx=torch.zeros((), dtype=torch.int32, device=dev),
+        generator=make_generator(seed, dev),
+    )
+
+
+@torch.no_grad()
+def odometry_step(
+    state: OdomState, gray: Tensor, depth: Tensor, intrinsics: Tensor,
+    fcfg: FrontendConfig, tcfg: TrackingConfig,
+) -> tuple[OdomState, tracking.TrackResult]:
+    """One odometry frame -> (state, TrackResult), on the state's device."""
+    feats = frontend_gray_depth(
+        gray, depth, intrinsics, fcfg,
+        min_depth=tcfg.min_depth, max_depth=tcfg.max_depth,
+        device=state.T_wc.device)
+    res = tracking.track_rgbd(
+        state.prev, feats, state.T_wc, state.velocity, intrinsics,
+        state.generator, tcfg)
+    new_state = OdomState(
+        T_wc=res.T_wc,
+        velocity=res.velocity,
+        prev=feats,
+        frame_idx=state.frame_idx + 1,
+        generator=state.generator,
+    )
+    return new_state, res
+
+
+@torch.no_grad()
+def odometry_scan(
+    state: OdomState, grays, depths, intrinsics,
+    fcfg: FrontendConfig, tcfg: TrackingConfig,
+    live: Sequence[bool] | None = None,
+) -> tuple[OdomState, Tensor, Tensor]:
+    """Run odometry over a whole (N, H, W) sequence on the state's device.
+
+    Returns (final state, (N,4,4) poses T_wc, (N,) tracked_ok), all device
+    tensors; the caller fetches them once.  live: (N,) HOST booleans,
+    optional — False rows are inert padding (they leave the state untouched,
+    draw nothing, and report the carried pose with tracked_ok False).
+    """
+    set_exact_f32()
+    dev = state.T_wc.device
+    grays = as_f32(grays, dev)
+    depths = as_f32(depths, dev)
+    intrinsics = as_f32(intrinsics, dev)
+    n = grays.shape[0]
+    if live is not None:
+        live = [bool(v) for v in np.asarray(live).tolist()]
+    not_ok = torch.zeros((), dtype=torch.bool, device=dev)
+    poses, oks = [], []
+    for i in range(n):
+        if live is not None and not live[i]:
+            poses.append(state.T_wc)
+            oks.append(not_ok)
+            continue
+        state, res = odometry_step(
+            state, grays[i], depths[i], intrinsics, fcfg, tcfg)
+        poses.append(res.T_wc)
+        oks.append(res.tracked_ok)
+    if n == 0:
+        return (state, torch.zeros((0, 4, 4), dtype=torch.float32, device=dev),
+                torch.zeros((0,), dtype=torch.bool, device=dev))
+    return state, torch.stack(poses), torch.stack(oks)
+
+
+class ChunkedOdometry:
+    """Constant-memory streaming odometry: frames run through
+    `odometry_scan` in fixed-size chunks with `OdomState` carried across —
+    device memory holds one chunk instead of the whole sequence.  One host
+    sync per chunk; results equal the whole-sequence scan exactly (the same
+    generator is advanced by the same frames in the same order)."""
+
+    def __init__(self, intrinsics, fcfg: FrontendConfig,
+                 tcfg: TrackingConfig, chunk_size: int = 32, seed: int = 0,
+                 device=None):
+        self.device = resolve_device(device)
+        self.intr = as_f32(intrinsics, self.device)
+        self.fcfg, self.tcfg = fcfg, tcfg
+        self.chunk = chunk_size
+        self.seed = seed
+        self.state: OdomState | None = None
+        self._pending_g: list = []
+        self._pending_d: list = []
+        self._poses: list = [np.eye(4, dtype=np.float32)[None]]
+        self._ok: list = [np.ones(1, bool)]
+
+    def process_frame(self, gray, depth) -> None:
+        if self.state is None:
+            self.state = init_state(
+                gray, depth, self.intr, self.fcfg, self.tcfg,
+                seed=self.seed, device=self.device)
+            return
+        self._pending_g.append(as_f32(gray, self.device))
+        self._pending_d.append(as_f32(depth, self.device))
+        if len(self._pending_g) >= self.chunk:
+            self.flush()
+
+    def flush(self) -> None:
+        n = len(self._pending_g)
+        if n == 0:
+            return
+        # a ragged tail is simply a shorter chunk: eager execution has no
+        # fixed-shape program to pad for
+        g = torch.stack(self._pending_g)
+        d = torch.stack(self._pending_d)
+        self._pending_g.clear()
+        self._pending_d.clear()
+        self.state, poses, ok = odometry_scan(
+            self.state, g, d, self.intr, self.fcfg, self.tcfg)
+        self._poses.append(poses.cpu().numpy())
+        self._ok.append(ok.cpu().numpy())
+
+    def result(self) -> tuple[np.ndarray, np.ndarray]:
+        """((N, 4, 4) poses, (N,) tracked) for all processed frames."""
+        if self.state is None:
+            return (np.zeros((0, 4, 4), np.float32), np.zeros(0, bool))
+        return np.concatenate(self._poses), np.concatenate(self._ok)

@@ -1,0 +1,217 @@
+"""Frame-to-frame RGB-D tracking: matching -> RANSAC-Kabsch -> pose.
+
+Counterpart of `jetracer_orbslam2_tpu/models/tracking.py`.
+
+Pose conventions: `T_ab` maps points from frame b to frame a
+(p_a = T_ab @ p_b).  World pose of a camera is `T_wc`; chaining:
+T_w_curr = T_w_prev @ T_prev_curr.
+
+RANSAC is not a loop: all `iters` minimal 3-point hypotheses are solved in
+one batched quaternion Kabsch, scored in one (iters, K) residual matrix, and
+the winner refit on its inliers with two exact SVD Kabsch solves.  Random
+draws come from an explicit `torch.Generator` (the JAX package's
+`jax.random.categorical` stream cannot be reproduced); tests inject the
+sample indices instead.  Nothing here reads a value back to the host.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from jetracer_orbslam2_torch.config import TrackingConfig
+from jetracer_orbslam2_torch.models.frontend import Features
+from jetracer_orbslam2_torch.ops import geometry as geo
+from jetracer_orbslam2_torch.ops import match as match_ops
+from jetracer_orbslam2_torch.utils.ties import first_argmax
+
+Tensor = torch.Tensor
+
+
+class RansacResult(NamedTuple):
+    T: Tensor            # (4, 4) best rigid transform src -> dst
+    inliers: Tensor      # (K,) bool
+    num_inliers: Tensor  # () int32
+    ok: Tensor           # () bool
+
+
+class TrackResult(NamedTuple):
+    T_wc: Tensor         # (4, 4) world<-camera pose of current frame
+    velocity: Tensor     # (4, 4) T_prev_curr relative motion estimate
+    num_matches: Tensor  # () int32
+    num_inliers: Tensor  # () int32
+    tracked_ok: Tensor   # () bool
+    match_idx: Tensor    # (K,) int32 prev->curr match index
+    inlier_mask: Tensor  # (K,) bool inliers among prev keypoints
+
+
+def refine_pose_reprojection(
+    T0: Tensor, X_src: Tensor, uv_dst: Tensor, z_dst: Tensor, w: Tensor,
+    intrinsics: Tensor, iters: int = 5, huber_px: float = 2.0,
+) -> Tensor:
+    """Motion-only Gauss-Newton: refine T (dst <- src) so that the known 3D
+    points X_src project onto their measured pixels uv_dst (plus a depth
+    row anchoring scale where z_dst > 0), with IRLS Huber weights."""
+    fx, fy = intrinsics[0], intrinsics[1]
+    zero = torch.zeros_like(z_dst)
+    wz_row = torch.where(z_dst > 1e-3, fx / torch.clamp_min(z_dst, 0.1), zero)
+    eye3 = torch.eye(3, dtype=X_src.dtype, device=X_src.device)
+    eye6 = torch.eye(6, dtype=X_src.dtype, device=X_src.device)
+    I3 = eye3.expand(X_src.shape[0], 3, 3)
+
+    T = T0
+    for _ in range(iters):
+        p = geo.transform_points(T, X_src[None])[0]        # (K, 3)
+        x, y, z = p[:, 0], p[:, 1], p[:, 2]
+        iz = 1.0 / torch.clamp_min(z, 1e-6)
+        u = fx * x * iz + intrinsics[2]
+        v = fy * y * iz + intrinsics[3]
+        r = torch.stack([u - uv_dst[:, 0], v - uv_dst[:, 1],
+                         wz_row * (z - z_dst)], -1)        # (K, 3)
+        wk = w * (z > 1e-3)
+        # IRLS Huber on the pixel norm
+        n = torch.linalg.norm(r, dim=-1)
+        wk = wk * torch.clamp_max(huber_px / torch.clamp_min(n, 1e-9), 1.0)
+        J_proj = torch.stack([
+            torch.stack([fx * iz, zero, -fx * x * iz * iz], -1),
+            torch.stack([zero, fy * iz, -fy * y * iz * iz], -1),
+            torch.stack([zero, zero, wz_row], -1),
+        ], 1)                                              # (K, 3, 3)
+        J_pose = torch.cat([I3, -geo.hat(p)], -1)          # (K, 3, 6)
+        J = J_proj @ J_pose                                # (K, 3, 6)
+        Jw = J * wk[:, None, None]
+        H = torch.einsum("kri,krj->ij", Jw, J) + 1e-6 * eye6
+        b = -torch.einsum("kri,kr->i", Jw, r)
+        # solve_ex: no error check, so no host sync inside the frame loop
+        dx = torch.linalg.solve_ex(H, b).result
+        T = geo.se3_exp(dx) @ T
+    return T
+
+
+def ransac_kabsch(
+    src: Tensor,
+    dst: Tensor,
+    weights: Tensor,
+    generator: torch.Generator | None = None,
+    iters: int = 256,
+    thresh: float = 0.05,
+    min_inliers: int = 8,
+    depth_quad: float = 0.0,
+    gate_cap: float = 1e9,
+    sample_idx: Tensor | None = None,
+) -> RansacResult:
+    """Robust rigid fit T with dst ~= T @ src.
+
+    src, dst: (K, 3); weights: (K,) float32 in {0,1} (match validity).
+    depth_quad widens the inlier gate per correspondence to
+    thresh + depth_quad * z_dst^2 (quadratic range-error model), capped at
+    gate_cap.  `sample_idx` (iters, 3), when given, replaces the random
+    draw (tests hand both implementations the same samples).
+    """
+    if sample_idx is None:
+        # the clamp mirrors log(max(w, 1e-20)) in the JAX package: with no
+        # candidate at all the draw is uniform instead of an error
+        probs = weights.clamp_min(1e-20).expand(iters, -1)
+        sample_idx = torch.multinomial(probs, 3, replacement=True,
+                                       generator=generator)
+    sample_idx = sample_idx.long()
+    s = src[sample_idx]                      # (iters, 3, 3)
+    d = dst[sample_idx]
+    T_h = geo.kabsch_quat(s, d)              # (iters, 4, 4)
+    # score all hypotheses against all correspondences
+    src_t = src[None] @ T_h[:, :3, :3].transpose(-1, -2) + T_h[:, None, :3, 3]
+    err = torch.linalg.norm(src_t - dst[None], dim=-1)         # (iters, K)
+    tz = torch.clamp_max(thresh + depth_quad * dst[:, 2] ** 2, gate_cap)  # (K,)
+    has_w = weights > 0
+    inl = (err < tz[None]) & has_w
+    score = torch.sum(inl, dim=1)
+    _, best = first_argmax(score, 0)
+    # refine on the best hypothesis' inliers, then recompute inliers once more
+    # index_select, not inl[best]: indexing with a 0-dim tensor reads it
+    # back to the host
+    w1 = inl.index_select(0, best.reshape(1))[0].to(src.dtype)
+    T1 = geo.kabsch(src, dst, w1)
+    err1 = torch.linalg.norm(geo.transform_points(T1, src[None])[0] - dst, dim=-1)
+    inl1 = (err1 < tz) & has_w
+    w2 = inl1.to(src.dtype)
+    T2 = geo.kabsch(src, dst, w2)
+    n = torch.sum(inl1).to(torch.int32)
+    ok = n >= min_inliers
+    eye = torch.eye(4, dtype=src.dtype, device=src.device)
+    return RansacResult(T=torch.where(ok, T2, eye), inliers=inl1,
+                        num_inliers=n, ok=ok)
+
+
+@torch.no_grad()
+def track_rgbd(
+    prev: Features,
+    curr: Features,
+    T_w_prev: Tensor,
+    velocity: Tensor,
+    intrinsics: Tensor,
+    generator: torch.Generator | None = None,
+    cfg: TrackingConfig = TrackingConfig(),
+    sample_idx: Tensor | None = None,
+) -> TrackResult:
+    """One tracking step between consecutive RGB-D frames.
+
+    velocity: previous relative motion T_prevprev_prev, reused as the
+    constant-velocity prediction T_prev_curr.
+    """
+    # Predict current positions of prev keypoints for the match gate:
+    # X_curr_pred = inv(velocity) @ X_prev  (velocity = T_prev_curr)
+    rel_pred_inv = geo.pose_inverse(velocity)
+    pts_in_curr = geo.transform_points(rel_pred_inv, prev.points[None])[0]
+    xy_pred = geo.project(pts_in_curr, intrinsics)
+
+    m = match_ops.match(
+        prev.desc,
+        curr.desc,
+        prev.has_point,
+        curr.has_point,
+        xy_a_pred=xy_pred,
+        xy_b=curr.xy,
+        window=cfg.match_window,
+        max_hamming=cfg.match_max_hamming,
+        ratio=cfg.match_ratio,
+    )
+    idx = m.idx.long()
+    dst_pts = curr.points[idx]
+    pair_ok = m.valid & curr.has_point[idx]
+    num_matches = torch.sum(pair_ok).to(torch.int32)
+
+    # Solve T_prev_curr directly: X_prev = T @ X_curr
+    rr = ransac_kabsch(
+        dst_pts,
+        prev.points,
+        pair_ok.to(torch.float32),
+        generator,
+        iters=cfg.ransac_iters,
+        thresh=cfg.ransac_inlier_thresh,
+        min_inliers=cfg.min_inliers,
+        depth_quad=cfg.ransac_depth_quad,
+        sample_idx=sample_idx,
+    )
+    ok = rr.ok & (num_matches >= cfg.min_matches)
+    # motion-only reprojection polish on the consensus set: pixel
+    # measurements are unbiased at +-0.5 px while 3D depth noise grows as
+    # z^2, so the final pose minimizes reprojection (+ depth anchor) over
+    # the RANSAC inliers rather than 3D-3D Kabsch alone
+    inlier_mask = rr.inliers & pair_ok
+    w_in = inlier_mask.to(torch.float32)
+    z_prev = torch.where(prev.has_point, prev.points[:, 2],
+                         torch.zeros_like(prev.points[:, 2]))
+    T_ref = refine_pose_reprojection(
+        rr.T, dst_pts, prev.xy, z_prev, w_in, intrinsics)
+    T_prev_curr = torch.where(ok, T_ref, velocity)  # fall back to motion model
+    T_w_curr = T_w_prev @ T_prev_curr
+    return TrackResult(
+        T_wc=T_w_curr,
+        velocity=T_prev_curr,
+        num_matches=num_matches,
+        num_inliers=rr.num_inliers,
+        tracked_ok=ok,
+        match_idx=m.idx,
+        inlier_mask=inlier_mask,
+    )

@@ -1,0 +1,82 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each kernel is one `csrc/<name>.cu` with a plain C interface.  At first use it
+is compiled by `nvcc` for sm_90a into `jetracer_orbslam2_torch/_build/`
+(git-ignored) and loaded with `ctypes`; the library's file name carries a hash
+of the source and the flags, so an edited source rebuilds and an unchanged one
+is reused.  Nothing here runs at import time, and nothing falls back: a
+missing compiler or a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_loaded: dict[str, ctypes.CDLL] = {}
+# name -> {"seconds": build time (0.0 when reused), "log": compiler output}
+build_info: dict[str, dict] = {}
+
+
+def find_nvcc() -> str:
+    cand = [shutil.which("nvcc")]
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+                 "/usr/local/cuda"):
+        if root:
+            cand.append(os.path.join(root, "bin", "nvcc"))
+    for c in cand:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): the CUDA kernels "
+        "of jetracer_orbslam2_torch are built from source at first use")
+
+
+def library_path(name: str) -> Path:
+    src = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Compile (if needed) and load `csrc/<name>.cu`; cached per process."""
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
+    src = CSRC_DIR / f"{name}.cu"
+    out = library_path(name)
+    info = {"seconds": 0.0, "log": ""}
+    if not out.exists():
+        nvcc = find_nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            capture_output=True, text=True)
+        info["seconds"] = time.perf_counter() - t0
+        info["log"] = (proc.stdout + proc.stderr).strip()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"nvcc failed on {src} (exit {proc.returncode}):\n{info['log']}")
+        os.replace(tmp, out)      # atomic: concurrent processes agree
+    lib = ctypes.CDLL(str(out))
+    build_info[name] = info
+    _loaded[name] = lib
+    return lib

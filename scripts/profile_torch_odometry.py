@@ -1,0 +1,217 @@
+#!/usr/bin/env python3
+"""Profile the PyTorch port's RGB-D odometry frame loop on the GPU.
+
+    python3 scripts/profile_torch_odometry.py [--frames 120] [--trace out.json]
+
+Renders a 640x480 synthetic sequence on the card, warms the loop up, then
+runs `odometry_scan` over `--frames` frames under `torch.profiler` with the
+device's activities only and prints the device-busy and idle share of that
+pass: device time and wall time come from the same pass, and the untraced
+wall time of the same frames stands beside them.  A second pass over
+`--table-frames` frames traces host and device and prints the top operators
+by host time and by device time.  With `--sync-debug` it first prints the
+host's cost of one eager call of the FAST+NMS wrapper per level shape, the
+lines of the port that make the host wait for the device, and the number of
+ATen ops each function issues in one frame.
+Needs a CUDA device; imports torch and the port only.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def report_syncs(fn) -> None:
+    """Run `fn` with `torch.cuda.set_sync_debug_mode("warn")` and print, per
+    line of the port, how often it made the host wait for the device."""
+    import collections
+    import traceback
+    import warnings
+
+    import torch
+
+    hits = collections.Counter()
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        port = [f for f in traceback.extract_stack()
+                if "jetracer_orbslam2_torch" in f.filename]
+        where = port[-1] if port else None
+        hits[(where.filename.split("jetracer_orbslam2_torch/")[-1],
+              where.lineno, where.line) if where else ("?", 0, "")] += 1
+
+    old = warnings.showwarning
+    warnings.showwarning = note
+    warnings.simplefilter("always")
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        warnings.showwarning = old
+        warnings.resetwarnings()
+    print(f"host waits in one frame: {sum(hits.values())}")
+    for (fname, lineno, line), count in hits.most_common():
+        print(f"  {count:3d} x {fname}:{lineno}  {line}")
+
+
+_VIEW_OPS = {
+    "select", "slice", "unsqueeze", "view", "reshape", "expand", "permute",
+    "transpose", "as_strided", "t", "_unsafe_view", "alias", "squeeze",
+    "detach", "narrow", "unbind", "diagonal", "_reshape_alias", "lift_fresh"}
+
+
+def report_op_counts(fn, rows: int) -> None:
+    """Run `fn` under a dispatch mode and print how many non-view ATen ops
+    each function of the port issues (each is at least one launch)."""
+    import collections
+    import traceback
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    by_func = collections.Counter()
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.overloadpacket.__name__ not in _VIEW_OPS:
+                port = [f for f in traceback.extract_stack()
+                        if "jetracer_orbslam2_torch" in f.filename]
+                by_func[" > ".join(
+                    f"{f.filename.split('/')[-1][:-3]}.{f.name}"
+                    for f in port[-2:])] += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    print(f"non-view ops in one frame: {sum(by_func.values())}")
+    for name, count in by_func.most_common(rows):
+        print(f"  {count:5d}  {name}")
+
+
+def report_wrapper_host_cost(gray, fcfg, calls: int = 200) -> None:
+    """Print what one eager call of the FAST+NMS wrapper costs on the host's
+    clock at each pyramid level shape (issue `calls` launches, then wait)."""
+    import torch
+
+    from jetracer_orbslam2_torch.ops import fused_fast, preprocess
+
+    levels = preprocess.build_pyramid(
+        preprocess.gaussian_blur_3x3(gray), fcfg.num_levels)
+    for img in levels:
+        img = img.contiguous()
+        fused_fast.fast_nms_response(
+            img, fcfg.fast_threshold, fcfg.fast_arc_length, fcfg.fast_border)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fused_fast.fast_nms_response(
+                img, fcfg.fast_threshold, fcfg.fast_arc_length, fcfg.fast_border)
+        torch.cuda.synchronize()
+        us = (time.perf_counter() - t0) / calls * 1e6
+        print(f"fast_nms_response {tuple(img.shape)}: {us:.1f} us per eager call "
+              f"(host clock, {calls} calls)")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--frames", type=int, default=120,
+                    help="frames of the pass the idle share is taken over")
+    ap.add_argument("--table-frames", type=int, default=8,
+                    help="frames of the pass the operator tables are taken over")
+    ap.add_argument("--rows", type=int, default=25)
+    ap.add_argument("--trace", default="", help="write a chrome trace here")
+    ap.add_argument("--sync-debug", action="store_true",
+                    help="also run one frame with torch's sync debug mode and "
+                         "list the port's lines that make the host wait, and "
+                         "one frame counting ATen ops per function")
+    args = ap.parse_args(argv)
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from jetracer_orbslam2_torch.config import FrontendConfig, TrackingConfig
+    from jetracer_orbslam2_torch.io.synthetic import generate_sequence
+    from jetracer_orbslam2_torch.models.odometry import init_state, odometry_scan
+    from jetracer_orbslam2_torch.utils.device import resolve_device
+
+    dev = resolve_device(None)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    print(card.stdout.strip().splitlines()[0], flush=True)
+    n, warm, m = args.frames, 8, args.table_frames
+    seq = generate_sequence(1 + warm + n, (480, 640), device=dev)
+    fcfg, tcfg = FrontendConfig(), TrackingConfig()
+    state = init_state(seq.gray[0], seq.depth[0], seq.intrinsics, fcfg, tcfg)
+    state, _, _ = odometry_scan(state, seq.gray[1:warm + 1], seq.depth[1:warm + 1],
+                                seq.intrinsics, fcfg, tcfg)      # warm-up
+    torch.cuda.synchronize()
+    one = slice(warm + 1, warm + 2)
+
+    if args.sync_debug:
+        report_wrapper_host_cost(seq.gray[0], fcfg)
+        report_syncs(lambda: odometry_scan(
+            state, seq.gray[one], seq.depth[one], seq.intrinsics, fcfg, tcfg))
+        report_op_counts(lambda: odometry_scan(
+            state, seq.gray[one], seq.depth[one], seq.intrinsics, fcfg, tcfg),
+            args.rows)
+
+    gen_state = state.generator.get_state()
+
+    def window(frames: int):
+        """The same `frames` frames from the same state, timed on the host's
+        clock up to the final synchronisation."""
+        state.generator.set_state(gen_state)
+        t0 = time.perf_counter()
+        out = odometry_scan(state, seq.gray[warm + 1:warm + 1 + frames],
+                            seq.depth[warm + 1:warm + 1 + frames],
+                            seq.intrinsics, fcfg, tcfg)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def device_events(prof):
+        return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+    # the idle share: device time and wall time of ONE pass, traced on the
+    # device side only (tracing the host's ops as well would stretch the wall)
+    _, plain_wall = window(n)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        (_, _, ok), wall = window(n)
+    on_device = device_events(prof)
+    dev_s = sum(e.self_device_time_total for e in on_device) / 1e6
+    launches = sum(e.count for e in on_device)
+    print(f"{n} frames, device-traced pass: wall {wall / n * 1e3:.3f} ms/frame, "
+          f"device busy {dev_s / n * 1e3:.3f} ms/frame = {dev_s / wall:.1%} of "
+          f"that pass (idle {1 - dev_s / wall:.1%}); "
+          f"{launches / n:.0f} device kernels+copies per frame; "
+          f"tracked {int(ok.sum())}/{n}; the untraced pass before it: "
+          f"{plain_wall / n * 1e3:.3f} ms/frame, of which the same device time "
+          f"is {dev_s / plain_wall:.1%} (idle {1 - dev_s / plain_wall:.1%}) - "
+          f"tracing stretches the wall, so the two idle shares bracket the "
+          f"loop's own", flush=True)
+
+    # the operator tables: host and device activities over a few frames
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = window(m)
+    events = prof.key_averages()
+    print(f"{m} frames, host+device-traced pass: wall {wall / m * 1e3:.3f} ms/frame")
+    print(events.table(sort_by="self_cpu_time_total", row_limit=args.rows,
+                       max_name_column_width=60))
+    print(events.table(sort_by="self_cuda_time_total", row_limit=args.rows,
+                       max_name_column_width=60))
+    if args.trace:
+        os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
+        prof.export_chrome_trace(args.trace)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
