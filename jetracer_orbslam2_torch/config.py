@@ -3,9 +3,9 @@
 
 Frozen dataclasses: every field that shapes a tensor is a Python int/float,
 so one config object pins every shape on the compute path (fixed K keypoints
-plus validity masks, fixed RANSAC hypothesis count).  Only the dataclasses the
-ported modules read live here; the map/BA/loop/stereo configs arrive with
-their modules.
+plus validity masks, fixed RANSAC hypothesis count, fixed map capacities).
+The dataclasses are the JAX package's field for field, so one `SystemConfig`
+describes the same system in both; a test compares the defaults.
 """
 
 from __future__ import annotations
@@ -105,3 +105,174 @@ class TrackingConfig:
     min_inliers: int = 8
     max_depth: float = 8.0              # m, reject far/invalid depth
     min_depth: float = 0.05
+
+
+@dataclasses.dataclass(frozen=True)
+class MapConfig:
+    """Fixed-capacity keyframe/landmark store."""
+
+    max_keyframes: int = 256
+    max_landmarks: int = 16384
+    max_obs: int = 65536
+    kf_min_inlier_ratio: float = 0.35   # spawn KF when tracked ratio drops
+    kf_min_gap: int = 5                 # frames between keyframes
+    kf_max_gap: int = 30                # force a KF after this many frames
+    window_size: int = 8                # local-BA keyframe window
+    # landmark culling / observation recycling (map.compact_map): cull
+    # landmarks >= cull_min_age_kf keyframes old with < cull_min_obs
+    # observations whenever a capacity passes compact_at of its budget.
+    cull_min_obs: int = 3
+    cull_min_age_kf: int = 3
+    compact_at: float = 0.8
+    # keyframe culling / slot recycling (map.compact_keyframes): when the
+    # keyframe table passes compact_at of its budget, cull redundant
+    # keyframes (>= kf_cull_redundancy of their observed landmarks are
+    # covisible from >= kf_cull_min_covisible OTHER keyframes — the
+    # ORB-SLAM2 redundant-KF rule) and, under capacity pressure, force the
+    # most redundant ones out until only kf_target_fill of the table is
+    # occupied.  Slot 0 (gauge), the newest kf_protect_recent slots (the BA
+    # window) and loop-edge endpoints are never culled.  Culled keyframes
+    # retire into a bounded ring (uid + pose relative to a surviving
+    # anchor) so trajectory anchoring stays exact across recycling.
+    kf_cull_redundancy: float = 0.9
+    kf_cull_min_covisible: int = 3
+    kf_protect_recent: int = 8
+    kf_target_fill: float = 0.75
+    # endpoints of only the newest N loop edges are protected from culling
+    # (permanent protection of every edge ever accepted would shrink the
+    # cullable set until capacity-pressure eviction stops working on long
+    # many-loop runs); an older edge whose endpoint is culled is dropped —
+    # its correction is already baked into the optimized pose chain.
+    kf_protect_loop_recent: int = 8
+    max_dead_keyframes: int = 2048
+    # retained loop-closure constraints (KITTI-00-class sequences close
+    # many loops; every pose-graph solve re-applies ALL accepted edges)
+    max_loop_edges: int = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class BAConfig:
+    """Levenberg–Marquardt with Schur complement over landmark blocks."""
+
+    iters: int = 10
+    damping_init: float = 1e-3
+    damping_up: float = 10.0
+    damping_down: float = 0.1
+    huber_delta: float = 5.991 ** 0.5   # px, chi2 95% for 2-dof
+
+
+@dataclasses.dataclass(frozen=True)
+class PoseGraphConfig:
+    iters: int = 20
+    damping: float = 1e-6
+    # relative weight of loop-closure edges vs odometry chain edges in the
+    # pose-graph objective
+    loop_weight: float = 4.0
+
+
+@dataclasses.dataclass(frozen=True)
+class LoopClosureConfig:
+    """Retrieval gate + geometric verification for loop closure.
+
+    `min_sim` is the centered-cosine retrieval threshold (global descriptors
+    are mean BRIEF bit vectors; centering at 0.5 turns cosine into a
+    correlation, which separates revisits from merely-same-room views —
+    validated on the synthetic lap in tests/test_loop_closure.py)."""
+
+    min_sim: float = 0.55               # centered-cosine retrieval gate
+    min_kf_gap: int = 10                # don't match the last N keyframes
+    ransac_inlier_thresh: float = 0.10
+    # depth-scaled widening of the verification gate, same sensor model as
+    # TrackingConfig.ransac_depth_quad: loop pairs are often far geometry
+    # (the revisit is seen across the room), exactly where a fixed metric
+    # gate starves the RANSAC
+    ransac_depth_quad: float = 0.02
+    min_inliers: int = 20
+    # hardening against perceptual aliasing:
+    # top-N retrieval shortlist with batched geometric verification (the
+    # best-RANSAC candidate wins, so an aliased near-duplicate at rank 1
+    # cannot shadow the true revisit), a temporal-consistency gate
+    # (ORB-SLAM2's consecutive-detection rule: the winning candidate must
+    # lie within consistency_window FRAMES of the previous keyframe's
+    # winning candidate for min_consistency consecutive keyframes), and a
+    # world-frame check (the candidate's landmarks at their CURRENT
+    # post-BA positions must reproject into the query under the
+    # hypothesized pose — kf_points alone are frozen at insert time).
+    topn: int = 3
+    min_consistency: int = 2
+    consistency_window: int = 45        # frames (keyframe-uid distance)
+    world_window: float = 16.0          # px reprojection gate, world check
+    world_min_inliers: int = 10
+    world_max_obs: int = 256            # landmarks gathered per candidate
+
+
+@dataclasses.dataclass(frozen=True)
+class RelocConfig:
+    """Relocalization on tracking loss: after `after_frames` consecutive
+    failed tracks, retrieve the most similar keyframe (same global
+    descriptor as loop closure, no recency exclusion) and re-pose against
+    it with the loop-verification RANSAC."""
+
+    after_frames: int = 3               # consecutive lost frames before trying
+    min_sim: float = 0.4                # retrieval gate (looser than loops:
+    #                                     geometric RANSAC does the vetting)
+    ransac_inlier_thresh: float = 0.10
+    ransac_depth_quad: float = 0.02     # see LoopClosureConfig
+    # cap on the depth-widened inlier gate: unlike loop closure there is
+    # no world-frame reprojection backstop on the reloc accept path, and
+    # an uncapped 0.02*z^2 grows to ~1.4 m at the 8 m depth cap — far
+    # geometry would accept near-arbitrary poses
+    ransac_gate_cap: float = 0.5        # m
+    min_inliers: int = 15
+
+
+@dataclasses.dataclass(frozen=True)
+class StereoConfig:
+    """Stereo rig for the on-device scan paths (models/slam_scan with
+    SystemConfig.stereo set): the per-frame input pair is (left, right)
+    grayscale and depth comes from epipolar-gated descriptor matching +
+    subpixel SAD refinement (models/stereo.frontend_stereo): the
+    EuRoC/KITTI generalization of the RGB-D depth association.
+
+    All fields are static (floats/tuples) so a SystemConfig carrying one
+    stays hashable and pins the compiled program.  rect/dist fields
+    support non-pre-rectified rigs via keypoint-level rectification —
+    None means the pair is already rectified (KITTI, processed EuRoC)."""
+
+    baseline: float = 0.11              # m (EuRoC ~0.11, KITTI ~0.54)
+    max_disparity: float = 128.0        # px
+    epipolar_tol: float = 2.0           # px row tolerance
+    max_hamming: int = 48               # of 256 bits, L-R match gate
+    dist_r: Optional[Tuple[float, ...]] = None      # right-cam distortion
+    rect_l: Optional[Tuple[float, ...]] = None      # (9,) row-major R_l
+    rect_r: Optional[Tuple[float, ...]] = None      # (9,) row-major R_r
+    intrinsics_r: Optional[Tuple[float, ...]] = None  # right (fx,fy,cx,cy)
+
+
+@dataclasses.dataclass(frozen=True)
+class RuntimeConfig:
+    """Host pipeline: queue caps and backpressure."""
+
+    queue_capacity: int = 5
+    drop_when_full: bool = True
+    prefetch_frames: int = 4
+    telemetry_port: int = 9002          # WebSocket port
+    telemetry_rate_bytes: int = 5_000_000
+
+
+@dataclasses.dataclass(frozen=True)
+class SystemConfig:
+    frontend: FrontendConfig = dataclasses.field(default_factory=FrontendConfig)
+    tracking: TrackingConfig = dataclasses.field(default_factory=TrackingConfig)
+    map: MapConfig = dataclasses.field(default_factory=MapConfig)
+    ba: BAConfig = dataclasses.field(default_factory=BAConfig)
+    pose_graph: PoseGraphConfig = dataclasses.field(default_factory=PoseGraphConfig)
+    loop: LoopClosureConfig = dataclasses.field(default_factory=LoopClosureConfig)
+    reloc: RelocConfig = dataclasses.field(default_factory=RelocConfig)
+    runtime: RuntimeConfig = dataclasses.field(default_factory=RuntimeConfig)
+    # stereo rig: when set, the scan paths (slam_scan / ChunkedSlam) read
+    # each frame as a (left, right) pair instead of (gray, depth)
+    stereo: Optional[StereoConfig] = None
+
+    def replace(self, **kw) -> "SystemConfig":
+        return dataclasses.replace(self, **kw)

@@ -1,11 +1,13 @@
-"""Carry feature sets and odometry state between numpy and the port's tuples.
+"""Carry feature sets, odometry state, BA and pose-graph problems and the
+keyframe map between numpy and the port's tuples.
 
 The system has no learned weights; the state two implementations must share
-(in tests, or when resuming a run made elsewhere) is a frame's `Features` and
-the `OdomState`.  This module takes and returns numpy arrays only — field
-names and layouts are those of `models/frontend.Features` and
-`models/odometry.OdomState`, with descriptors as `uint32` words on the numpy
-side and `int32` words of the same bit pattern on the tensor side.
+(in tests, or when resuming a run made elsewhere) is a frame's `Features`, the
+`OdomState`, a `BAProblem`, a `PoseGraphProblem` and the `MapState`.  This
+module takes and returns numpy arrays only: field names and layouts are
+those of the port's tuples, field for field those of the JAX package, with
+descriptors as `uint32` words on the numpy side and `int32` words of the same
+bit pattern on the tensor side.
 """
 
 from __future__ import annotations
@@ -15,6 +17,9 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from jetracer_orbslam2_torch.models.backend.ba import BAProblem
+from jetracer_orbslam2_torch.models.backend.map import MapState
+from jetracer_orbslam2_torch.models.backend.pose_graph import PoseGraphProblem
 from jetracer_orbslam2_torch.models.frontend import Features
 from jetracer_orbslam2_torch.models.odometry import OdomState, make_generator
 from jetracer_orbslam2_torch.utils.device import resolve_device
@@ -83,3 +88,90 @@ def odom_state_to_numpy(state: OdomState) -> dict:
         "prev": features_to_numpy(state.prev),
         "frame_idx": int(state.frame_idx.cpu()),
     }
+
+
+_BA_DTYPES = {
+    "poses": np.float32, "points": np.float32, "obs_kf": np.int32,
+    "obs_lm": np.int32, "obs_uv": np.float32, "obs_z": np.float32,
+    "obs_z_valid": np.bool_, "obs_valid": np.bool_, "fixed": np.bool_,
+}
+
+_POSE_GRAPH_DTYPES = {
+    "poses": np.float32, "edge_i": np.int32, "edge_j": np.int32,
+    "edge_T": np.float32, "edge_weight": np.float32, "fixed": np.bool_,
+}
+
+_MAP_DTYPES = {
+    "kf_pose": np.float32, "kf_valid": np.bool_, "kf_frame_id": np.int32,
+    "kf_desc": np.uint32, "kf_xy": np.float32, "kf_points": np.float32,
+    "kf_has_point": np.bool_, "kf_global_desc": np.float32,
+    "lm_pos": np.float32, "lm_desc": np.uint32, "lm_valid": np.bool_,
+    "lm_ref_kf": np.int32,
+    "obs_kf": np.int32, "obs_lm": np.int32, "obs_uv": np.float32,
+    "obs_z": np.float32, "obs_valid": np.bool_,
+    "loop_i": np.int32, "loop_j": np.int32, "loop_T": np.float32,
+    "loop_valid": np.bool_,
+    "dead_uid": np.int32, "dead_anchor_uid": np.int32,
+    "dead_rel": np.float32, "dead_seq": np.int32, "dead_valid": np.bool_,
+    "num_kf": np.int32, "num_lm": np.int32, "num_obs": np.int32,
+    "num_loop": np.int32, "num_dead": np.int32,
+}
+
+
+def _tuple_from_numpy(cls, dtypes, fields, dev):
+    """Build the NamedTuple `cls` from `fields`: a mapping by field name, or
+    any object with those attributes (the other package's own tuple)."""
+    out = {}
+    for name, dtype in dtypes.items():
+        a = fields[name] if isinstance(fields, Mapping) else getattr(fields, name)
+        a = np.asarray(a)
+        # np.asarray(order="C") keeps a 0-dim counter 0-dim
+        if dtype is np.uint32:
+            words = np.asarray(a.astype(np.uint32), order="C")
+            out[name] = torch.from_numpy(words.view(np.int32).copy()).to(dev)
+        else:
+            out[name] = torch.from_numpy(
+                np.asarray(a.astype(dtype), order="C")).to(dev)
+    return cls(**out)
+
+
+def _tuple_to_numpy(dtypes, value) -> dict:
+    out = {}
+    for name, dtype in dtypes.items():
+        a = np.asarray(getattr(value, name).cpu().numpy(), order="C")
+        out[name] = a.view(np.uint32) if dtype is np.uint32 else a
+    return out
+
+
+def ba_problem_from_numpy(fields, device=None) -> BAProblem:
+    """`BAProblem` from numpy arrays keyed by field name (or from an object
+    with those attributes)."""
+    return _tuple_from_numpy(BAProblem, _BA_DTYPES, fields,
+                             resolve_device(device))
+
+
+def ba_result_to_numpy(poses: torch.Tensor, points: torch.Tensor, stats) -> dict:
+    """What `bundle_adjust` returns, as numpy arrays."""
+    return {
+        "poses": poses.cpu().numpy(),
+        "points": points.cpu().numpy(),
+        "cost": stats.cost.cpu().numpy(),
+        "num_edges": int(stats.num_edges.cpu()),
+    }
+
+
+def pose_graph_problem_from_numpy(fields, device=None) -> PoseGraphProblem:
+    return _tuple_from_numpy(PoseGraphProblem, _POSE_GRAPH_DTYPES, fields,
+                             resolve_device(device))
+
+
+def map_state_from_numpy(fields, device=None) -> MapState:
+    """`MapState` from numpy arrays keyed by field name (or from an object
+    with those attributes); `uint32` descriptors become `int32` words."""
+    return _tuple_from_numpy(MapState, _MAP_DTYPES, fields,
+                             resolve_device(device))
+
+
+def map_state_to_numpy(m: MapState) -> dict:
+    """Every field of the map as a numpy array (descriptors as `uint32`)."""
+    return _tuple_to_numpy(_MAP_DTYPES, m)

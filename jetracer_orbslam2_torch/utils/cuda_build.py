@@ -1,6 +1,6 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each kernel is one `csrc/<name>.cu` with a plain C interface.  At first use it
+Each kernel source is one `csrc/<name>.cu` with a plain C interface.  At first use it
 is compiled by `nvcc` for sm_90a into `jetracer_orbslam2_torch/_build/`
 (git-ignored) and loaded with `ctypes`; the library's file name carries a hash
 of the source and the flags, so an edited source rebuilds and an unchanged one
@@ -53,30 +53,42 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
+def build_libraries(names) -> None:
+    """Compile every `csrc/<name>.cu` of `names` that is not built yet: one
+    `nvcc` process per source, all started together, so several kernels cost
+    the time of the slowest.  Raises if any build fails."""
+    started = []
+    for name in names:
+        out = library_path(name)
+        if name in build_info or out.exists():
+            build_info.setdefault(name, {"seconds": 0.0, "log": ""})
+            continue
+        nvcc = find_nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        src = CSRC_DIR / f"{name}.cu"
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        started.append((name, src, tmp, out, proc, time.perf_counter()))
+    failures = []
+    for name, src, tmp, out, proc, t0 in started:
+        log = proc.communicate()[0].strip()
+        build_info[name] = {"seconds": time.perf_counter() - t0, "log": log}
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failures.append(
+                f"nvcc failed on {src} (exit {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, out)      # atomic: concurrent processes agree
+    if failures:
+        raise RuntimeError("\n".join(failures))
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Compile (if needed) and load `csrc/<name>.cu`; cached per process."""
     lib = _loaded.get(name)
-    if lib is not None:
-        return lib
-    src = CSRC_DIR / f"{name}.cu"
-    out = library_path(name)
-    info = {"seconds": 0.0, "log": ""}
-    if not out.exists():
-        nvcc = find_nvcc()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
-            capture_output=True, text=True)
-        info["seconds"] = time.perf_counter() - t0
-        info["log"] = (proc.stdout + proc.stderr).strip()
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed on {src} (exit {proc.returncode}):\n{info['log']}")
-        os.replace(tmp, out)      # atomic: concurrent processes agree
-    lib = ctypes.CDLL(str(out))
-    build_info[name] = info
-    _loaded[name] = lib
+    if lib is None:
+        build_libraries([name])
+        lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return lib

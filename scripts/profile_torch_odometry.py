@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Profile the PyTorch port's RGB-D odometry frame loop on the GPU.
+"""Profile the PyTorch port's RGB-D odometry frame loop, or its bundle
+adjustment, on the GPU.
 
     python3 scripts/profile_torch_odometry.py [--frames 120] [--trace out.json]
+    python3 scripts/profile_torch_odometry.py --ba [--landmarks 4096]
 
 Renders a 640x480 synthetic sequence on the card, warms the loop up, then
 runs `odometry_scan` over `--frames` frames under `torch.profiler` with the
@@ -13,6 +15,12 @@ by host time and by device time.  With `--sync-debug` it first prints the
 host's cost of one eager call of the FAST+NMS wrapper per level shape, the
 lines of the port that make the host wait for the device, and the number of
 ATen ops each function issues in one frame.
+
+With `--ba` it profiles `bundle_adjust` instead, on the synthetic problem of 8
+poses x `--landmarks` landmarks, 10 LM iterations, by the fused route (the
+hand-written kernels) and by the dense route: the host waits and the ATen
+ops of one call, then the wall time of an untraced call and the device-busy
+and idle share of a device-traced one.
 Needs a CUDA device; imports torch and the port only.
 """
 
@@ -27,7 +35,15 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def report_syncs(fn) -> None:
+def is_host_wait_warning(message) -> bool:
+    """True for the warning PyTorch's sync-debug mode raises at a host wait
+    ("called a synchronizing CUDA operation").  Switching the mode on warns
+    once itself ("Synchronization debug mode is a prototype feature ..."),
+    which is no wait and must not be counted as one."""
+    return "called a synchronizing" in str(message)
+
+
+def report_syncs(fn, what: str = "one frame") -> None:
     """Run `fn` with `torch.cuda.set_sync_debug_mode("warn")` and print, per
     line of the port, how often it made the host wait for the device."""
     import collections
@@ -39,13 +55,14 @@ def report_syncs(fn) -> None:
     hits = collections.Counter()
 
     def note(message, category, filename, lineno, file=None, line=None):
-        if "synchroniz" not in str(message):
+        if not is_host_wait_warning(message):
             return
-        port = [f for f in traceback.extract_stack()
-                if "jetracer_orbslam2_torch" in f.filename]
-        where = port[-1] if port else None
+        stack = traceback.extract_stack()[:-1]
+        port = [f for f in stack if "jetracer_orbslam2_torch" in f.filename]
+        # a wait outside the port's frames is named by its innermost frame
+        where = port[-1] if port else stack[-1]
         hits[(where.filename.split("jetracer_orbslam2_torch/")[-1],
-              where.lineno, where.line) if where else ("?", 0, "")] += 1
+              where.lineno, where.line)] += 1
 
     old = warnings.showwarning
     warnings.showwarning = note
@@ -57,7 +74,7 @@ def report_syncs(fn) -> None:
         torch.cuda.set_sync_debug_mode("default")
         warnings.showwarning = old
         warnings.resetwarnings()
-    print(f"host waits in one frame: {sum(hits.values())}")
+    print(f"host waits in {what}: {sum(hits.values())}")
     for (fname, lineno, line), count in hits.most_common():
         print(f"  {count:3d} x {fname}:{lineno}  {line}")
 
@@ -68,7 +85,7 @@ _VIEW_OPS = {
     "detach", "narrow", "unbind", "diagonal", "_reshape_alias", "lift_fresh"}
 
 
-def report_op_counts(fn, rows: int) -> None:
+def report_op_counts(fn, rows: int, what: str = "one frame") -> None:
     """Run `fn` under a dispatch mode and print how many non-view ATen ops
     each function of the port issues (each is at least one launch)."""
     import collections
@@ -90,7 +107,7 @@ def report_op_counts(fn, rows: int) -> None:
 
     with Count():
         fn()
-    print(f"non-view ops in one frame: {sum(by_func.values())}")
+    print(f"non-view ops in {what}: {sum(by_func.values())}")
     for name, count in by_func.most_common(rows):
         print(f"  {count:5d}  {name}")
 
@@ -119,8 +136,61 @@ def report_wrapper_host_cost(gray, fcfg, calls: int = 200) -> None:
               f"(host clock, {calls} calls)")
 
 
+def profile_ba(landmarks: int, rows: int) -> None:
+    """`bundle_adjust` at 8 poses x `landmarks`, 10 LM iterations, by both
+    routes: host waits and ATen ops of one call, wall time of an untraced
+    call, device-busy and idle share of a device-traced one."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from jetracer_orbslam2_torch.config import BAConfig
+    from jetracer_orbslam2_torch.models.backend.ba import bundle_adjust
+    from jetracer_orbslam2_torch.parallel.bench_ba import make_synthetic_ba
+
+    prob, intr = make_synthetic_ba(8, landmarks, 6)
+    cfg = BAConfig(iters=10)
+    for fused in (True, False):
+        name = "fused" if fused else "dense"
+
+        def run():
+            out = bundle_adjust(prob, intr, cfg, fused=fused)
+            torch.cuda.synchronize()
+            return out
+
+        def timed():
+            t0 = time.perf_counter()
+            run()
+            return time.perf_counter() - t0
+
+        run()                                            # build + warm
+        what = f"one bundle_adjust ({name} route, {cfg.iters} iterations)"
+        report_syncs(run, what)
+        report_op_counts(run, rows, what)
+        plain_wall = min(timed() for _ in range(3))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            wall = timed()
+        on_device = [e for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA]
+        dev_s = sum(e.self_device_time_total for e in on_device) / 1e6
+        launches = sum(e.count for e in on_device)
+        print(f"bundle_adjust 8 x {landmarks}, {name} route: untraced wall "
+              f"{plain_wall / cfg.iters * 1e3:.3f} ms per LM iteration (best of "
+              f"3); device-traced call: wall {wall / cfg.iters * 1e3:.3f} ms, "
+              f"device busy {dev_s / cfg.iters * 1e3:.3f} ms per iteration = "
+              f"{dev_s / wall:.1%} of that call (idle {1 - dev_s / wall:.1%}; "
+              f"{1 - dev_s / plain_wall:.1%} of the untraced wall); "
+              f"{launches / cfg.iters:.0f} device kernels+copies per iteration",
+              flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--ba", action="store_true",
+                    help="profile bundle_adjust (both routes) instead of the "
+                         "odometry frame loop")
+    ap.add_argument("--landmarks", type=int, default=4096,
+                    help="landmarks of the --ba problem (8 poses)")
     ap.add_argument("--frames", type=int, default=120,
                     help="frames of the pass the idle share is taken over")
     ap.add_argument("--table-frames", type=int, default=8,
@@ -147,6 +217,10 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     print(card.stdout.strip().splitlines()[0], flush=True)
+    if args.ba:
+        with torch.no_grad():
+            profile_ba(args.landmarks, args.rows)
+        return 0
     n, warm, m = args.frames, 8, args.table_frames
     seq = generate_sequence(1 + warm + n, (480, 640), device=dev)
     fcfg, tcfg = FrontendConfig(), TrackingConfig()

@@ -28,7 +28,12 @@ def _sources():
 
 def test_port_sources_name_no_jax_import():
     files = _sources()
-    assert len(files) > 20
+    assert len(files) > 30
+    names = {str(f.relative_to(ROOT)) for f in files}
+    for new in ("models/backend/ba.py", "models/backend/map.py",
+                "models/backend/pose_graph.py", "models/slam.py",
+                "ops/fused_ba.py", "parallel/bench_ba.py", "convert.py"):
+        assert f"jetracer_orbslam2_torch/{new}" in names
     for path in files:
         assert not _FORBIDDEN.search(path.read_text()), path
 
@@ -67,7 +72,7 @@ def test_port_imports_with_jax_blocked():
         [sys.executable, "-c", _IMPORT_ALL], cwd=ROOT, capture_output=True,
         text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
-    assert int(out.stdout.split()[-1]) >= 20
+    assert int(out.stdout.split()[-1]) >= 30
 
 
 def test_resolve_device_never_falls_back():
@@ -110,6 +115,85 @@ def test_entry_points_default_to_the_card():
             call()
 
 
+def test_backend_entry_points_default_to_the_card():
+    """Every entry point of the BA / map / pose-graph slice runs on cuda:0
+    unless asked for the CPU, wherever its inputs lie."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour of a machine without a CUDA device")
+    from jetracer_orbslam2_torch.config import (
+        BAConfig, MapConfig, PoseGraphConfig, SystemConfig)
+    from jetracer_orbslam2_torch.models import slam
+    from jetracer_orbslam2_torch.models.backend import ba, map as map_mod
+    from jetracer_orbslam2_torch.models.backend import pose_graph as pg
+    from jetracer_orbslam2_torch.models.frontend import Features
+    from jetracer_orbslam2_torch.parallel import bench_ba
+
+    prob, intr = bench_ba.make_synthetic_ba(3, 8, 2, device="cpu")
+    obs, _ = ba.edges_to_dense(3, 8, *prob[2:8])
+    m = map_mod.init_map(MapConfig(max_keyframes=2, max_landmarks=8, max_obs=16),
+                         4, device="cpu")
+    k = 4
+    feats = Features(
+        xy=torch.zeros(k, 2), level=torch.zeros(k, dtype=torch.int32),
+        score=torch.zeros(k), angle=torch.zeros(k),
+        desc=torch.zeros(k, 8, dtype=torch.int32),
+        valid=torch.ones(k, dtype=torch.bool), points=torch.ones(k, 3),
+        has_point=torch.ones(k, dtype=torch.bool))
+    graph = pg.PoseGraphProblem(
+        poses=torch.eye(4).repeat(2, 1, 1), edge_i=torch.tensor([0]),
+        edge_j=torch.tensor([1]), edge_T=torch.eye(4)[None],
+        edge_weight=torch.ones(1), fixed=torch.tensor([True, False]))
+    none = torch.zeros(k, dtype=torch.bool)
+    calls = {
+        "make_synthetic_ba": lambda **kw: bench_ba.make_synthetic_ba(3, 8, 2, **kw),
+        "bundle_adjust": lambda **kw: ba.bundle_adjust(
+            prob, intr, BAConfig(iters=1), **kw),
+        "lm_run_dense": lambda **kw: ba.lm_run_dense(
+            prob.poses, prob.points, obs, prob.fixed,
+            torch.ones(8, dtype=torch.bool), intr, BAConfig(iters=1), **kw),
+        "time_ba": lambda **kw: bench_ba.time_ba(
+            prob, intr, BAConfig(iters=1), reps=1, **kw),
+        "optimize_pose_graph": lambda **kw: pg.optimize_pose_graph(
+            graph, PoseGraphConfig(iters=1), **kw),
+        "init_map": lambda **kw: map_mod.init_map(MapConfig(), 4, **kw),
+        "insert_keyframe": lambda **kw: map_mod.insert_keyframe(
+            m, feats, torch.eye(4), 0, ~none, torch.zeros(k, dtype=torch.int32),
+            none, **kw),
+        "compact_map": lambda **kw: map_mod.compact_map(m, 2, 0, **kw),
+        "associate_landmarks": lambda **kw: map_mod.associate_landmarks(
+            m, feats, torch.eye(4), intr, **kw),
+        "local_ba": lambda **kw: slam.local_ba(
+            m, intr, 2, SystemConfig(ba=BAConfig(iters=1)), **kw),
+    }
+    for name, call in calls.items():
+        # CPU tensors do not choose the CPU ...
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+        # ... only device="cpu" does
+        call(device="cpu")
+
+
+def test_ba_kernel_source_and_wrapper_contract():
+    from jetracer_orbslam2_torch.ops import fused_ba
+
+    path = cuda_build.library_path("ba_fused")
+    assert re.fullmatch(r"ba_fused-[0-9a-f]{16}\.so", path.name)
+    src = (PORT / "csrc" / "ba_fused.cu").read_text()
+    for entry in ("ba_assemble_launch", "ba_backsub_launch",
+                  "ba_workspace_floats", "ba_max_poses"):
+        assert re.search(r'extern "C" [a-z ]+ ' + entry + r"\(", src), entry
+    cap = int(re.search(r"constexpr int MAX_POSES = (\d+);", src).group(1))
+    assert cap == fused_ba.MAX_POSES == 16
+    # plain FP32 sums in a fixed order: no atomics, no tensor cores, no
+    # library call, no PyTorch header
+    for banned in ("atomicAdd", "wmma", "mma.sync", "wgmma", "cublas",
+                   "torch/extension.h", "#include <ATen"):
+        assert banned not in src, banned
+    wrapper = (PORT / "ops" / "fused_ba.py").read_text()
+    assert "torch.compile" not in wrapper and "import triton" not in wrapper
+    assert wrapper.count(".launches += 1") == 2
+
+
 def test_set_exact_f32():
     torch.backends.cudnn.allow_tf32 = True
     set_exact_f32()
@@ -141,3 +225,21 @@ def test_kernel_library_is_keyed_by_source_hash():
     assert 'extern "C" int fast_nms_launch' in src
     ignore = (ROOT / ".gitignore").read_text().split()
     assert "jetracer_orbslam2_torch/_build/" in ignore
+
+
+def test_profile_script_counts_only_host_waits():
+    """Switching PyTorch's sync-debug mode on warns once about the mode
+    itself; only the warning of a synchronizing operation is a host wait."""
+    import importlib.util
+
+    path = ROOT / "scripts" / "profile_torch_odometry.py"
+    assert not _FORBIDDEN.search(path.read_text())
+    spec = importlib.util.spec_from_file_location("profile_torch_odometry", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert mod.is_host_wait_warning(UserWarning(
+        "called a synchronizing CUDA operation (Triggered internally at "
+        "CUDAFunctions.cpp:162.)"))
+    assert not mod.is_host_wait_warning(UserWarning(
+        "Synchronization debug mode is a prototype feature and does not yet "
+        "detect all synchronizing operations"))
