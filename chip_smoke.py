@@ -8,16 +8,22 @@ RGB-D odometry on a synthetic 640x480 sequence at the CLI's defaults (4
 pyramid levels, 1024 keypoints, 256 RANSAC hypotheses), standalone bundle
 adjustment at 8 poses x 4,096 landmarks, windowed BA over a keyframe map at
 its full capacity (256 keyframe slots, 16,384 landmarks, 65,536
-observations) and the pose graph.  It builds the hand-written CUDA kernels
-from the sources in this checkout, holds each against its plain PyTorch
-version, shows that each path launched its kernels, and times them.
+observations), the pose graph, and the full SLAM system (`slam_scan`, `Slam`,
+the CLI's default mode) with loop closure: a 126-frame lap at 240x180 and
+1,200 frames of 640x480 over three laps.  It builds the hand-written CUDA
+kernels from the sources in this checkout, holds each against its plain
+PyTorch version, shows that each path launched its kernels, and times them.
 
 Phases (any failure ends the run with a non-zero exit; there is no CPU path):
    1 device       a CUDA device must be present; prints the card's name and
                   power limit as nvidia-smi gives them
-   2 build        nvcc compiles csrc/fast_nms.cu and csrc/ba_fused.cu side by
-                  side; prints seconds and ptxas' notes
-   3 K1 check     fast_nms kernel vs plain version, torch.equal, every shape
+   2 build        nvcc compiles csrc/fast_nms.cu, csrc/ba_fused.cu and
+                  csrc/patch_gather.cu side by side; prints seconds and ptxas'
+                  notes
+   3 K1, K4 check fast_nms kernel vs plain version, torch.equal, every shape;
+                  patch_gather kernel vs plain version, torch.equal, on the
+                  pyramids of rendered frames at three sizes and on adversarial
+                  window origins; two launches bit-identical
    4 semantics    tie orders and CPU/GPU agreement of the front-end
    5 main path    whole-sequence odometry: ATE, tracked fraction, kernel
                   launches; --chunked 32 on the same frames gives the same
@@ -34,6 +40,21 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
   10 pose graph   a drifted ring closes; a second run gives the same poses
   11 K2/K3 time   device time per launch beside the counted bound and the
                   plain version's time
+  12 SLAM lap     126 frames of 240x180 around one lap with 2 %.z^2 depth
+                  noise: slam_scan twice (bit-identical) and Slam on the same
+                  frames must agree; over three draws of the noise every lap
+                  must track, close a loop and leave at most half of the
+                  revisit's gap that a run with no closure leaves, and the
+                  median ATE must stay under 58 cm
+  13 SLAM path    slam_scan over 1,200 frames of 640x480, three laps, map of
+                  128 keyframe slots / 16,384 landmarks / 65,536 observations:
+                  tracked fraction, loops, ATE, every kernel's launch count;
+                  frames/s of the run
+  14 lifecycle    three laps at 240x180 with 32 keyframe slots: keyframes are
+                  culled and their slots recycled, tracking holds to the end
+  15 CLI          run.main at its default mode (slam), whole and --chunked 8
+  16 K4 time      device time per launch beside the bound, the plain version
+                  and the one indexing call that computes the same
 Kernel times are CUDA events around a replayed CUDA graph of launches.  Then
 the paths' reports, one JSON line `{"kernels": [...]}`, and as the last line
 `{"ok": true, "device": {...}}`.
@@ -56,7 +77,19 @@ F32_OPS_PER_S = 67e12
 
 FAST_THRESHOLD, FAST_ARC, FAST_BORDER = 13.0, 12, 19
 N_FRAMES = 120
-N_PHASES = 11
+N_PHASES = 16
+PATCH = 37
+
+# SLAM path at full width (the JAX package's long-sequence benchmark): frames,
+# frames a lap, depth noise (x z^2), keyframe slots
+LONG_FRAMES, LONG_LAP, LONG_NOISE, LONG_KEYFRAMES = 1200, 400, 0.01, 128
+LONG_ATE_M = 0.24          # the JAX package's 18.2 cm on this workload + 30 %
+# gated lap (an earlier gate of the JAX package at a smaller size)
+LAP_SHAPE, LAP_FRAMES, LAP_LENGTH, LAP_NOISE = (180, 240), 126, 110, 0.02
+LAP_NOISE_SEEDS = (0, 1, 2)
+# median over the noise draws; the JAX package gives 44.5 cm on the first draw
+# when it runs on a CPU (scripts/compare_lap_cpu.py), + 30 %
+LAP_ATE_M = 0.58
 
 # BA path: the standalone problem size, and the keyframes of the local-BA map
 BA_POSES, BA_LANDMARKS, BA_OBS_PER_LM, BA_ITERS = 8, 4096, 6, 10
@@ -247,12 +280,16 @@ def phase_main_path(argv, args, source, dev):
     import numpy as np
     import torch
     from jetracer_orbslam2_torch import run
-    from jetracer_orbslam2_torch.ops import fused_fast
+    from jetracer_orbslam2_torch.ops import fused_fast, fused_patches
 
     frames, n, hw, intr, gt = source
     fused_fast.fast_nms_response.launches = 0
+    fused_patches.patch_gather.launches = 0
     report, poses = run._run_odometry(args, frames, n, hw, intr, dev)
     launches = fused_fast.fast_nms_response.launches
+    if fused_patches.patch_gather.launches != n:
+        raise SystemExit(f"FAIL: patch_gather launches "
+                         f"{fused_patches.patch_gather.launches} != {n}")
     run._accuracy(report, poses, gt, n)
     say("  main path (cold): " + json.dumps(report))
     if not np.isfinite(poses).all() or poses.shape != (n, 4, 4):
@@ -856,6 +893,405 @@ def phase_ba_kernel_times(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# K4 (patch_gather) and the SLAM paths
+# ---------------------------------------------------------------------------
+
+def _frame_pyramid(shape, levels, k, dev):
+    """Pyramid levels and keypoints of one rendered frame, as the front-end
+    makes them."""
+    from jetracer_orbslam2_torch.config import FrontendConfig
+    from jetracer_orbslam2_torch.io.synthetic import generate_sequence
+    from jetracer_orbslam2_torch.models import frontend
+    from jetracer_orbslam2_torch.ops import preprocess
+
+    cfg = FrontendConfig(height=shape[0], width=shape[1], num_levels=levels,
+                         max_keypoints=k)
+    gray = generate_sequence(2, shape, device=dev).gray[1]
+    pyramid = preprocess.build_pyramid(preprocess.gaussian_blur_3x3(gray), levels)
+    kp, _, _ = frontend.extract_features(gray, cfg)
+    return pyramid, kp
+
+
+def phase_patch_kernel_checks(dev) -> tuple:
+    """patch_gather vs its plain version, bit for bit.  Returns the largest
+    absolute difference and the AND of torch.equal over all cases, and the
+    640x480 pyramid and keypoints for the timing phase."""
+    import torch
+    from jetracer_orbslam2_torch.ops import fused_patches, patches
+
+    full = None
+    max_err, all_equal = 0.0, True
+    for shape, levels, k in (((480, 640), 4, 1024), ((240, 320), 3, 512),
+                             ((120, 160), 2, 256)):
+        pyramid, kp = _frame_pyramid(shape, levels, k, dev)
+        full = full or (pyramid, kp)
+        before = fused_patches.patch_gather.launches
+        got = fused_patches.extract_patches_fused(pyramid, kp, PATCH)
+        again = fused_patches.extract_patches_fused(pyramid, kp, PATCH)
+        ref = patches.extract_patches(pyramid, kp, PATCH)
+        torch.cuda.synchronize()
+        equal = torch.equal(got, ref) and torch.equal(got, again)
+        err = float((got - ref).abs().max())
+        max_err, all_equal = max(max_err, err), all_equal and equal
+        say(f"  kernel vs plain  patches {shape[1]}x{shape[0]}, {levels} levels, "
+            f"K {k} ({int(kp.valid.sum())} valid)  max_abs_err {err:g}  equal {equal}")
+        if not equal or fused_patches.patch_gather.launches != before + 2:
+            raise SystemExit("FAIL: patch_gather disagrees with its plain version "
+                             f"at {shape}")
+    canvas, _ = patches.pack_levels(full[0])
+    canvas = canvas.contiguous()
+    rows, cols = canvas.shape
+    i32 = dict(dtype=torch.int32, device=dev)
+    cases = {
+        "corners": ([0, 0, rows - PATCH, rows - PATCH], [0, cols - PATCH, 0, cols - PATCH]),
+        "one pixel x1024": ([123] * 1024, [456] * 1024),
+        "K = 1": ([rows // 2], [cols // 2]),
+        "windows off the canvas": ([-5, rows - 3, 40], [-7, 10, cols - 2]),
+    }
+    for name, (ys, xs) in cases.items():
+        ys, xs = torch.tensor(ys, **i32), torch.tensor(xs, **i32)
+        got = fused_patches.patch_gather(canvas, ys, xs, PATCH)
+        again = fused_patches.patch_gather(canvas, ys, xs, PATCH)
+        ref = fused_patches.patch_gather_reference(canvas, ys, xs, PATCH)
+        torch.cuda.synchronize()
+        equal = torch.equal(got, ref) and torch.equal(got, again)
+        err = float((got - ref).abs().max())
+        max_err, all_equal = max(max_err, err), all_equal and equal
+        say(f"  kernel vs plain  origins: {name:24s} max_abs_err {err:g}  equal {equal}")
+        if not equal:
+            raise SystemExit(f"FAIL: patch_gather disagrees at {name}")
+    origins = torch.zeros(4, **i32)
+    for bad in (lambda: fused_patches.patch_gather(canvas.double(), origins, origins, PATCH),
+                lambda: fused_patches.patch_gather(canvas.T, origins, origins, PATCH),
+                lambda: fused_patches.patch_gather(canvas, origins.long(), origins.long(), PATCH),
+                lambda: fused_patches.patch_gather(canvas, origins.cpu(), origins, PATCH)):
+        try:
+            bad()
+        except (ValueError, TypeError):
+            continue
+        raise SystemExit("FAIL: the patch wrapper accepted an input the kernel does not take")
+    return max_err, all_equal, full
+
+
+def phase_patch_kernel_time(pyramid, kp) -> dict:
+    """patch_gather at the main path's shape: kernel, the whole plain
+    version, one indexing call with its index prebuilt, and the bound."""
+    import torch
+    from jetracer_orbslam2_torch.ops import fused_patches, patches
+
+    canvas, offsets = patches.pack_levels(pyramid)
+    canvas = canvas.contiguous()
+    ys, xs = fused_patches.patch_origins(pyramid, offsets, kp, PATCH)
+    before = fused_patches.patch_gather.launches
+    ms = time_launches(lambda: fused_patches.patch_gather(canvas, ys, xs, PATCH),
+                       reps=20, batch=20)
+    assert fused_patches.patch_gather.launches > before
+    plain_ms = time_launches(lambda: patches.extract_patches(pyramid, kp, PATCH),
+                             reps=20, batch=4)
+    offs = torch.arange(PATCH, device=canvas.device)
+    index = ((ys.long()[:, None, None] + offs[None, :, None]) * canvas.shape[1]
+             + xs.long()[:, None, None] + offs[None, None, :])
+    flat = canvas.reshape(-1)
+    if not torch.equal(flat[index], fused_patches.patch_gather(canvas, ys, xs, PATCH)):
+        raise SystemExit("FAIL: the library call does not compute patch_gather")
+    library_ms = time_launches(lambda: flat[index], reps=20, batch=20)
+    # every input read once, the output written once; nothing is computed
+    n_bytes = 4 * (canvas.numel() + ys.numel() + xs.numel()
+                   + ys.numel() * PATCH * PATCH)
+    row = {"shape": [list(canvas.shape), int(ys.numel()), PATCH], "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "bytes": n_bytes, "operations": 0}
+    say(f"  patch_gather canvas {tuple(canvas.shape)}, K {ys.numel()}, P {PATCH}: "
+        f"kernel {ms:.5f} ms on the card, plain extract_patches {plain_ms:.4f} ms, "
+        f"one indexing call {library_ms:.5f} ms, bound {row['bound_ms']:.6f} ms "
+        f"(bytes: {n_bytes} B)")
+    return row
+
+
+def _kernel_counters() -> dict:
+    from jetracer_orbslam2_torch.ops import fused_ba, fused_fast, fused_patches
+
+    return {"fast_nms_response": fused_fast.fast_nms_response,
+            "patch_gather": fused_patches.patch_gather,
+            "fused_normal_schur": fused_ba.fused_normal_schur,
+            "fused_backsub": fused_ba.fused_backsub}
+
+
+def _reset_counters() -> None:
+    for fn in _kernel_counters().values():
+        fn.launches = 0
+
+
+def _read_counters() -> dict:
+    return {name: fn.launches for name, fn in _kernel_counters().items()}
+
+
+def _lap(shape, n_frames, lap_frames, noise, noise_seed, dev):
+    """A lap sequence rendered on the card, with depth noise of `noise` x z^2
+    from a numpy generator seeded with `noise_seed` (small sequences) or from
+    a generator on the card (long ones)."""
+    import numpy as np
+    import torch
+    from jetracer_orbslam2_torch.io.synthetic import generate_lap_sequence
+
+    seq = generate_lap_sequence(n_frames, shape, lap_frames=lap_frames, device=dev)
+    if n_frames * shape[0] * shape[1] <= 32_000_000:
+        rnd = torch.from_numpy(np.random.RandomState(noise_seed).randn(
+            *seq.depth.shape).astype(np.float32)).to(dev)
+    else:
+        g = torch.Generator(device=dev).manual_seed(noise_seed)
+        rnd = torch.randn(seq.depth.shape, generator=g, device=dev)
+    return seq, seq.depth * (1.0 + noise * seq.depth * rnd)
+
+
+def _scan(seq, depth, cfg):
+    """init_scan_state + slam_scan + one fetch -> (final, out, poses, ATE m)."""
+    import numpy as np
+    import torch
+    from jetracer_orbslam2_torch.evaluation import ate
+    from jetracer_orbslam2_torch.models import slam_scan as ss
+
+    state = ss.init_scan_state(seq.gray[0], depth[0], seq.intrinsics, cfg)
+    final, out = ss.slam_scan(state, seq.gray[1:], depth[1:], seq.intrinsics, cfg)
+    poses = np.concatenate([final.m.kf_pose[:1].cpu().numpy(),
+                            ss.compose_trajectory(final, out)])
+    if not np.isfinite(poses).all() or poses.shape != (seq.gray.shape[0], 4, 4):
+        raise SystemExit("FAIL: slam_scan's poses are not finite (N, 4, 4)")
+    rmse = float(ate(torch.from_numpy(poses), seq.poses.cpu()).rmse)
+    return final, out, poses, rmse
+
+
+def _check_obs_prefix(m, what: str) -> None:
+    ok = m.obs_valid.cpu().numpy()
+    count = int(m.num_obs)
+    kf = m.obs_kf.cpu().numpy()[:count]
+    if not (ok[:count].all() and not ok[count:].any() and (kf[1:] >= kf[:-1]).all()):
+        raise SystemExit(f"FAIL: {what}: obs_kf is not sorted over its valid prefix")
+
+
+def phase_slam_lap(dev) -> dict:
+    """The gated lap: slam_scan and Slam on the same noisy frames, then the
+    lap with and without loop closure over LAP_NOISE_SEEDS draws of the noise."""
+    import numpy as np
+    import torch
+    from jetracer_orbslam2_torch.config import (
+        FrontendConfig, LoopClosureConfig, SystemConfig, TrackingConfig)
+    from jetracer_orbslam2_torch.evaluation import ate
+    from jetracer_orbslam2_torch.models.slam import Slam
+
+    h, w = LAP_SHAPE
+    cfg = SystemConfig(
+        frontend=FrontendConfig(height=h, width=w, num_levels=3, max_keypoints=512),
+        tracking=TrackingConfig(match_window=16.0))
+    seq, depth = _lap(LAP_SHAPE, LAP_FRAMES, LAP_LENGTH, LAP_NOISE, 0, dev)
+    _, _, warm_poses, _ = _scan(seq, depth, cfg)             # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final, out, poses, rmse = _scan(seq, depth, cfg)
+    scan_s = time.perf_counter() - t0
+    if not np.array_equal(poses, warm_poses):
+        raise SystemExit("FAIL: a second slam_scan with the same seed gave "
+                         "other poses (insert, BA, loop closure and the pose "
+                         "graph must repeat bit for bit)")
+    tracked = out.tracked.cpu().numpy()
+
+    t0 = time.perf_counter()
+    slam = Slam(cfg, seq.intrinsics)
+    for i in range(LAP_FRAMES):
+        slam.process_frame(seq.gray[i], depth[i])
+    o = slam.result()
+    slam_s = time.perf_counter() - t0
+    slam_rmse = float(ate(torch.from_numpy(o.poses), seq.poses.cpu()).rmse)
+    if (int(final.num_loops), int(final.m.num_kf), int(final.num_relocs)) != (
+            o.num_loops, o.num_keyframes, o.num_relocs):
+        raise SystemExit("FAIL: slam_scan and Slam disagree on loops, keyframes "
+                         "or relocalizations")
+    if not np.array_equal(tracked, o.tracked[1:]):
+        raise SystemExit("FAIL: slam_scan and Slam disagree on the tracked flags")
+    pose_diff = float(np.abs(poses - o.poses).max())
+    if pose_diff > 1e-3 or abs(rmse - slam_rmse) > 1e-3:
+        raise SystemExit("FAIL: slam_scan and Slam disagree on the poses")
+
+    # the revisit: frames LAP_LENGTH.. see what frames 0.. saw, from the same
+    # places.  What is left between the two, with the loop closed and (the
+    # control) with the retrieval gate shut so that no loop can close; over
+    # LAP_NOISE_SEEDS draws of the depth noise, since one draw's ATE says little
+    def revisit_gap(p):
+        return float(np.linalg.norm(
+            p[LAP_LENGTH:, :3, 3] - p[:LAP_FRAMES - LAP_LENGTH, :3, 3],
+            axis=1).mean())
+
+    open_cfg = cfg.replace(loop=LoopClosureConfig(min_sim=2.0))
+    draws = []
+    for noise_seed in LAP_NOISE_SEEDS:
+        if noise_seed != LAP_NOISE_SEEDS[0]:
+            seq, depth = _lap(LAP_SHAPE, LAP_FRAMES, LAP_LENGTH, LAP_NOISE,
+                              noise_seed, dev)
+            final, out, poses, rmse = _scan(seq, depth, cfg)
+        open_final, _, open_poses, open_rmse = _scan(seq, depth, open_cfg)
+        if int(open_final.num_loops) != 0:
+            raise SystemExit("FAIL: a loop closed with the retrieval gate shut")
+        draws.append({
+            "noise_seed": noise_seed, "keyframes": int(final.m.num_kf),
+            "loops": int(final.num_loops), "relocs": int(final.num_relocs),
+            "tracked_frac": float(out.tracked.float().mean()),
+            "ate_rmse_m": rmse, "revisit_gap_mean_m": revisit_gap(poses),
+            "no_loop_ate_rmse_m": open_rmse,
+            "no_loop_revisit_gap_mean_m": revisit_gap(open_poses)})
+    median_ate = statistics.median(d["ate_rmse_m"] for d in draws)
+    report = {
+        "frames": LAP_FRAMES, "shape": [h, w], "draws": draws,
+        "median_ate_rmse_m": median_ate, "ate_limit_m": LAP_ATE_M,
+        "no_loop_median_ate_rmse_m": statistics.median(
+            d["no_loop_ate_rmse_m"] for d in draws),
+        "slam_ate_rmse_m": slam_rmse, "scan_vs_slam_max_pose_diff": pose_diff,
+        "scan_fps": LAP_FRAMES / scan_s, "slam_fps": LAP_FRAMES / slam_s,
+        "tpu_bar_ate_m": 0.27, "tpu_bar_met": bool(median_ate <= 0.27),
+    }
+    say("  gated lap: " + json.dumps(report))
+    for d in draws:
+        if d["tracked_frac"] < 0.95 or d["loops"] < 1:
+            raise SystemExit("FAIL: the gated lap lost tracking or closed no loop "
+                             f"(noise seed {d['noise_seed']})")
+        if not d["revisit_gap_mean_m"] <= 0.5 * d["no_loop_revisit_gap_mean_m"]:
+            raise SystemExit("FAIL: closing the loop left more than half of the "
+                             f"revisit's gap (noise seed {d['noise_seed']})")
+    if not median_ate <= LAP_ATE_M:
+        raise SystemExit(f"FAIL: gated lap median ATE {median_ate:.3f} m > "
+                         f"{LAP_ATE_M} m")
+    return report
+
+
+def phase_slam_path(dev) -> tuple[dict, dict]:
+    """slam_scan at full width over three laps; returns the report and every
+    kernel's launch count on the run."""
+    import torch
+    from jetracer_orbslam2_torch.config import (
+        FrontendConfig, MapConfig, SystemConfig, TrackingConfig)
+
+    cfg = SystemConfig(
+        frontend=FrontendConfig(height=480, width=640, fast_min_threshold=7.0),
+        tracking=TrackingConfig(), map=MapConfig(max_keyframes=LONG_KEYFRAMES))
+    t0 = time.perf_counter()
+    seq, depth = _lap((480, 640), LONG_FRAMES, LONG_LAP, LONG_NOISE, 7, dev)
+    torch.cuda.synchronize()
+    say(f"  rendered {LONG_FRAMES} frames of 640x480 on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    # warm-up on the first frames: every shape of the run has been seen once
+    warm = seq._replace(gray=seq.gray[:40], depth=depth[:40], poses=seq.poses[:40])
+    _scan(warm, depth[:40], cfg)
+    _reset_counters()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    final, out, poses, rmse = _scan(seq, depth, cfg)
+    stop.record()
+    stop.synchronize()
+    launches = _read_counters()
+    ms = start.elapsed_time(stop)
+    inserted = int(out.is_kf.sum())
+    m = final.m
+    report = {
+        "frames": LONG_FRAMES, "shape": [480, 640], "levels": 4, "keypoints": 1024,
+        "map_capacity": [LONG_KEYFRAMES, int(m.lm_valid.shape[0]),
+                         int(m.obs_valid.shape[0])],
+        "tracked_frac": float(out.tracked.float().mean()),
+        "loops": int(final.num_loops), "relocs": int(final.num_relocs),
+        "keyframes": int(m.num_kf), "keyframes_inserted": inserted,
+        "keyframes_recycled": int(m.num_dead), "landmarks": int(m.num_lm),
+        "observations": int(m.num_obs), "ate_rmse_m": rmse,
+        "ms_per_frame": ms / LONG_FRAMES, "fps": LONG_FRAMES / (ms / 1e3),
+        "launches": launches,
+    }
+    say("  SLAM path: " + json.dumps(report))
+    if report["tracked_frac"] < 0.95 or report["loops"] < 1:
+        raise SystemExit("FAIL: the SLAM path lost tracking or closed no loop")
+    if not rmse <= LONG_ATE_M:
+        raise SystemExit(f"FAIL: SLAM path ATE {rmse:.3f} m > {LONG_ATE_M} m")
+    if not (report["landmarks"] < m.lm_valid.shape[0]
+            and report["observations"] < m.obs_valid.shape[0]):
+        raise SystemExit("FAIL: the map ran out of landmark or observation slots")
+    want = {"fast_nms_response": 8 * LONG_FRAMES, "patch_gather": LONG_FRAMES,
+            "fused_normal_schur": 10 * inserted, "fused_backsub": 10 * inserted}
+    if launches != want:
+        raise SystemExit(f"FAIL: SLAM path launches {launches}, expected {want}")
+    _check_obs_prefix(m, "SLAM path")
+    return report, launches
+
+
+def phase_map_lifecycle(dev) -> dict:
+    """Three laps through a map of 32 keyframe slots: compact_keyframes must
+    recycle slots while tracking holds and every frame keeps a pose."""
+    import numpy as np
+    from jetracer_orbslam2_torch.config import (
+        FrontendConfig, MapConfig, SystemConfig, TrackingConfig)
+    from jetracer_orbslam2_torch.models.backend import map as map_mod
+
+    h, w = LAP_SHAPE
+    n_frames = 3 * LAP_LENGTH + 16
+    cfg = SystemConfig(
+        frontend=FrontendConfig(height=h, width=w, num_levels=3, max_keypoints=512),
+        tracking=TrackingConfig(match_window=16.0),
+        map=MapConfig(max_keyframes=32))
+    seq, depth = _lap(LAP_SHAPE, n_frames, LAP_LENGTH, LAP_NOISE, 0, dev)
+    final, out, poses, rmse = _scan(seq, depth, cfg)
+    m = final.m
+    table = map_mod.resolve_kf_poses(m)
+    ref = out.ref_uid.cpu().numpy()
+    live_uids = set(m.kf_frame_id.cpu().numpy()[:int(m.num_kf)].tolist())
+    resolved = int(sum(int(u) in table for u in ref))
+    through_ring = int(sum(int(u) in table and int(u) not in live_uids for u in ref))
+    tracked = out.tracked.cpu().numpy()
+    report = {
+        "frames": n_frames, "keyframe_slots": 32, "keyframes": int(m.num_kf),
+        "keyframes_inserted": int(out.is_kf.sum()),
+        "keyframes_recycled": int(m.num_dead), "loops": int(final.num_loops),
+        "tracked_frac": float(tracked.mean()),
+        "tracked_last_50": float(tracked[-50:].mean()), "ate_rmse_m": rmse,
+        "frames_resolved": resolved, "frames_through_retired_ring": through_ring,
+        "frames_fallen_back": int(ref.shape[0]) - resolved,
+    }
+    say("  lifecycle: " + json.dumps(report))
+    if report["keyframes_recycled"] <= 0 or report["keyframes"] > 32:
+        raise SystemExit("FAIL: no keyframe slot was recycled")
+    if through_ring <= 0:
+        raise SystemExit("FAIL: no frame rode a retired keyframe")
+    if report["tracked_last_50"] < 0.8 or report["tracked_frac"] < 0.9:
+        raise SystemExit("FAIL: tracking did not hold to the end")
+    newest = int(m.kf_frame_id.cpu().numpy()[int(m.num_kf) - 1])
+    if newest < 0.9 * n_frames:
+        raise SystemExit("FAIL: mapping froze before the end of the run")
+    _check_obs_prefix(m, "lifecycle")
+    return report
+
+
+def phase_cli() -> list:
+    """The CLI at its default mode, whole and chunked."""
+    import contextlib
+    import io
+    import math
+    from jetracer_orbslam2_torch import run
+
+    reports = []
+    for extra in ([], ["--chunked", "8"]):
+        argv = ["--synthetic", "60", "--json", "--log-level", "warning"] + extra
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            code = run.main(argv)
+        report = json.loads(buf.getvalue().strip().splitlines()[-1])
+        say(f"  run.main({argv}) -> {code}: " + json.dumps(report))
+        if code != 0 or not report["mode"].startswith("slam"):
+            raise SystemExit("FAIL: the CLI's default mode did not run the SLAM system")
+        if not (math.isfinite(report["ate_rmse_m"]) and report["ate_rmse_m"] < 0.10
+                and report["tracked_frac"] >= 0.95 and report["keyframes"] >= 2):
+            raise SystemExit("FAIL: the CLI's SLAM report is off")
+        reports.append(report)
+    return reports
+
+
 def print_build(name: str) -> None:
     from jetracer_orbslam2_torch.utils import cuda_build
 
@@ -877,12 +1313,13 @@ def main() -> int:
         return 1
     # the port under test; absent in a directory that holds only this script
     import jetracer_orbslam2_torch
-    from jetracer_orbslam2_torch.ops import fused_ba, fused_fast
+    from jetracer_orbslam2_torch.ops import fused_ba, fused_fast, fused_patches
     from jetracer_orbslam2_torch.utils import cuda_build
     from jetracer_orbslam2_torch.utils.device import resolve_device
     from jetracer_orbslam2_torch.utils.precision import set_exact_f32
 
-    phase = lambda k, text: say(f"[{k}/{N_PHASES}] {text}")  # noqa: E731
+    phase = lambda k, text: say(  # noqa: E731
+        f"[{k}/{N_PHASES}] {text}  (at {time.perf_counter() - t_start:.1f} s)")
     phase(1, "device")
     card = card_line()
     say(card)
@@ -893,17 +1330,22 @@ def main() -> int:
 
     phase(2, "build (one nvcc per source, started together)")
     t0 = time.perf_counter()
-    cuda_build.build_libraries(["fast_nms", "ba_fused"])
+    sources = ["fast_nms", "ba_fused", "patch_gather"]
+    cuda_build.build_libraries(sources)
     fused_fast._launcher()
     fused_ba._launchers()
-    say(f"  both libraries built and loaded in {time.perf_counter() - t0:.2f} s")
-    print_build("fast_nms")
-    print_build("ba_fused")
+    fused_patches._launcher()
+    say(f"  three libraries built and loaded in {time.perf_counter() - t0:.2f} s")
+    for name in sources:
+        print_build(name)
 
     with torch.no_grad():
-        phase(3, "fast_nms kernel vs its plain version (torch.equal)")
+        phase(3, "fast_nms and patch_gather kernels vs their plain versions "
+                 "(torch.equal)")
         argv_run, args, source, levels = open_source(N_FRAMES, dev)
         max_err, all_equal = phase_kernel_checks(levels)
+        patch_max_err, patch_all_equal, (patch_pyramid, patch_kp) = (
+            phase_patch_kernel_checks(dev))
 
         phase(4, "device semantics")
         phase_semantics(dev)
@@ -937,6 +1379,27 @@ def main() -> int:
                   "launches, median of 20; inputs L2-warm, as the LM loop leaves "
                   "them)")
         ba_times = phase_ba_kernel_times(dev)
+
+        phase(12, f"SLAM lap: {LAP_FRAMES} frames of {LAP_SHAPE[1]}x{LAP_SHAPE[0]}, "
+                  f"one lap of {LAP_LENGTH}, depth noise {LAP_NOISE:g} z^2; "
+                  "slam_scan and Slam")
+        lap_report = phase_slam_lap(dev)
+
+        phase(13, f"SLAM path: slam_scan over {LONG_FRAMES} frames of 640x480, "
+                  f"laps of {LONG_LAP}, 4 levels, K=1024, two-threshold FAST, "
+                  f"depth noise {LONG_NOISE:g} z^2")
+        slam_report, slam_launches = phase_slam_path(dev)
+
+        phase(14, "map lifecycle: three laps through 32 keyframe slots")
+        lifecycle_report = phase_map_lifecycle(dev)
+
+        phase(15, "CLI: python -m jetracer_orbslam2_torch.run --synthetic 60 --json")
+        cli_reports = phase_cli()
+
+        phase(16, "patch_gather time (CUDA events around a replayed CUDA graph of "
+                  "20 launches, median of 20; the canvas is L2-warm, as the "
+                  "pyramid leaves it)")
+        patch_time = phase_patch_kernel_time(patch_pyramid, patch_kp)
     torch.cuda.synchronize()
 
     kernels = [{
@@ -978,10 +1441,32 @@ def main() -> int:
                            f"{local_report['launches']} more)",
             "shapes": ba_times[name],
         })
+    kernels.append({
+        "name": "patch_gather",
+        "route": "cuda",
+        "source": "jetracer_orbslam2_torch/csrc/patch_gather.cu",
+        "replaces": "scripts/experiment_pallas_patches.py:52",
+        "launches": slam_launches["patch_gather"],
+        "max_abs_err": patch_max_err,
+        "exact_match": patch_all_equal,
+        "ms": patch_time["ms"],
+        "plain_ms": patch_time["plain_ms"],
+        "bound_ms": patch_time["bound_ms"],
+        "bound_by": patch_time["bound_by"],
+        "library_ms": patch_time["library_ms"],
+        "numbers_are": "per launch at the 640x480 canvas, K 1024, P 37; launches "
+                       "are the SLAM path's (one a frame); plain_ms is the whole "
+                       "extract_patches, library_ms one indexing call with its "
+                       "index prebuilt",
+        "shapes": [patch_time],
+    })
     seconds = round(time.perf_counter() - t_start, 1)
     say(json.dumps({"main_path": report, "card": card, "seconds": seconds}))
     say(json.dumps({"ba_path": ba_report, "local_ba": local_report,
                     "pose_graph": pg_report, "card": card}))
+    say(json.dumps({"slam_path": slam_report, "slam_lap": lap_report,
+                    "map_lifecycle": lifecycle_report, "cli": cli_reports,
+                    "card": card}))
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -1,16 +1,18 @@
 """jetracer_orbslam2_torch — PyTorch/CUDA port of the visual-SLAM framework.
 
 The counterpart of `jetracer_orbslam2_tpu`, module for module, for one NVIDIA
-Hopper card.  Plain tensor code is PyTorch; the one kernel on the RGB-D
-odometry path (fused FAST + 3x3 NMS, `ops/fused_fast.py` with its CUDA source
-under `csrc/`) is written by hand for sm_90a.
+Hopper card.  Plain tensor code is PyTorch; the four kernels (fused FAST +
+3x3 NMS in `ops/fused_fast.py`, the patch gather in `ops/fused_patches.py`,
+the two bundle-adjustment kernels in `ops/fused_ba.py`, their CUDA sources
+under `csrc/`) are written by hand for sm_90a.
 
 Layout mirrors the JAX package so a reader finds the counterpart of a module
 by its path:
 
 - `ops/`     preprocess, FAST, NMS, patches, ORB, matching, geometry, align
-- `models/`  frontend, tracking, odometry
-- `io/`      synthetic RGB-D sequences with exact ground truth
+- `models/`  frontend, tracking, odometry, imu, slam (the host scheduler),
+             slam_scan (whole sequences), backend/ (map, BA, pose graph, loop)
+- `io/`      synthetic RGB-D sequences (arc and laps) with exact ground truth
 - `utils/`   device resolution, float32 precision settings
 - `run.py`   CLI entry (`python -m jetracer_orbslam2_torch.run`)
 

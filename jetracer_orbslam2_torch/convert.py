@@ -1,9 +1,11 @@
-"""Carry feature sets, odometry state, BA and pose-graph problems and the
-keyframe map between numpy and the port's tuples.
+"""Carry feature sets, odometry and SLAM state, BA and pose-graph problems and
+the keyframe map between numpy and the port's tuples.
 
 The system has no learned weights; the state two implementations must share
 (in tests, or when resuming a run made elsewhere) is a frame's `Features`, the
-`OdomState`, a `BAProblem`, a `PoseGraphProblem` and the `MapState`.  This
+`OdomState`, a `BAProblem`, a `PoseGraphProblem`, the `MapState`, the
+`ImuState`, the scan's `ScanState` and the small per-frame and per-loop
+results (`FrameReport`, `LoopCandidate`, `LoopResult`).  This
 module takes and returns numpy arrays only: field names and layouts are
 those of the port's tuples, field for field those of the JAX package, with
 descriptors as `uint32` words on the numpy side and `int32` words of the same
@@ -18,10 +20,14 @@ import numpy as np
 import torch
 
 from jetracer_orbslam2_torch.models.backend.ba import BAProblem
+from jetracer_orbslam2_torch.models.backend.loop import LoopCandidate, LoopResult
 from jetracer_orbslam2_torch.models.backend.map import MapState
 from jetracer_orbslam2_torch.models.backend.pose_graph import PoseGraphProblem
 from jetracer_orbslam2_torch.models.frontend import Features
+from jetracer_orbslam2_torch.models.imu import ImuState
 from jetracer_orbslam2_torch.models.odometry import OdomState, make_generator
+from jetracer_orbslam2_torch.models.slam import FrameReport
+from jetracer_orbslam2_torch.models.slam_scan import ScanState
 from jetracer_orbslam2_torch.utils.device import resolve_device
 
 _FEATURE_DTYPES = {
@@ -175,3 +181,91 @@ def map_state_from_numpy(fields, device=None) -> MapState:
 def map_state_to_numpy(m: MapState) -> dict:
     """Every field of the map as a numpy array (descriptors as `uint32`)."""
     return _tuple_to_numpy(_MAP_DTYPES, m)
+
+
+_FRAME_REPORT_DTYPES = {
+    "tracked_ok": np.bool_, "num_matches": np.int32, "num_assoc": np.int32,
+    "need_kf": np.bool_, "T_wc": np.float32, "packed": np.float32,
+}
+_LOOP_CANDIDATE_DTYPES = {
+    "kf_idx": np.int32, "score": np.float32, "ok": np.bool_}
+_LOOP_RESULT_DTYPES = {
+    "T_ab": np.float32, "num_inliers": np.int32, "ok": np.bool_}
+_SCAN_SCALARS = ("frames_since_kf", "lost_streak", "frame_idx", "ref_slot",
+                 "num_loops", "num_relocs", "loop_prev_uid", "loop_consist")
+
+
+def frame_report_from_numpy(fields, device=None) -> FrameReport:
+    return _tuple_from_numpy(FrameReport, _FRAME_REPORT_DTYPES, fields,
+                             resolve_device(device))
+
+
+def frame_report_to_numpy(report: FrameReport) -> dict:
+    return _tuple_to_numpy(_FRAME_REPORT_DTYPES, report)
+
+
+def loop_candidate_from_numpy(fields, device=None) -> LoopCandidate:
+    return _tuple_from_numpy(LoopCandidate, _LOOP_CANDIDATE_DTYPES, fields,
+                             resolve_device(device))
+
+
+def loop_candidate_to_numpy(cand: LoopCandidate) -> dict:
+    return _tuple_to_numpy(_LOOP_CANDIDATE_DTYPES, cand)
+
+
+def loop_result_from_numpy(fields, device=None) -> LoopResult:
+    return _tuple_from_numpy(LoopResult, _LOOP_RESULT_DTYPES, fields,
+                             resolve_device(device))
+
+
+def loop_result_to_numpy(res: LoopResult) -> dict:
+    return _tuple_to_numpy(_LOOP_RESULT_DTYPES, res)
+
+
+def _field(fields, name):
+    return fields[name] if isinstance(fields, Mapping) else getattr(fields, name)
+
+
+def imu_state_from_numpy(fields) -> ImuState:
+    """`ImuState` from a mapping (or an object with those attributes).  The
+    filter runs on the host, so the state is numpy on both sides."""
+    return ImuState(
+        theta=np.asarray(_field(fields, "theta"), np.float32).copy(),
+        last_ts=np.float32(_field(fields, "last_ts")),
+        initialized=np.bool_(_field(fields, "initialized")))
+
+
+def imu_state_to_numpy(state: ImuState) -> dict:
+    return {"theta": np.asarray(state.theta, np.float32),
+            "last_ts": np.float32(state.last_ts),
+            "initialized": np.bool_(state.initialized)}
+
+
+def scan_state_from_numpy(fields, seed: int = 0, device=None) -> ScanState:
+    """Rebuild a `ScanState` from numpy fields (`m` and `prev` as mappings or
+    as the other package's tuples).  The RANSAC stream is not portable between
+    frameworks, so the generator is made afresh from `seed`."""
+    dev = resolve_device(device)
+    f32 = lambda a: torch.from_numpy(
+        np.ascontiguousarray(np.asarray(a, dtype=np.float32))).to(dev)
+    prev = _field(fields, "prev")
+    if not isinstance(prev, Mapping):
+        prev = {name: np.asarray(getattr(prev, name)) for name in _FEATURE_DTYPES}
+    scalars = {name: torch.tensor(int(_field(fields, name)), dtype=torch.int32,
+                                  device=dev) for name in _SCAN_SCALARS}
+    return ScanState(
+        m=map_state_from_numpy(_field(fields, "m"), dev),
+        prev=features_from_numpy(prev, dev),
+        T_wc=f32(_field(fields, "T_wc")), velocity=f32(_field(fields, "velocity")),
+        generator=make_generator(seed, dev), **scalars)
+
+
+def scan_state_to_numpy(state: ScanState) -> dict:
+    """All array fields of the state (the generator is left out)."""
+    out = {"m": map_state_to_numpy(state.m),
+           "prev": features_to_numpy(state.prev),
+           "T_wc": state.T_wc.cpu().numpy(),
+           "velocity": state.velocity.cpu().numpy()}
+    out.update({name: np.int32(getattr(state, name).cpu())
+                for name in _SCAN_SCALARS})
+    return out

@@ -1,7 +1,8 @@
 """Synthetic RGB-D sequence generator with exact ground truth.
 
-Counterpart of `jetracer_orbslam2_tpu/io/synthetic.py` (the forward-arc RGB-D
-generator; the lap, stereo and IMU generators are not ported yet).  The scene
+Counterpart of `jetracer_orbslam2_tpu/io/synthetic.py` (the forward-arc and lap
+RGB-D generators and the IMU synthesizer; the stereo generators are not ported
+yet).  The scene
 is the inside of a textured box "room", ray-cast per pixel: photometrically
 consistent across views, exact depth, exact poses.
 
@@ -161,6 +162,130 @@ def smooth_trajectory(n_frames: int, step: float = 0.02,
     return geo.pose_from_rt(R, t)
 
 
+def lap_trajectory(
+    n_frames: int,
+    radius: float = 1.2,
+    center_z: float = 2.0,
+    lap_frames: int | None = None,
+    device="cpu",
+) -> Tensor:
+    """(N, 4, 4) T_wc poses: clockwise lap(s) around a circle inside the box
+    room; after `lap_frames` frames the camera is back at the start pose
+    (same position AND heading) and keeps going into a second lap.
+
+    The overshoot matters: the frames after `lap_frames` RE-OBSERVE the
+    first frames' exact views, the revisit that loop-closure detection
+    needs.  Callers that only want the closed circle pass
+    n_frames == lap_frames + 1.
+    """
+    if lap_frames is None:
+        lap_frames = n_frames - 1
+    i = torch.arange(n_frames, dtype=torch.float32, device=device)
+    phi = 2.0 * np.pi * i / lap_frames
+    x = radius * torch.sin(phi)
+    z = center_z - radius * torch.cos(phi)
+    w = torch.stack([torch.zeros_like(phi), phi, torch.zeros_like(phi)], -1)
+    R = geo.so3_exp(w)
+    t = torch.stack([x, torch.zeros_like(x), z], -1)
+    return geo.pose_from_rt(R, t)
+
+
+def _render_sequence(poses: Tensor, shape: tuple, seed: int, dist=None,
+                     dist_model: str = "brown_conrady") -> SyntheticSequence:
+    """Render one frame per pose on the poses' device, straight into the
+    preallocated (N, H, W) stacks: a long sequence (1,200 frames of 640x480
+    are 2.9 GB of gray + depth) never holds more than one frame's
+    temporaries beside them."""
+    dev = poses.device
+    h, w = shape
+    n = poses.shape[0]
+    intr = torch.tensor(
+        [0.9 * w, 0.9 * w, (w - 1) / 2.0, (h - 1) / 2.0],
+        dtype=torch.float32, device=dev)
+    textures = torch.from_numpy(make_textures(seed)).to(dev)
+    gray = torch.empty((n, h, w), dtype=torch.float32, device=dev)
+    depth = torch.empty((n, h, w), dtype=torch.float32, device=dev)
+    for i in range(n):
+        gray[i], depth[i] = render_frame(poses[i], intr, textures, shape,
+                                         dist=dist, dist_model=dist_model)
+    return SyntheticSequence(gray=gray, depth=depth, poses=poses, intrinsics=intr)
+
+
+@torch.no_grad()
+def generate_lap_sequence(
+    n_frames: int = 180,
+    shape: tuple = (240, 320),
+    seed: int = 0,
+    radius: float = 1.2,
+    lap_frames: int = 160,
+    device=None,
+) -> SyntheticSequence:
+    """A lap-plus-overshoot RGB-D sequence (see `lap_trajectory`) for loop
+    closure and relocalization, on `cuda:0` unless `device` says otherwise."""
+    dev = resolve_device(device)
+    poses = lap_trajectory(n_frames, radius=radius, lap_frames=lap_frames,
+                           device=dev)
+    return _render_sequence(poses, shape, seed)
+
+
+def imu_from_poses(
+    poses,
+    fps: float = 30.0,
+    rate: float = 200.0,
+    g: float = 9.81,
+    seed: int = 0,
+    noise_gyro: float = 0.0,
+    noise_accel: float = 0.0,
+):
+    """Synthesize per-frame IMU packets from ground-truth poses.
+
+    For each inter-frame interval the body rate is the constant twist
+    omega = log(R_i^T R_{i+1}) * fps (exact for constant-twist trajectories
+    like laps), sampled at `rate` Hz; the accelerometer measures the gravity
+    direction in the body frame (y-down world: g_world = (0, g, 0)), the
+    quantity the complementary filter consumes.
+
+    Returns (gyro (N, S, 3), gyro_ts (N, S) relative s, accel (N, S, 3),
+    gyro_valid (N, S), accel_valid (N, S)) numpy arrays: packet i holds the
+    samples between frame i-1 and frame i (packet 0 is a single seed
+    sample).
+    """
+    P = poses.cpu().numpy() if isinstance(poses, Tensor) else np.asarray(poses)
+    P = P.astype(np.float32)
+    n = P.shape[0]
+    S = max(1, int(np.ceil(rate / fps)))
+    rel = np.einsum("nij,njk->nik", P[:-1, :3, :3].transpose(0, 2, 1),
+                    P[1:, :3, :3])
+    omega = geo.so3_log(torch.from_numpy(rel)).numpy() * fps
+    rng = np.random.RandomState(seed)
+
+    gyro = np.zeros((n, S, 3), np.float32)
+    gyro_ts = np.zeros((n, S), np.float32)
+    accel = np.zeros((n, S, 3), np.float32)
+    gyro_valid = np.zeros((n, S), bool)
+    accel_valid = np.zeros((n, S), bool)
+    g_world = np.asarray([0.0, g, 0.0], np.float32)
+    for i in range(n):
+        if i == 0:
+            accel[0, 0] = P[0, :3, :3].T @ g_world
+            accel_valid[0, 0] = True
+            gyro_ts[0, 0] = 0.0
+            gyro_valid[0, 0] = True        # latches last_ts, integrates 0
+            continue
+        t0, t1 = (i - 1) / fps, i / fps
+        ts = t0 + (np.arange(S) + 1) * (t1 - t0) / S
+        gyro[i] = omega[i - 1][None, :]
+        gyro_ts[i] = ts
+        gyro_valid[i] = True
+        accel[i] = (P[i, :3, :3].T @ g_world)[None, :]
+        accel_valid[i] = True
+    if noise_gyro:
+        gyro += rng.randn(*gyro.shape).astype(np.float32) * noise_gyro
+    if noise_accel:
+        accel += rng.randn(*accel.shape).astype(np.float32) * noise_accel
+    return gyro, gyro_ts, accel, gyro_valid, accel_valid
+
+
 @torch.no_grad()
 def generate_sequence(
     n_frames: int = 30,
@@ -175,17 +300,5 @@ def generate_sequence(
     """Render an RGB-D sequence along `smooth_trajectory`, on `cuda:0` unless
     `device` says otherwise (frames are made on the device they are used on)."""
     dev = resolve_device(device)
-    h, w = shape
-    intr = torch.tensor(
-        [0.9 * w, 0.9 * w, (w - 1) / 2.0, (h - 1) / 2.0],
-        dtype=torch.float32, device=dev)
-    textures = torch.from_numpy(make_textures(seed)).to(dev)
     poses = smooth_trajectory(n_frames, step, yaw_rate, device=dev)
-    grays, depths = [], []
-    for i in range(n_frames):
-        g, d = render_frame(poses[i], intr, textures, shape,
-                            dist=dist, dist_model=dist_model)
-        grays.append(g)
-        depths.append(d)
-    return SyntheticSequence(gray=torch.stack(grays), depth=torch.stack(depths),
-                             poses=poses, intrinsics=intr)
+    return _render_sequence(poses, shape, seed, dist=dist, dist_model=dist_model)

@@ -8,10 +8,8 @@ bookkeeping: the map IS a tuple of tensors.  Every function returns a new
 the host (the counters are 0-dim tensors).
 
 Ported here: `init_map`, `global_descriptor`, `insert_keyframe`,
-`compact_map`, `associate_landmarks`.  Keyframe culling
-(`compact_keyframes`, `resolve_kf_poses`) remaps loop edges and arrives with
-loop closure; the loop-edge and retired-keyframe fields are already part of
-the state so that it converts field for field.
+`compact_map`, `compact_keyframes`, `resolve_kf_poses`,
+`associate_landmarks`.
 
 Where the JAX package ranks a boolean mask with a stable argsort, the port
 takes a cumulative sum: the same rank, no sort and no tie question.  Where
@@ -295,9 +293,7 @@ def compact_map(m: MapState, min_obs, min_age_kf, device=None) -> MapState:
     L = m.lm_valid.shape[0]
     obs_lm_i = m.obs_lm.to(torch.int64)
 
-    # a sum of ones and zeros: exact in f32, whatever order the adds take
-    nobs = torch.zeros(L, dtype=torch.float32, device=dev).index_add_(
-        0, obs_lm_i, m.obs_valid.to(torch.float32))
+    nobs = _segment_count(obs_lm_i, m.obs_valid.to(torch.float32), L)
     age = newest - m.lm_ref_kf
     cull = m.lm_valid & (nobs < min_obs) & (age >= min_age_kf)
     lm_keep = m.lm_valid & ~cull
@@ -328,6 +324,177 @@ def compact_map(m: MapState, min_obs, min_age_kf, device=None) -> MapState:
         obs_valid=obs_valid,
         num_obs=torch.sum(obs_keep).to(torch.int32),
     )
+
+
+def _segment_count(index: Tensor, ones: Tensor, size: int) -> Tensor:
+    """Sum the 0/1 values `ones` into `size` segments.  The sums are small
+    whole numbers, exact in their type whatever order `index_add_` takes."""
+    return torch.zeros(size, dtype=ones.dtype, device=ones.device).index_add_(
+        0, index, ones)
+
+
+def compact_keyframes(
+    m: MapState,
+    redundancy,           # f32: cull when >= this fraction of the KF's
+    #                       observations see well-covered landmarks
+    min_covisible,        # i32: "well-covered" = seen by >= this many
+    #                       OTHER keyframes
+    protect_recent,       # i32: newest slots never culled (BA window)
+    target_kf,            # i32: force-cull down to this count if above
+    protect_loop_recent=8,  # i32: endpoints of only the newest N loop edges
+    #                         are protected
+    device=None,
+) -> MapState:
+    """Redundant-keyframe culling + keyframe slot recycling.
+
+    The ORB-SLAM2 redundant-KF rule (a keyframe most of whose landmarks
+    are observed by >= 3 other keyframes adds no information) on the
+    fixed-capacity store: scores and the cull set come from segment sums,
+    survivors stable-pack to the front (slot order remains temporal order,
+    which the BA window and the pose-graph chain rely on), and every slot
+    reference (obs_kf, lm_ref_kf, loop_i/j) is remapped through one cumsum.
+    Under capacity pressure (num_kf > target_kf) the most redundant eligible
+    keyframes are culled regardless of the threshold.
+
+    Culled keyframes push (uid, anchor uid, relative pose) into the retired
+    ring so trajectory composition stays exact (see `resolve_kf_poses`).
+    Slot 0 (gauge), the newest `protect_recent` slots and the endpoints of
+    the newest loop edges are never culled.  Landmarks of a culled keyframe
+    re-anchor (lm_ref_kf) to the nearest surviving earlier keyframe; its
+    observations drop and the observation list is stable-packed here, so
+    num_obs stays the exact allocation head and the valid prefix of obs_kf
+    stays sorted after a bare call.  An older loop edge whose endpoint is
+    culled retires onto the endpoint's anchor, its measurement composed with
+    the culled->anchor offset; an edge whose endpoints collapse onto one
+    anchor is dropped.
+    """
+    dev = resolve_device(device)
+    set_exact_f32()
+    m = _map_to(m, dev)
+    Kf = m.kf_valid.shape[0]
+    L = m.lm_valid.shape[0]
+    D = m.dead_valid.shape[0]
+    Le = m.loop_valid.shape[0]
+    i32, f32 = torch.int32, torch.float32
+    slots = torch.arange(Kf, device=dev)
+    obs_lm_i, obs_kf_i = m.obs_lm.to(torch.int64), m.obs_kf.to(torch.int64)
+    loop_i, loop_j = m.loop_i.to(torch.int64), m.loop_j.to(torch.int64)
+
+    # redundancy score per keyframe
+    seen = m.obs_valid.to(f32)
+    nobs = _segment_count(obs_lm_i, seen, L)
+    well = nobs[obs_lm_i] >= torch.as_tensor(min_covisible, device=dev).to(f32) + 1.0
+    kf_tot = _segment_count(obs_kf_i, seen, Kf)
+    kf_well = _segment_count(obs_kf_i, (m.obs_valid & well).to(f32), Kf)
+    # a keyframe with no live observation carries no map information: fully
+    # redundant, so that it stays cullable
+    red = torch.where(kf_tot > 0.0, kf_well / kf_tot.clamp_min(1.0),
+                      torch.ones_like(kf_tot))
+
+    # ring slot r holds the loop edge of age (num_loop - 1 - r) mod Le
+    edge_age = torch.remainder(
+        m.num_loop - 1 - torch.arange(Le, device=dev), Le)
+    edge_protected = (m.loop_valid & (edge_age < protect_loop_recent)).to(i32)
+    in_loop = (_segment_count(loop_i, edge_protected, Kf)
+               + _segment_count(loop_j, edge_protected, Kf)) > 0
+    protected = ((slots == 0) | (slots >= m.num_kf - protect_recent)
+                 | in_loop | ~m.kf_valid)
+    eligible = ~protected
+    cull = eligible & (red >= redundancy)
+    # capacity pressure: force the most redundant out until target_kf fits
+    n_force = (m.num_kf - target_kf).clamp_min(0)
+    score = torch.where(eligible, red, torch.full_like(red, float("-inf")))
+    by_score = torch.argsort(-score, stable=True)   # ties in slot order
+    rank = torch.empty_like(by_score).scatter_(0, by_score, slots)
+    cull = cull | (eligible & (rank < n_force))     # rank 0 = most redundant
+    keep = m.kf_valid & ~cull
+
+    order = _order_selected_first(keep)             # kept first, slot order
+    # new index of the nearest kept slot at-or-before each old slot (a kept
+    # slot: its own new index; a culled one: its anchor's)
+    before_idx = (torch.cumsum(keep.to(torch.int64), 0) - 1).clamp_min(0)
+    anchor_old = order[before_idx]                  # old slot of that anchor
+
+    # retired ring push: one row per culled keyframe
+    seq = m.num_dead + torch.cumsum(cull.to(torch.int64), 0) - 1
+    pos = torch.remainder(seq, D)
+    rel = geo.pose_inverse(m.kf_pose[anchor_old]) @ m.kf_pose
+    dead = dict(
+        dead_uid=_write_rows(m.dead_uid, pos, cull, m.kf_frame_id),
+        dead_anchor_uid=_write_rows(m.dead_anchor_uid, pos, cull,
+                                    m.kf_frame_id[anchor_old]),
+        dead_rel=_write_rows(m.dead_rel, pos, cull, rel),
+        dead_seq=_write_rows(m.dead_seq, pos, cull, seq),
+        dead_valid=_write_rows(m.dead_valid, pos, cull, cull),
+        num_dead=(m.num_dead + torch.sum(cull)).to(i32),
+    )
+
+    obs_keep = m.obs_valid & keep[obs_kf_i]
+    obs_kf_new = before_idx[obs_kf_i].to(i32)
+    oorder = _order_selected_first(obs_keep)
+    obs_valid = obs_keep[oorder]
+    zero_i = torch.zeros((), dtype=i32, device=dev)
+    zero_f = torch.zeros((), dtype=f32, device=dev)
+
+    # an edge (i, j, T_ij) whose endpoint i was culled becomes (anchor_i, j)
+    # with measurement rel_i @ T_ij @ rel_j^-1 (rel_k = inv(T_anchor) T_k at
+    # cull time, identity for kept endpoints)
+    loop_T = rel[loop_i] @ (m.loop_T @ geo.pose_inverse(rel[loop_j]))
+    new_li = before_idx[loop_i].to(i32)
+    new_lj = before_idx[loop_j].to(i32)
+    loop_valid = m.loop_valid & (new_li != new_lj)
+    return m._replace(
+        kf_pose=m.kf_pose[order],
+        kf_valid=keep[order],
+        kf_frame_id=m.kf_frame_id[order],
+        kf_desc=m.kf_desc[order],
+        kf_xy=m.kf_xy[order],
+        kf_points=m.kf_points[order],
+        kf_has_point=m.kf_has_point[order],
+        kf_global_desc=m.kf_global_desc[order],
+        lm_ref_kf=torch.where(
+            m.lm_valid, before_idx[m.lm_ref_kf.to(torch.int64)].to(i32), zero_i),
+        obs_kf=torch.where(obs_valid, obs_kf_new[oorder], zero_i),
+        obs_lm=torch.where(obs_valid, m.obs_lm[oorder], zero_i),
+        obs_uv=torch.where(obs_valid[:, None], m.obs_uv[oorder], zero_f),
+        obs_z=torch.where(obs_valid, m.obs_z[oorder], zero_f),
+        obs_valid=obs_valid,
+        num_obs=torch.sum(obs_keep).to(i32),
+        loop_i=torch.where(loop_valid, new_li, zero_i),
+        loop_j=torch.where(loop_valid, new_lj, zero_i),
+        loop_T=torch.where(loop_valid[:, None, None], loop_T, m.loop_T),
+        loop_valid=loop_valid,
+        num_kf=torch.sum(keep).to(i32),
+        **dead,
+    )
+
+
+def resolve_kf_poses(m: MapState) -> dict:
+    """uid (keyframe frame_id) -> final optimized world pose, for live AND
+    retired keyframes (on the host, at result time only).
+
+    Retired entries resolve newest-cull-first: each anchor was alive at cull
+    time, so it is either still live or was retired later (= already
+    resolved).  Entries overwritten by ring wrap-around are simply absent:
+    callers fall back to the pose recorded at frame emission."""
+    import numpy as np
+
+    kf_valid = m.kf_valid.cpu().numpy()
+    kf_uid = m.kf_frame_id.cpu().numpy()
+    kf_pose = m.kf_pose.cpu().numpy()
+    table = {int(u): kf_pose[i]
+             for i, u in enumerate(kf_uid) if kf_valid[i]}
+    dv = np.flatnonzero(m.dead_valid.cpu().numpy())
+    if dv.size:
+        seq = m.dead_seq.cpu().numpy()[dv]
+        uid = m.dead_uid.cpu().numpy()[dv]
+        anc = m.dead_anchor_uid.cpu().numpy()[dv]
+        rel = m.dead_rel.cpu().numpy()[dv]
+        for j in np.argsort(-seq, kind="stable"):
+            u, a = int(uid[j]), int(anc[j])
+            if u not in table and a in table:
+                table[u] = table[a] @ rel[j]
+    return table
 
 
 def associate_landmarks(

@@ -2,8 +2,9 @@
 
 Counterpart of `jetracer_orbslam2_tpu/models/frontend.py`: gray -> blur ->
 pyramid -> FAST+NMS (the hand-written kernel, once per level) -> grid NMS ->
-top-K -> patches -> orientation -> BRIEF-256 -> backprojection.  Eager
-PyTorch on one stream; nothing here reads a value back to the host.
+top-K -> patches (the hand-written gather kernel, once per frame) ->
+orientation -> BRIEF-256 -> backprojection.  Eager PyTorch on one stream;
+nothing here reads a value back to the host.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import torch
 
 from jetracer_orbslam2_torch.config import FrontendConfig
 from jetracer_orbslam2_torch.ops import (
-    align, fused_fast, geometry as geo, nms, orb, patches, preprocess)
+    align, fused_fast, fused_patches, geometry as geo, nms, orb, preprocess)
 from jetracer_orbslam2_torch.ops.nms import Keypoints
 from jetracer_orbslam2_torch.utils.consts import const_table
 from jetracer_orbslam2_torch.utils.device import as_f32, resolve_device
@@ -74,7 +75,7 @@ def extract_features(
     kp = nms.select_keypoints(
         winners, cfg.level_shapes, cfg.max_keypoints, cfg.min_score, cfg.fast_border
     )
-    patch = patches.extract_patches(levels, kp, cfg.patch_size)
+    patch = fused_patches.extract_patches_fused(levels, kp, cfg.patch_size)
     angles = orb.orientation(patch)
     desc = orb.describe(patch, angles, cfg.descriptor_bits, cfg.num_angle_bins)
     return kp, angles, desc

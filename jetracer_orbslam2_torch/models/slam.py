@@ -1,21 +1,43 @@
-"""SLAM back-end steps over the keyframe map.
+"""Full SLAM system: tracking + keyframe map + local BA + loop closure.
 
-Counterpart of `jetracer_orbslam2_tpu/models/slam.py`.  Ported so far:
-`local_ba`, the windowed bundle adjustment that the running system applies
-after a keyframe insert.  The tracking step against the map, the host
-scheduler and loop closure follow with their modules.
+Counterpart of `jetracer_orbslam2_tpu/models/slam.py`.
+
+  * Every per-frame computation is one of a handful of fixed-shape functions
+    (track step, landmark association, keyframe insert, windowed BA, loop
+    retrieve/verify/close).
+  * The host loop is a thin scheduler: it reads back one packed tensor per
+    frame and one per keyframe and picks which functions to run.  No other
+    place reads a value from the device (`geo.kabsch`'s SVD aside, which
+    waits inside the library).
+  * Local BA runs over a fixed-size keyframe window against the full
+    fixed-capacity landmark table with masked observations.
+
+RANSAC draws come from one `torch.Generator` per system, advanced in a fixed
+order within a frame: tracking, then relocalization (when tried), then loop
+verification (at a keyframe).  `models/slam_scan.py` runs the same functions
+in the same order, so the two agree when seeded alike.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from jetracer_orbslam2_torch.config import SystemConfig
+from jetracer_orbslam2_torch.models import imu as imu_mod
+from jetracer_orbslam2_torch.models import tracking
+from jetracer_orbslam2_torch.models.backend import loop as loop_mod
+from jetracer_orbslam2_torch.models.backend import map as map_mod
 from jetracer_orbslam2_torch.models.backend.ba import BAProblem, bundle_adjust
-from jetracer_orbslam2_torch.models.backend.map import MapState, _map_to
-from jetracer_orbslam2_torch.utils.device import resolve_device
+from jetracer_orbslam2_torch.models.backend.map import (
+    MapState, _features_to, _map_to)
+from jetracer_orbslam2_torch.models.frontend import Features, frontend_gray_depth
+from jetracer_orbslam2_torch.models.odometry import make_generator
+from jetracer_orbslam2_torch.ops import geometry as geo
+from jetracer_orbslam2_torch.utils.device import as_f32, resolve_device
 from jetracer_orbslam2_torch.utils.precision import set_exact_f32
 from jetracer_orbslam2_torch.utils.ties import first_argmax
 
@@ -90,3 +112,412 @@ def local_ba(
     kf_pose = m.kf_pose.index_copy(0, window, new_poses)
     lm_pos = torch.where(m.lm_valid[:, None], new_points, m.lm_pos)
     return m._replace(kf_pose=kf_pose, lm_pos=lm_pos)
+
+
+class FrameReport(NamedTuple):
+    """Small per-frame summary, and the scheduler's input.
+
+    `packed` carries every scalar the host scheduler needs as ONE (20,) f32
+    tensor, [tracked, need_kf, num_matches, num_assoc, T_wc.ravel()], so the
+    per-frame decision costs exactly one device->host fetch."""
+
+    tracked_ok: Tensor    # () bool
+    num_matches: Tensor   # () int32 frame-to-frame matches
+    num_assoc: Tensor     # () int32 map landmark associations
+    need_kf: Tensor       # () bool keyframe decision
+    T_wc: Tensor          # (4, 4)
+    packed: Tensor        # (20,) f32 single-fetch host payload
+
+
+@torch.no_grad()
+def track_and_associate(
+    prev: Features,
+    curr: Features,
+    m: MapState,
+    T_w_prev: Tensor,
+    velocity: Tensor,
+    imu_delta_w,
+    imu_ok: bool,
+    frames_since_kf,
+    intrinsics: Tensor,
+    generator: Optional[torch.Generator],
+    cfg: SystemConfig,
+    sample_idx: Optional[Tensor] = None,
+    device=None,
+) -> tuple[tracking.TrackResult, Tensor, Tensor, FrameReport]:
+    """One SLAM tracking step: odometry + map association + KF decision.
+
+    imu_delta_w (3,) / imu_ok (a host bool): gyro-integrated body rotation
+    between the previous and the current frame.  When present it REPLACES the
+    rotation part of the constant-velocity prior (during erratic motion or a
+    camera blackout the gyro knows the turn the motion model cannot); the
+    translation prior stays constant-velocity.  Assumes identity camera-IMU
+    rotation.  frames_since_kf: a host int or a 0-dim tensor.
+    sample_idx: optional (ransac_iters, 3) RANSAC samples for the tracker.
+
+    Returns (track result, lm_idx (K,), lm_ok (K,), report).
+    """
+    dev = resolve_device(device)
+    set_exact_f32()
+    prev, curr, m = _features_to(prev, dev), _features_to(curr, dev), _map_to(m, dev)
+    T_w_prev, velocity = as_f32(T_w_prev, dev), as_f32(velocity, dev)
+    intrinsics = as_f32(intrinsics, dev)
+    if imu_ok:
+        velocity = geo.pose_from_rt(
+            geo.so3_exp(as_f32(imu_delta_w, dev)), velocity[:3, 3])
+    res = tracking.track_rgbd(
+        prev, curr, T_w_prev, velocity, intrinsics, generator, cfg.tracking,
+        sample_idx=sample_idx)
+
+    # associate current keypoints to map landmarks at the tracked pose
+    lm_idx, lm_ok = map_mod.associate_landmarks(
+        m, curr, res.T_wc, intrinsics,
+        max_hamming=float(cfg.tracking.match_max_hamming),
+        window=cfg.tracking.match_window, device=dev)
+    has_map = m.num_kf > 0
+    lm_ok = lm_ok & has_map
+    n_assoc = torch.sum(lm_ok).to(torch.int32)
+
+    # pose refinement against the map: 3D-3D between current camera points
+    # and associated landmark world positions (drift containment).  One
+    # trimmed re-fit makes the plain Kabsch robust to association outliers
+    # without a full RANSAC (the associations are already descriptor- and
+    # window-gated).
+    pts_w = m.lm_pos[lm_idx.long()]                     # (K, 3) world
+    w = (lm_ok & curr.has_point).to(torch.float32)
+    T0 = geo.kabsch(curr.points, pts_w, w)              # world <- camera
+    resid = torch.linalg.norm(
+        geo.transform_points(T0, curr.points[None])[0] - pts_w, dim=-1)
+    w_trim = w * (resid < 2.0 * cfg.tracking.ransac_inlier_thresh)
+    enough = torch.sum(w_trim) >= cfg.tracking.min_inliers
+    T_ref = geo.kabsch(curr.points, pts_w, w_trim)
+    # motion-only reprojection polish against the MAP: landmark positions
+    # are BA-refined, and pixel measurements are unbiased where 3D depth
+    # noise grows as z^2, so the final pose minimizes reprojection of the
+    # associated landmarks onto the current keypoints
+    if cfg.tracking.map_polish_iters > 0:
+        z_meas = torch.where(curr.has_point, curr.points[:, 2],
+                             torch.zeros_like(curr.points[:, 2]))
+        T_cw = tracking.refine_pose_reprojection(
+            geo.pose_inverse(T_ref), pts_w, curr.xy, z_meas, w_trim,
+            intrinsics, iters=cfg.tracking.map_polish_iters)
+        T_map = geo.pose_inverse(T_cw)
+    else:
+        T_map = T_ref
+    T_wc = torch.where(enough & res.tracked_ok, T_map, res.T_wc)
+    res = res._replace(T_wc=T_wc)
+
+    n_pts = torch.sum(curr.has_point).to(torch.float32)
+    ratio = n_assoc.to(torch.float32) / n_pts.clamp_min(1.0)
+    gap_ok = frames_since_kf >= cfg.map.kf_min_gap
+    gap_max = frames_since_kf >= cfg.map.kf_max_gap
+    need_kf = (
+        (~has_map)
+        | (((ratio < cfg.map.kf_min_inlier_ratio) | gap_max) & gap_ok)
+    ) & res.tracked_ok | (~has_map)
+    packed = torch.cat([
+        torch.stack([res.tracked_ok, need_kf]).to(torch.float32),
+        torch.stack([res.num_matches, n_assoc]).to(torch.float32),
+        T_wc.reshape(16),
+    ])
+    report = FrameReport(
+        tracked_ok=res.tracked_ok,
+        num_matches=res.num_matches,
+        num_assoc=n_assoc,
+        need_kf=need_kf,
+        T_wc=T_wc,
+        packed=packed,
+    )
+    return res, lm_idx, lm_ok, report
+
+
+@torch.no_grad()
+def relocalize(m: MapState, feats: Features,
+               generator: Optional[torch.Generator], cfg: SystemConfig,
+               device=None) -> tuple[Tensor, Tensor]:
+    """Re-pose a lost frame against the keyframe store: retrieve the most
+    similar stored keyframe and solve the relative pose from scratch (no
+    motion prior, so an arbitrarily wrong current estimate is recoverable).
+    Returns (ok () bool, T_wc (4, 4)), both on the device; the verification
+    draws from `generator` whether or not retrieval passed its gate."""
+    dev = resolve_device(device)
+    set_exact_f32()
+    rc = cfg.reloc
+    gdesc = map_mod.global_descriptor(feats.desc, feats.valid)
+    cand = loop_mod.retrieve_global(m, gdesc, rc.min_sim, device=dev)
+    ver = loop_mod.verify_features(
+        m, feats.desc, feats.has_point, feats.points, cand.kf_idx, generator,
+        rc.ransac_inlier_thresh, rc.min_inliers, rc.ransac_depth_quad,
+        rc.ransac_gate_cap, device=dev)
+    # T_ab: keyframe-camera -> query-camera; T_w_query = T_w_kf @ T_ab^-1
+    T_new = loop_mod._row(m.kf_pose, cand.kf_idx) @ geo.pose_inverse(ver.T_ab)
+    return cand.ok & ver.ok, T_new
+
+
+class KeyframeUpdate(NamedTuple):
+    """What `keyframe_update` did, for the scheduler that called it."""
+
+    m: MapState
+    T_wc: Tensor          # (4, 4) pose of the new keyframe after BA / closure
+    slot: Tensor          # () its slot after any compaction
+    looped: bool
+    compacted: bool
+    loop_prev_uid: Tensor  # () int32 loop gate state, to be carried into the
+    loop_consist: Tensor   # () int32 next keyframe's `retrieve_and_verify`
+
+
+def compact_if_full(m: MapState, cfg: SystemConfig, num_obs: int, num_lm: int,
+                    num_kf: int, device=None) -> tuple[MapState, bool]:
+    """Recycle map capacity when a budget crosses the compact threshold:
+    keyframe culling + slot recycling (`map.compact_keyframes`) when the
+    keyframe table fills, then landmark culling + observation compaction
+    (`map.compact_map`).  Keeps long sequences mapping inside fixed arrays
+    instead of silently saturating.  The counters are host numbers from the
+    keyframe's packed fetch.  Returns (map, whether it compacted)."""
+    dev = resolve_device(device)
+    mc = cfg.map
+    kf_cap = m.kf_valid.shape[0]
+    kf_full = num_kf > mc.compact_at * kf_cap
+    if kf_full:
+        m = map_mod.compact_keyframes(
+            m, mc.kf_cull_redundancy, mc.kf_cull_min_covisible,
+            mc.kf_protect_recent, round(mc.kf_target_fill * kf_cap),
+            mc.kf_protect_loop_recent, device=dev)
+    if not (kf_full or num_obs > mc.compact_at * m.obs_valid.shape[0]
+            or num_lm > mc.compact_at * m.lm_valid.shape[0]):
+        return m, False
+    return map_mod.compact_map(m, mc.cull_min_obs, mc.cull_min_age_kf,
+                               device=dev), True
+
+
+@torch.no_grad()
+def keyframe_update(
+    m: MapState, feats: Features, T_wc: Tensor, frame_idx, lm_idx: Tensor,
+    lm_ok: Tensor, intrinsics: Tensor, cfg: SystemConfig,
+    generator: Optional[torch.Generator], loop_prev_uid, loop_consist,
+    sample_idx: Optional[Tensor] = None, device=None,
+) -> KeyframeUpdate:
+    """The keyframe branch: insert + windowed BA + loop detection, ONE packed
+    fetch of the verdict and the capacity counters, then on the host's
+    decision the loop closure and the capacity recycling.
+
+    Loop detection runs at every keyframe: retrieval's min_kf_gap exclusion
+    is the recency gate and the RANSAC verification the correctness gate.
+    sample_idx: optional RANSAC samples for `loop.retrieve_and_verify`."""
+    dev = resolve_device(device)
+    set_exact_f32()
+    new_mask = feats.has_point & ~lm_ok
+    m, slot = map_mod.insert_keyframe(
+        m, feats, T_wc, frame_idx, new_mask, lm_idx, lm_ok, device=dev)
+    m = local_ba(m, intrinsics, cfg.map.window_size, cfg, device=dev)
+    cand_idx, T_ab, loop_ok, lp_uid, lp_cons = loop_mod.retrieve_and_verify(
+        m, slot, generator, cfg.loop, intrinsics, loop_prev_uid, loop_consist,
+        sample_idx=sample_idx, device=dev)
+    num_obs, num_lm, num_kf, looped = torch.stack(
+        [m.num_obs, m.num_lm, m.num_kf, loop_ok.to(torch.int32)]).cpu().tolist()
+    if looped:
+        m = loop_mod.close(m, slot, cand_idx, T_ab, cfg.pose_graph, device=dev)
+    # the live pose rides the optimized (and corrected) newest keyframe
+    T_wc = loop_mod._row(m.kf_pose, slot)
+    m, compacted = compact_if_full(m, cfg, num_obs, num_lm, num_kf, dev)
+    # the new keyframe is the newest and is never culled, but its slot may
+    # have moved during compaction
+    return KeyframeUpdate(
+        m=m, T_wc=T_wc, slot=m.num_kf - 1, looped=bool(looped),
+        compacted=compacted, loop_prev_uid=lp_uid, loop_consist=lp_cons)
+
+
+@dataclasses.dataclass
+class SlamOutput:
+    poses: np.ndarray          # (N, 4, 4) per-frame T_wc
+    tracked: np.ndarray        # (N,) bool
+    num_keyframes: int
+    num_landmarks: int
+    num_loops: int
+    num_relocs: int = 0
+
+
+class Slam:
+    """Host-side SLAM orchestrator: a thin scheduler over the fixed-shape
+    functions of this module, one packed fetch per frame and one more per
+    keyframe."""
+
+    def __init__(self, cfg: SystemConfig, intrinsics, seed: int = 0,
+                 mesh=None, device=None):
+        """device: None is cuda:0 (raises without a CUDA device), "cpu" on
+        request.  mesh: the landmark-sharded BA is not ported; must be None."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "landmark-sharded local BA (parallel/ba_sharded) is not "
+                "ported yet: pass mesh=None")
+        set_exact_f32()
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.intr = as_f32(intrinsics, self.device)
+        self.m = map_mod.init_map(
+            cfg.map, cfg.frontend.max_keypoints,
+            cfg.frontend.num_descriptor_words, device=self.device)
+        self.generator = make_generator(seed, self.device)
+        self.prev: Optional[Features] = None
+        self.T_wc = torch.eye(4, dtype=torch.float32, device=self.device)
+        self.velocity = torch.eye(4, dtype=torch.float32, device=self.device)
+        self.frame_idx = 0
+        self.frames_since_kf = 0
+        self.num_loops = 0
+        self.lost_streak = 0
+        self.num_relocs = 0
+        self.num_compactions = 0
+        # loop-closure temporal-consistency gate state: uid of the last
+        # keyframe's winning candidate + consecutive-detection streak (device
+        # scalars once a keyframe has set them: the host never needs them)
+        self._loop_prev_uid = loop_mod.NO_CANDIDATE_UID
+        self._loop_consist = 0
+        self.trajectory: list[np.ndarray] = []   # live (causal) estimates
+        self.tracked: list[bool] = []
+        # every frame is anchored to its reference keyframe: the FINAL
+        # trajectory (result()) composes the frame-relative pose with the
+        # keyframe's OPTIMIZED pose, so local-BA and loop-closure
+        # corrections apply retroactively.  Frames record the keyframe's UID
+        # (its frame_id) rather than its slot: slots are recycled by
+        # compact_keyframes, uids never are.
+        self.frame_ref_uid: list[int] = []
+        self.frame_rel: list[np.ndarray] = []    # T_refkf_frame at record time
+        self._ref_uid = 0
+        self._ref_pose_np = np.eye(4, dtype=np.float32)
+        # IMU attitude rides alongside the visual pipeline, and the gyro
+        # feeds the tracker's motion prior (track_and_associate)
+        self.imu_state = imu_mod.init_state()
+        self._imu_delta_w = np.zeros(3, np.float32)
+        self._imu_delta_ok = False
+
+    def features(self, gray, depth) -> Features:
+        """Front-end entry: this system's Features from an RGB-D pair."""
+        t = self.cfg.tracking
+        return frontend_gray_depth(
+            gray, depth, self.intr, self.cfg.frontend,
+            min_depth=t.min_depth, max_depth=t.max_depth, device=self.device)
+
+    def _try_relocalize(self, feats: Features) -> bool:
+        ok, T_new = relocalize(self.m, feats, self.generator, self.cfg,
+                               self.device)
+        if not bool(ok):
+            return False
+        self.T_wc = T_new
+        self.velocity = torch.eye(4, dtype=torch.float32, device=self.device)
+        self.lost_streak = 0                   # the motion prior is stale
+        self.num_relocs += 1
+        return True
+
+    def process_imu(self, packet) -> None:
+        """Fold one per-frame IMU packet (gyro, gyro_ts, accel, gyro_valid,
+        accel_valid) into the attitude state and latch the inter-frame gyro
+        rotation for the tracker's motion prior."""
+        self.imu_state, self._imu_delta_w = imu_mod.process_packet_with_delta(
+            self.imu_state, *packet)
+        self._imu_delta_ok = True
+
+    @property
+    def attitude(self) -> np.ndarray:
+        """(3,) filtered Euler attitude [rad]."""
+        return np.asarray(self.imu_state.theta)
+
+    def process_frame(self, gray, depth, imu_packet=None) -> FrameReport | None:
+        """Feed one RGB-D frame.  Returns the per-frame report (None for
+        the very first frame, which only bootstraps)."""
+        return self.process_features(
+            self.features(gray, depth), imu_packet=imu_packet)
+
+    @torch.no_grad()
+    def process_features(
+        self, feats: Features, imu_packet=None,
+    ) -> FrameReport | None:
+        """Feed one already-extracted feature set."""
+        if imu_packet is not None:
+            self.process_imu(imu_packet)
+        feats = _features_to(feats, self.device)
+        if self.prev is None:
+            self.prev = feats
+            self.trajectory.append(self.T_wc.cpu().numpy())
+            self.tracked.append(True)
+            # bootstrap keyframe: everything with depth becomes a landmark
+            k = feats.xy.shape[0]
+            self.m, _ = map_mod.insert_keyframe(
+                self.m, feats, self.T_wc, self.frame_idx, feats.has_point,
+                torch.zeros(k, dtype=torch.int32, device=self.device),
+                torch.zeros(k, dtype=torch.bool, device=self.device),
+                device=self.device)
+            self._ref_uid = self.frame_idx          # kf uid == frame id
+            self._ref_pose_np = self.trajectory[-1]
+            self.frame_ref_uid.append(self._ref_uid)
+            self.frame_rel.append(np.eye(4, dtype=np.float32))
+            self.frame_idx += 1
+            return None
+
+        res, lm_idx, lm_ok, report = track_and_associate(
+            self.prev, feats, self.m, self.T_wc, self.velocity,
+            self._imu_delta_w, self._imu_delta_ok, self.frames_since_kf,
+            self.intr, self.generator, self.cfg, device=self.device)
+        self._imu_delta_ok = False    # consume the prior (one per packet)
+        self.T_wc = res.T_wc
+        self.velocity = res.velocity
+        self.prev = feats
+        # ONE device->host fetch per frame: every scheduler decision rides
+        # report.packed
+        pk = report.packed.cpu().numpy()
+        ok, need_kf = bool(pk[0] > 0.5), bool(pk[1] > 0.5)
+        self.trajectory.append(pk[4:].reshape(4, 4).astype(np.float32))
+        self.tracked.append(ok)
+
+        if ok:
+            self.lost_streak = 0
+        else:
+            self.lost_streak += 1
+            if self.lost_streak >= self.cfg.reloc.after_frames:
+                if self._try_relocalize(feats):
+                    self.trajectory[-1] = self.T_wc.cpu().numpy()
+
+        if need_kf:
+            up = keyframe_update(
+                self.m, feats, self.T_wc, self.frame_idx, lm_idx, lm_ok,
+                self.intr, self.cfg, self.generator, self._loop_prev_uid,
+                self._loop_consist, device=self.device)
+            self.m, self.T_wc = up.m, up.T_wc
+            self.frames_since_kf = 0
+            self._loop_prev_uid = up.loop_prev_uid
+            self._loop_consist = up.loop_consist
+            self.num_loops += up.looped
+            self.num_compactions += up.compacted
+            T_np = self.T_wc.cpu().numpy()
+            self.trajectory[-1] = T_np
+            self._ref_uid = self.frame_idx          # kf uid == frame id
+            self._ref_pose_np = T_np
+
+        self.frame_ref_uid.append(self._ref_uid)
+        self.frame_rel.append(
+            np.linalg.inv(self._ref_pose_np).astype(np.float32)
+            @ self.trajectory[-1])
+        self.frame_idx += 1
+        self.frames_since_kf += 1
+        return report
+
+    def result(self) -> SlamOutput:
+        """Final trajectory: each frame rides its reference keyframe's
+        OPTIMIZED pose, so the whole history reflects every local BA and
+        loop closure that happened after the frame was live.  Reference
+        keyframes culled by compact_keyframes resolve through the retired
+        ring; on ring overflow the frame falls back to its live (causal)
+        estimate."""
+        table = map_mod.resolve_kf_poses(self.m)
+        poses = np.stack([
+            table[ref] @ rel if ref in table else live
+            for ref, rel, live in zip(
+                self.frame_ref_uid, self.frame_rel, self.trajectory)
+        ])
+        return SlamOutput(
+            poses=poses,
+            tracked=np.asarray(self.tracked),
+            num_keyframes=int(self.m.num_kf),
+            num_landmarks=int(self.m.num_lm),
+            num_loops=self.num_loops,
+            num_relocs=self.num_relocs,
+        )

@@ -1,0 +1,351 @@
+"""Whole-sequence SLAM over a frame stack that lives on the device.
+
+Counterpart of `jetracer_orbslam2_tpu/models/slam_scan.py`.  There the whole
+system is one compiled `lax.scan` with `lax.cond` picking the keyframe and
+relocalization branches on the device.  Eager PyTorch has neither: here
+`slam_scan` is a Python loop over the stack, and every `lax.cond` is a host
+branch on flags fetched ONCE per frame in one packed tensor (`tracked`,
+`need_kf`, `try_reloc`), plus the one packed fetch a keyframe makes
+(`slam.keyframe_update`).  Only the branch taken is computed.  Frames, map,
+poses and the per-frame outputs stay on the device; the caller fetches the
+outputs once.
+
+The math, thresholds, gating and the trajectory convention (frames ride their
+reference keyframe's optimized pose) are `models/slam.py`'s, and the RANSAC
+generator is advanced in the same order (tracking, relocalization, loop), so
+`slam_scan` and `Slam` seeded alike give the same keyframes, closures and
+poses.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from jetracer_orbslam2_torch.config import SystemConfig
+from jetracer_orbslam2_torch.models import imu as imu_mod
+from jetracer_orbslam2_torch.models import slam as slam_mod
+from jetracer_orbslam2_torch.models.backend import loop as loop_mod
+from jetracer_orbslam2_torch.models.backend import map as map_mod
+from jetracer_orbslam2_torch.models.backend.map import MapState
+from jetracer_orbslam2_torch.models.frontend import Features, frontend_gray_depth
+from jetracer_orbslam2_torch.models.odometry import make_generator
+from jetracer_orbslam2_torch.ops import geometry as geo
+from jetracer_orbslam2_torch.utils.device import as_f32, resolve_device
+from jetracer_orbslam2_torch.utils.precision import set_exact_f32
+
+Tensor = torch.Tensor
+
+
+class ScanState(NamedTuple):
+    m: MapState
+    prev: Features
+    T_wc: Tensor            # (4, 4)
+    velocity: Tensor        # (4, 4)
+    frames_since_kf: Tensor  # () int32
+    lost_streak: Tensor     # () int32
+    frame_idx: Tensor       # () int32
+    ref_slot: Tensor        # () int32 reference keyframe of the live frame
+    num_loops: Tensor       # () int32
+    num_relocs: Tensor      # () int32
+    loop_prev_uid: Tensor   # () int32 last keyframe's winning loop candidate
+    loop_consist: Tensor    # () int32 consecutive-detection streak
+    generator: torch.Generator  # RANSAC draws (the JAX state's base_key)
+
+
+class ScanOutput(NamedTuple):
+    """Per-frame emissions, stacked to length N."""
+
+    ref_uid: Tensor         # (N,) int32 reference keyframe UID (frame_id:
+    #                         stable across keyframe slot recycling)
+    T_rel: Tensor           # (N, 4, 4) pose relative to ref keyframe AT EMIT
+    T_w_emit: Tensor        # (N, 4, 4) live world pose at emit (fallback if
+    #                         the ref keyframe aged out of the retired ring)
+    tracked: Tensor         # (N,) bool
+    is_kf: Tensor           # (N,) bool
+
+
+def _features(gray, depth, intrinsics, cfg: SystemConfig, dev) -> Features:
+    """Per-frame feature extraction, RGB-D: (gray, depth) -> Features."""
+    if cfg.stereo is not None:
+        raise NotImplementedError(
+            "the stereo front-end (SystemConfig.stereo) is not ported yet")
+    t = cfg.tracking
+    return frontend_gray_depth(
+        gray, depth, intrinsics, cfg.frontend,
+        min_depth=t.min_depth, max_depth=t.max_depth, device=dev)
+
+
+def _i32(value: int, dev) -> Tensor:
+    return torch.tensor(value, dtype=torch.int32, device=dev)
+
+
+@torch.no_grad()
+def init_scan_state(
+    gray0, depth0, intrinsics, cfg: SystemConfig, seed: int = 0, device=None,
+) -> ScanState:
+    """Bootstrap: frame 0 becomes the first keyframe (all depth keypoints
+    spawn landmarks), exactly as `models/slam.Slam`'s first frame.  device:
+    None is cuda:0 (raises without a CUDA device), "cpu" on request."""
+    dev = resolve_device(device)
+    set_exact_f32()
+    feats = _features(gray0, depth0, as_f32(intrinsics, dev), cfg, dev)
+    m = map_mod.init_map(cfg.map, cfg.frontend.max_keypoints,
+                         cfg.frontend.num_descriptor_words, device=dev)
+    k = feats.xy.shape[0]
+    eye = torch.eye(4, dtype=torch.float32, device=dev)
+    m, slot = map_mod.insert_keyframe(
+        m, feats, eye, 0, feats.has_point,
+        torch.zeros(k, dtype=torch.int32, device=dev),
+        torch.zeros(k, dtype=torch.bool, device=dev), device=dev)
+    return ScanState(
+        m=m, prev=feats, T_wc=eye, velocity=eye,
+        frames_since_kf=_i32(0, dev), lost_streak=_i32(0, dev),
+        frame_idx=_i32(1, dev), ref_slot=slot.to(torch.int32),
+        num_loops=_i32(0, dev), num_relocs=_i32(0, dev),
+        loop_prev_uid=_i32(loop_mod.NO_CANDIDATE_UID, dev),
+        loop_consist=_i32(0, dev),
+        generator=make_generator(seed, dev),
+    )
+
+
+def _skip(state: ScanState) -> tuple:
+    """The row a padding frame emits: the carried pose against the carried
+    reference keyframe, untracked, no keyframe; the state is untouched."""
+    dev = state.T_wc.device
+    ref_pose = loop_mod._row(state.m.kf_pose, state.ref_slot)
+    no = torch.zeros((), dtype=torch.bool, device=dev)
+    return (loop_mod._row(state.m.kf_frame_id, state.ref_slot),
+            geo.pose_inverse(ref_pose) @ state.T_wc, state.T_wc, no, False)
+
+
+def _step(state: ScanState, gray, depth, imu, intrinsics,
+          cfg: SystemConfig) -> tuple[ScanState, tuple]:
+    """One SLAM frame.  imu: (delta_w (3,), ok host bool).  Returns the new
+    state and the frame's output row, whose last entry (`is_kf`) is a host
+    bool."""
+    dev = state.T_wc.device
+    feats = _features(gray, depth, intrinsics, cfg, dev)
+    imu_delta_w, imu_ok = imu
+    res, lm_idx, lm_ok, report = slam_mod.track_and_associate(
+        state.prev, feats, state.m, state.T_wc, state.velocity,
+        imu_delta_w, imu_ok, state.frames_since_kf, intrinsics,
+        state.generator, cfg, device=dev)
+    T_wc, velocity, tracked = res.T_wc, res.velocity, report.tracked_ok
+    lost_streak = torch.where(tracked, 0, state.lost_streak + 1).to(torch.int32)
+    try_reloc = (~tracked) & (lost_streak >= cfg.reloc.after_frames)
+    # the frame's ONE fetch: what the host branches on
+    _, need_kf, try_reloc = torch.stack(
+        [tracked, report.need_kf, try_reloc]).cpu().tolist()
+
+    num_relocs = state.num_relocs
+    if try_reloc:
+        ok, T_new = slam_mod.relocalize(state.m, feats, state.generator, cfg, dev)
+        T_wc = torch.where(ok, T_new, T_wc)
+        velocity = torch.where(ok, torch.eye(4, dtype=torch.float32, device=dev),
+                               velocity)
+        lost_streak = torch.where(ok, 0, lost_streak).to(torch.int32)
+        num_relocs = num_relocs + ok.to(torch.int32)
+
+    m, ref_slot, num_loops = state.m, state.ref_slot, state.num_loops
+    lp_uid, lp_cons = state.loop_prev_uid, state.loop_consist
+    frames_since_kf = state.frames_since_kf + 1
+    if need_kf:
+        up = slam_mod.keyframe_update(
+            m, feats, T_wc, state.frame_idx, lm_idx, lm_ok, intrinsics, cfg,
+            state.generator, lp_uid, lp_cons, device=dev)
+        m, T_wc, ref_slot = up.m, up.T_wc, up.slot
+        lp_uid, lp_cons = up.loop_prev_uid, up.loop_consist
+        num_loops = num_loops + int(up.looped)
+        frames_since_kf = torch.ones_like(frames_since_kf)
+
+    ref_pose = loop_mod._row(m.kf_pose, ref_slot)
+    new_state = ScanState(
+        m=m, prev=feats, T_wc=T_wc, velocity=velocity,
+        frames_since_kf=frames_since_kf, lost_streak=lost_streak,
+        frame_idx=state.frame_idx + 1, ref_slot=ref_slot,
+        num_loops=num_loops, num_relocs=num_relocs,
+        loop_prev_uid=lp_uid, loop_consist=lp_cons,
+        generator=state.generator,
+    )
+    return new_state, (loop_mod._row(m.kf_frame_id, ref_slot),
+                       geo.pose_inverse(ref_pose) @ T_wc, T_wc, tracked, need_kf)
+
+
+def _host_bools(flags, n: int) -> list:
+    if flags is None:
+        return [True] * n
+    if isinstance(flags, Tensor):
+        flags = flags.cpu().numpy()
+    return [bool(v) for v in np.asarray(flags).tolist()]
+
+
+@torch.no_grad()
+def slam_scan(
+    state: ScanState, grays, depths, intrinsics, cfg: SystemConfig,
+    imu_delta_w=None,            # (N, 3) per-frame gyro rotation
+    imu_valid=None,              # (N,) host bools
+    mesh=None,
+    live=None,                   # (N,) host bools; False = padding
+) -> tuple[ScanState, ScanOutput]:
+    """Run the FULL SLAM system over an (N, H, W) frame stack on the state's
+    device.
+
+    imu_valid and live are read on the host (a tensor is fetched once, before
+    the loop).  Frames with live=False are inert padding: no tracking, no
+    state change, no draw; their output row is the carried pose, untracked.
+    mesh: the landmark-sharded BA is not ported; must be None.
+
+    Returns (final state, per-frame ScanOutput on the device).  Use
+    `compose_trajectory` to turn the output into world poses that reflect
+    every BA/loop correction.  The state's generator is advanced: a second
+    scan from the same state draws other samples.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "landmark-sharded local BA (parallel/ba_sharded) is not ported "
+            "yet: pass mesh=None")
+    set_exact_f32()
+    dev = state.T_wc.device
+    grays, depths = as_f32(grays, dev), as_f32(depths, dev)
+    intrinsics = as_f32(intrinsics, dev)
+    n = grays.shape[0]
+    live = _host_bools(live, n)
+    imu_ok = _host_bools(imu_valid, n) if imu_delta_w is not None else [False] * n
+    if imu_delta_w is not None:
+        imu_delta_w = as_f32(imu_delta_w, dev)
+    rows = []
+    for i in range(n):
+        if not live[i]:
+            rows.append(_skip(state))
+            continue
+        imu = (imu_delta_w[i] if imu_ok[i] else None, imu_ok[i])
+        state, row = _step(state, grays[i], depths[i], imu, intrinsics, cfg)
+        rows.append(row)
+    if n == 0:
+        f32 = dict(dtype=torch.float32, device=dev)
+        return state, ScanOutput(
+            ref_uid=torch.zeros(0, dtype=torch.int32, device=dev),
+            T_rel=torch.zeros((0, 4, 4), **f32),
+            T_w_emit=torch.zeros((0, 4, 4), **f32),
+            tracked=torch.zeros(0, dtype=torch.bool, device=dev),
+            is_kf=torch.zeros(0, dtype=torch.bool, device=dev))
+    ref_uid, T_rel, T_w_emit, tracked, is_kf = zip(*rows)
+    return state, ScanOutput(
+        ref_uid=torch.stack(ref_uid), T_rel=torch.stack(T_rel),
+        T_w_emit=torch.stack(T_w_emit), tracked=torch.stack(tracked),
+        is_kf=torch.tensor(is_kf, dtype=torch.bool, device=dev))
+
+
+class ChunkedSlam:
+    """Online SLAM in micro-batches: frames are processed in fixed-size
+    chunks through `slam_scan`, and the per-frame outputs come back to the
+    host once per chunk.  The trade is decision latency: the host sees
+    reports `chunk_size` frames late."""
+
+    def __init__(self, cfg: SystemConfig, intrinsics, chunk_size: int = 8,
+                 seed: int = 0, mesh=None, device=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "landmark-sharded local BA (parallel/ba_sharded) is not "
+                "ported yet: pass mesh=None")
+        set_exact_f32()
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.intr = as_f32(intrinsics, self.device)
+        self.chunk = chunk_size
+        self.seed = seed
+        self.state: Optional[ScanState] = None
+        self._outs: list[ScanOutput] = []     # numpy fields, one per chunk
+        self._pending_g: list = []
+        self._pending_d: list = []
+        self._pending_iw: list = []      # per-frame gyro deltas (3,), host
+        self._pending_iv: list = []      # per-frame IMU validity, host
+        self.imu_state = imu_mod.init_state()
+
+    def process_frame(self, gray, depth, imu_packet=None) -> Optional[ScanOutput]:
+        """Feed one frame; returns the chunk's ScanOutput (numpy fields)
+        every `chunk_size` frames, None otherwise.
+
+        imu_packet: optional fixed-size per-frame IMU packet (gyro, gyro_ts,
+        accel, gyro_valid, accel_valid).  The gyro integral between frames
+        feeds `slam_scan`'s imu_delta_w motion prior; the packet is folded on
+        the host and reaches the device with the chunk."""
+        delta_w, imu_ok = np.zeros(3, np.float32), False
+        if imu_packet is not None:
+            self.imu_state, delta_w = imu_mod.process_packet_with_delta(
+                self.imu_state, *imu_packet)
+            imu_ok = bool(np.any(np.asarray(imu_packet[3])))
+        if self.state is None:
+            self.state = init_scan_state(
+                gray, depth, self.intr, self.cfg, seed=self.seed,
+                device=self.device)
+            return None
+        self._pending_g.append(as_f32(gray, self.device))
+        self._pending_d.append(as_f32(depth, self.device))
+        self._pending_iw.append(delta_w)
+        self._pending_iv.append(imu_ok)
+        if len(self._pending_g) < self.chunk:
+            return None
+        return self.flush()
+
+    def flush(self) -> Optional[ScanOutput]:
+        """Run the buffered frames through the scan.  A ragged tail is simply
+        a shorter chunk: eager execution has no fixed-shape program to pad
+        for."""
+        if not self._pending_g:
+            return None
+        g, d = torch.stack(self._pending_g), torch.stack(self._pending_d)
+        iw = np.stack(self._pending_iw) if any(self._pending_iv) else None
+        iv = list(self._pending_iv)
+        for pending in (self._pending_g, self._pending_d, self._pending_iw,
+                        self._pending_iv):
+            pending.clear()
+        self.state, out = slam_scan(
+            self.state, g, d, self.intr, self.cfg,
+            imu_delta_w=iw, imu_valid=iv)
+        out = ScanOutput(*(x.cpu().numpy() for x in out))
+        self._outs.append(out)
+        return out
+
+    def tracked(self) -> np.ndarray:
+        """(N,) tracked flags of all processed frames (the bootstrap frame
+        counts as tracked)."""
+        first = np.ones(0 if self.state is None else 1, bool)
+        return np.concatenate([first] + [o.tracked for o in self._outs])
+
+    def result(self) -> np.ndarray:
+        """(N, 4, 4) world poses for all processed frames (frame 0 = the
+        bootstrap keyframe's optimized pose)."""
+        if self.state is None:
+            return np.zeros((0, 4, 4), np.float32)
+        kf0 = self.state.m.kf_pose[:1].cpu().numpy()
+        if not self._outs:
+            return kf0
+        merged = ScanOutput(*[
+            np.concatenate([getattr(o, f) for o in self._outs])
+            for f in ScanOutput._fields])
+        return np.concatenate([kf0, compose_trajectory(self.state, merged)])
+
+
+def _numpy(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, Tensor) else np.asarray(x)
+
+
+def compose_trajectory(final: ScanState, out: ScanOutput) -> np.ndarray:
+    """(N, 4, 4) world poses: each frame rides its reference keyframe's
+    FINAL optimized pose, so later BA/loop corrections apply retroactively
+    (the convention of `models/slam.Slam.result`).  Reference keyframes are
+    addressed by UID: keyframes culled by compact_keyframes resolve through
+    the retired-anchor ring; on ring overflow the frame falls back to its
+    world pose at emission time."""
+    table = map_mod.resolve_kf_poses(final.m)
+    ref, rel, emit = _numpy(out.ref_uid), _numpy(out.T_rel), _numpy(out.T_w_emit)
+    if ref.shape[0] == 0:
+        return np.zeros((0, 4, 4), np.float32)
+    return np.stack([
+        table[int(u)] @ r if int(u) in table else e
+        for u, r, e in zip(ref, rel, emit)
+    ])

@@ -6,6 +6,9 @@ the TPU has no fast random-access gather; a GPU has one, so here every level
 is flattened into one 1-D buffer and each patch pixel is fetched by one
 advanced-index gather.  Values are pure copies of pixels, so the result is
 bit-exact whatever the method.
+
+`extract_patches` is the plain version of the hand-written gather kernel
+(`ops/fused_patches.py`), which reads the packed canvas `pack_levels` builds.
 """
 
 from __future__ import annotations
@@ -19,6 +22,23 @@ from jetracer_orbslam2_torch.ops.nms import Keypoints
 from jetracer_orbslam2_torch.utils.consts import const_table
 
 Tensor = torch.Tensor
+
+
+def pack_levels(levels: List[Tensor]) -> tuple[Tensor, tuple[int, ...]]:
+    """Stack pyramid levels vertically into one (sum_h, W0) canvas.
+
+    Returns (canvas, per-level row offsets).  Levels narrower than level 0
+    are zero-padded on the right; a keypoint's level-local (x, y) maps to
+    canvas (x, y + offset[level]).
+    """
+    w0 = levels[0].shape[1]
+    offsets, rows, off = [], [], 0
+    for img in levels:
+        h, w = img.shape
+        offsets.append(off)
+        rows.append(torch.nn.functional.pad(img, (0, w0 - w)) if w < w0 else img)
+        off += h
+    return torch.cat(rows, 0), tuple(offsets)
 
 
 def extract_patches(levels: List[Tensor], kp: Keypoints, patch_size: int) -> Tensor:

@@ -1,13 +1,17 @@
-"""CLI entry of the port: run RGB-D odometry on a synthetic sequence.
+"""CLI entry of the port: run SLAM or odometry on a synthetic sequence.
 
+    python -m jetracer_orbslam2_torch.run --synthetic 100
+    python -m jetracer_orbslam2_torch.run --synthetic 100 --chunked 8
     python -m jetracer_orbslam2_torch.run --synthetic 100 --mode odometry
-    python -m jetracer_orbslam2_torch.run --synthetic 100 --mode odometry --chunked 32
-    python -m jetracer_orbslam2_torch.run --synthetic 8 --mode odometry --device cpu
+    python -m jetracer_orbslam2_torch.run --synthetic 8 --device cpu
 
 Counterpart of `jetracer_orbslam2_tpu/run.py` for the part of the system that
-is ported: `--mode odometry` on `--synthetic N` frames, whole-sequence or
-`--chunked C`.  `--mode slam` and `--dataset` are not ported yet and exit
-with code 2.  Runs on `cuda:0` unless `--device cpu` is given.
+is ported: on `--synthetic N` frames, `--mode slam` (the default: the full
+system through the host loop `Slam`, or through `ChunkedSlam` with
+`--chunked C`) and `--mode odometry` (whole-sequence or `--chunked C`).
+`--dataset`, `--mesh`, `--telemetry`, `--checkpoint` and `--resume` are not
+ported yet and exit with code 2.  Runs on `cuda:0` unless `--device cpu` is
+given.
 """
 
 from __future__ import annotations
@@ -27,11 +31,15 @@ def build_argparser():
     p.add_argument("--synthetic", type=int, default=0,
                    help="run on N synthetic frames")
     p.add_argument("--mode", choices=("odometry", "slam"), default="slam",
-                   help="odometry = whole-sequence on-device frame loop "
-                        "(RGB-D); slam = full system (not ported yet)")
+                   help="slam = full system (map/BA/loops); odometry = "
+                        "whole-sequence on-device frame loop (RGB-D)")
     p.add_argument("--chunked", type=int, default=0, metavar="C",
-                   help="constant-memory streaming over C-frame chunks "
-                        "(one host sync per chunk)")
+                   help="processing over C-frame chunks: with --mode slam "
+                        "the full system through ChunkedSlam, with --mode "
+                        "odometry constant-memory streaming")
+    for flag, meta in (("--mesh", "N"), ("--telemetry", "PORT"),
+                       ("--checkpoint", "DIR"), ("--resume", "DIR")):
+        p.add_argument(flag, metavar=meta, help="not ported yet")
     p.add_argument("--max-keypoints", type=int, default=1024)
     p.add_argument("--levels", type=int, default=4)
     p.add_argument("--fast-min-threshold", type=float, default=0.0,
@@ -126,6 +134,66 @@ def _run_odometry(args, frames, n, hw, intr, device):
     }, poses
 
 
+def _run_slam(args, frames, n, hw, intr, device):
+    """The full system: the host loop `Slam`, or `ChunkedSlam` over
+    `--chunked C` frames at a time."""
+    import numpy as np
+
+    from jetracer_orbslam2_torch.config import FrontendConfig, SystemConfig
+    from jetracer_orbslam2_torch.models.slam import Slam
+    from jetracer_orbslam2_torch.models.slam_scan import ChunkedSlam
+
+    h, w = hw
+    cfg = SystemConfig(frontend=FrontendConfig(
+        height=h, width=w, num_levels=args.levels,
+        max_keypoints=args.max_keypoints,
+        fast_min_threshold=args.fast_min_threshold))
+
+    if args.chunked:
+        ch = ChunkedSlam(cfg, intr, chunk_size=args.chunked, device=device)
+        _sync(device)
+        t0 = time.perf_counter()
+        count = 0
+        for g, d in frames():
+            ch.process_frame(g, d)
+            count += 1
+        ch.flush()
+        poses = ch.result()
+        wall = time.perf_counter() - t0
+        return {
+            "mode": f"slam-chunked{args.chunked}",
+            "frames": count,
+            "fps": round(count / wall, 2),
+            "tracked_frac": float(np.mean(ch.tracked())),
+            "keyframes": int(ch.state.m.num_kf),
+            "landmarks": int(ch.state.m.num_lm),
+            "loops": int(ch.state.num_loops),
+            "relocs": int(ch.state.num_relocs),
+        }, poses
+
+    slam = Slam(cfg, intr, device=device)
+    _sync(device)
+    t0 = time.perf_counter()
+    count = 0
+    for g, d in frames():
+        slam.process_frame(g, d)
+        count += 1
+        if count % 50 == 0:
+            log.info("[%d/%d] loops=%d", count, n, slam.num_loops)
+    out = slam.result()
+    wall = time.perf_counter() - t0
+    return {
+        "mode": "slam",
+        "frames": count,
+        "fps": round(count / wall, 2),
+        "tracked_frac": float(np.mean(out.tracked)),
+        "keyframes": out.num_keyframes,
+        "landmarks": out.num_landmarks,
+        "loops": out.num_loops,
+        "relocs": out.num_relocs,
+    }, out.poses
+
+
 def _accuracy(report, poses, gt, count):
     """ATE + drift-per-meter (RPE, KITTI convention) next to each other."""
     import numpy as np
@@ -151,16 +219,13 @@ def main(argv=None) -> int:
         format="%(asctime)s %(name)s %(levelname)s %(message)s",
         stream=sys.stderr)
 
-    if args.dataset:
-        print("--dataset is not ported yet in jetracer_orbslam2_torch; "
-              "use --synthetic N", file=sys.stderr)
-        return 2
+    for flag in ("dataset", "mesh", "telemetry", "checkpoint", "resume"):
+        if getattr(args, flag):
+            print(f"--{flag} is not ported yet in jetracer_orbslam2_torch; "
+                  "use --synthetic N", file=sys.stderr)
+            return 2
     if not args.synthetic:
         print("need --synthetic N", file=sys.stderr)
-        return 2
-    if args.mode != "odometry":
-        print("--mode slam is not ported yet in jetracer_orbslam2_torch; "
-              "use --mode odometry", file=sys.stderr)
         return 2
 
     from jetracer_orbslam2_torch.utils.device import resolve_device
@@ -171,7 +236,8 @@ def main(argv=None) -> int:
     log.info("running on %s", device)
 
     frames, n, hw, intr, gt = _open_source(args, device)
-    report, poses = _run_odometry(args, frames, n, hw, intr, device)
+    run = _run_odometry if args.mode == "odometry" else _run_slam
+    report, poses = run(args, frames, n, hw, intr, device)
     report["device"] = str(device)
     _accuracy(report, poses, gt, min(n, len(poses)))
     print(json.dumps(report))

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Profile the PyTorch port's RGB-D odometry frame loop, or its bundle
-adjustment, on the GPU.
+"""Profile the PyTorch port's RGB-D odometry frame loop, its bundle
+adjustment, or its SLAM loop, on the GPU.
 
     python3 scripts/profile_torch_odometry.py [--frames 120] [--trace out.json]
     python3 scripts/profile_torch_odometry.py --ba [--landmarks 4096]
+    python3 scripts/profile_torch_odometry.py --slam
 
 Renders a 640x480 synthetic sequence on the card, warms the loop up, then
 runs `odometry_scan` over `--frames` frames under `torch.profiler` with the
@@ -21,6 +22,11 @@ poses x `--landmarks` landmarks, 10 LM iterations, by the fused route (the
 hand-written kernels) and by the dense route: the host waits and the ATen
 ops of one call, then the wall time of an untraced call and the device-busy
 and idle share of a device-traced one.
+With `--slam` it profiles the SLAM loop (`slam_scan`) on the gated lap (126
+frames of 240x180, 3 levels, 512 keypoints, depth noise 2 % z^2): the host
+waits and the ATen ops of one plain frame and of one keyframe frame, their
+wall time, then the wall time of an untraced pass over the lap and the
+device-busy and idle share of a device-traced one.
 Needs a CUDA device; imports torch and the port only.
 """
 
@@ -184,8 +190,112 @@ def profile_ba(landmarks: int, rows: int) -> None:
               flush=True)
 
 
+def profile_slam(rows: int) -> None:
+    """`slam_scan` on the gated lap: waits, ops and wall time of one plain
+    frame and of one keyframe frame; wall, device-busy and idle share of the
+    whole lap."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from jetracer_orbslam2_torch.config import (
+        FrontendConfig, SystemConfig, TrackingConfig)
+    from jetracer_orbslam2_torch.io.synthetic import generate_lap_sequence
+    from jetracer_orbslam2_torch.models import slam as slam_mod
+    from jetracer_orbslam2_torch.models import slam_scan as ss
+
+    h, w, n, lap = 180, 240, 126, 110
+    cfg = SystemConfig(
+        frontend=FrontendConfig(height=h, width=w, num_levels=3, max_keypoints=512),
+        tracking=TrackingConfig(match_window=16.0))
+    seq = generate_lap_sequence(n, (h, w), lap_frames=lap)
+    dev = seq.gray.device
+    rnd = torch.from_numpy(np.random.RandomState(0).randn(
+        *seq.depth.shape).astype(np.float32)).to(dev)
+    depth = seq.depth * (1.0 + 0.02 * seq.depth * rnd)
+    intr = seq.intrinsics
+    no_imu = (None, False)
+
+    def lap_pass():
+        state = ss.init_scan_state(seq.gray[0], depth[0], intr, cfg)
+        t0 = time.perf_counter()
+        final, out = ss.slam_scan(state, seq.gray[1:], depth[1:], intr, cfg)
+        torch.cuda.synchronize()
+        return final, out, time.perf_counter() - t0
+
+    lap_pass()                                           # build + warm
+    # walk the lap once, keeping the state before one plain frame and before
+    # one keyframe frame (states are never changed in place; the generator is)
+    # ... and watching what the windowed BA does right after an insert, when
+    # the newest landmarks have one observation each
+    local_ba, unchanged = slam_mod.local_ba, []
+
+    def watched_local_ba(m, *args, **kwargs):
+        out = local_ba(m, *args, **kwargs)
+        unchanged.append(torch.equal(out.kf_pose, m.kf_pose)
+                         and torch.equal(out.lm_pos, m.lm_pos))
+        return out
+
+    slam_mod.local_ba = watched_local_ba
+    state = ss.init_scan_state(seq.gray[0], depth[0], intr, cfg)
+    examples = {}
+    try:
+        for i in range(1, n):
+            gen = state.generator.get_state()
+            new_state, row = ss._step(state, seq.gray[i], depth[i], no_imu, intr,
+                                      cfg)
+            kind = "keyframe frame" if row[-1] else "plain frame"
+            if i > 20 and kind not in examples:
+                examples[kind] = (state, i, gen)
+            state = new_state
+    finally:
+        slam_mod.local_ba = local_ba
+    print(f"local_ba right after insert_keyframe left the map unchanged (every "
+          f"LM step rejected) at {sum(unchanged)} of {len(unchanged)} keyframes",
+          flush=True)
+
+    for kind, (st, i, gen) in examples.items():
+        def one():
+            st.generator.set_state(gen)
+            out = ss._step(st, seq.gray[i], depth[i], no_imu, intr, cfg)
+            torch.cuda.synchronize()
+            return out
+
+        def timed():
+            t0 = time.perf_counter()
+            one()
+            return time.perf_counter() - t0
+
+        what = f"one {kind} of the SLAM loop (frame {i})"
+        report_syncs(one, what)
+        report_op_counts(one, rows, what)
+        print(f"{what}: {min(timed() for _ in range(5)) * 1e3:.2f} ms wall "
+              f"(host clock + sync, best of 5)", flush=True)
+
+    _, out, plain_wall = lap_pass()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        final, out, wall = lap_pass()
+    on_device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_s = sum(e.self_device_time_total for e in on_device) / 1e6
+    launches = sum(e.count for e in on_device)
+    frames = n - 1
+    print(f"SLAM loop, {frames} frames of {w}x{h} ({int(out.is_kf.sum())} "
+          f"keyframes, {int(final.num_loops)} loops): device-traced pass wall "
+          f"{wall / frames * 1e3:.3f} ms/frame, device busy "
+          f"{dev_s / frames * 1e3:.3f} ms/frame = {dev_s / wall:.1%} of that pass "
+          f"(idle {1 - dev_s / wall:.1%}); {launches / frames:.0f} device "
+          f"kernels+copies per frame; the untraced pass before it: "
+          f"{plain_wall / frames * 1e3:.3f} ms/frame = "
+          f"{frames / plain_wall:.1f} frames/s (idle "
+          f"{1 - dev_s / plain_wall:.1%})", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--slam", action="store_true",
+                    help="profile the SLAM loop on the gated lap instead of "
+                         "the odometry frame loop")
     ap.add_argument("--ba", action="store_true",
                     help="profile bundle_adjust (both routes) instead of the "
                          "odometry frame loop")
@@ -217,9 +327,12 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     print(card.stdout.strip().splitlines()[0], flush=True)
-    if args.ba:
+    if args.ba or args.slam:
         with torch.no_grad():
-            profile_ba(args.landmarks, args.rows)
+            if args.ba:
+                profile_ba(args.landmarks, args.rows)
+            else:
+                profile_slam(args.rows)
         return 0
     n, warm, m = args.frames, 8, args.table_frames
     seq = generate_sequence(1 + warm + n, (480, 640), device=dev)

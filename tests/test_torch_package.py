@@ -14,6 +14,9 @@ from jetracer_orbslam2_torch.utils import cuda_build
 from jetracer_orbslam2_torch.utils.device import resolve_device
 from jetracer_orbslam2_torch.utils.precision import set_exact_f32
 
+# small tensors only: see tests/_torch_port_util.py
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "jetracer_orbslam2_torch"
 
@@ -32,7 +35,9 @@ def test_port_sources_name_no_jax_import():
     names = {str(f.relative_to(ROOT)) for f in files}
     for new in ("models/backend/ba.py", "models/backend/map.py",
                 "models/backend/pose_graph.py", "models/slam.py",
-                "ops/fused_ba.py", "parallel/bench_ba.py", "convert.py"):
+                "ops/fused_ba.py", "parallel/bench_ba.py", "convert.py",
+                "models/backend/loop.py", "models/imu.py", "models/slam_scan.py",
+                "ops/fused_patches.py"):
         assert f"jetracer_orbslam2_torch/{new}" in names
     for path in files:
         assert not _FORBIDDEN.search(path.read_text()), path
@@ -203,16 +208,154 @@ def test_set_exact_f32():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--synthetic", "4", "--mode", "slam"],
-    ["--synthetic", "4"],                        # --mode defaults to slam
+    ["--dataset", "/nonexistent"],
+    ["--mode", "slam"],                          # no --synthetic
     ["--dataset", "/nonexistent", "--mode", "odometry"],
     ["--mode", "odometry"],
+    ["--synthetic", "4", "--mesh", "4"],
+    ["--synthetic", "4", "--telemetry", "9002"],
+    ["--synthetic", "4", "--checkpoint", "/nonexistent"],
+    ["--synthetic", "4", "--resume", "/nonexistent"],
 ])
 def test_cli_refuses_what_is_not_ported(argv, capsys):
     assert trun.main(argv + ["--device", "cpu"]) == 2
     captured = capsys.readouterr()
     assert captured.out == ""
     assert "not ported" in captured.err or "need --synthetic" in captured.err
+
+
+@pytest.mark.parametrize("extra,mode", [
+    ([], "slam"), (["--chunked", "3"], "slam-chunked3")])
+def test_cli_runs_slam_by_default(extra, mode, capsys):
+    """`--mode slam` is the default: the host loop, or ChunkedSlam with
+    --chunked, on the CLI's 640x480 frames (a narrow front-end keeps the CPU
+    run short)."""
+    import json
+
+    argv = ["--synthetic", "4", "--json", "--device", "cpu", "--levels", "2",
+            "--max-keypoints", "256"]
+    assert trun.main(argv + extra) == 0
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert report["mode"] == mode and report["frames"] == 4
+    assert report["device"] == "cpu"
+    for key in ("fps", "tracked_frac", "keyframes", "landmarks", "loops",
+                "relocs", "ate_rmse_m", "rpe_drift_pct", "rpe_rot_deg_per_m"):
+        assert key in report, key
+    assert report["keyframes"] >= 1 and report["loops"] == 0
+    assert report["tracked_frac"] == 1.0 and report["landmarks"] > 100
+    assert 0.0 <= report["ate_rmse_m"] < 0.05
+
+
+def test_slam_entry_points_default_to_the_card():
+    """Every entry point of the SLAM slice runs on cuda:0 unless asked for
+    the CPU, wherever its inputs lie."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour of a machine without a CUDA device")
+    import numpy as np
+    from jetracer_orbslam2_torch.config import (
+        FrontendConfig, LoopClosureConfig, MapConfig, PoseGraphConfig,
+        SystemConfig)
+    from jetracer_orbslam2_torch.io.synthetic import generate_lap_sequence
+    from jetracer_orbslam2_torch.models import slam, slam_scan
+    from jetracer_orbslam2_torch.models.backend import loop, map as map_mod
+    from jetracer_orbslam2_torch.models.frontend import Features
+
+    k = 4
+    mcfg = MapConfig(max_keyframes=4, max_landmarks=8, max_obs=16,
+                     max_loop_edges=2, max_dead_keyframes=4)
+    cfg = SystemConfig(
+        frontend=FrontendConfig(height=48, width=64, num_levels=1,
+                                max_keypoints=k), map=mcfg)
+    feats = Features(
+        xy=torch.zeros(k, 2), level=torch.zeros(k, dtype=torch.int32),
+        score=torch.zeros(k), angle=torch.zeros(k),
+        desc=torch.zeros(k, 8, dtype=torch.int32),
+        valid=torch.ones(k, dtype=torch.bool), points=torch.ones(k, 3),
+        has_point=torch.ones(k, dtype=torch.bool))
+    m = map_mod.init_map(mcfg, k, device="cpu")
+    none = torch.zeros(k, dtype=torch.bool)
+    for i in range(2):
+        m, _ = map_mod.insert_keyframe(
+            m, feats, torch.eye(4), i, ~none, torch.zeros(k, dtype=torch.int32),
+            none, device="cpu")
+    intr = torch.tensor([50.0, 50.0, 32.0, 24.0])
+    g = np.zeros((48, 64), np.float32)
+    lc = LoopClosureConfig(topn=1, world_max_obs=4)
+    calls = {
+        "compact_keyframes": lambda **kw: map_mod.compact_keyframes(
+            m, 0.9, 3, 1, 4, **kw),
+        "retrieve": lambda **kw: loop.retrieve(m, 1, 0.5, 0, **kw),
+        "retrieve_topn": lambda **kw: loop.retrieve_topn(m, 1, 0.5, 0, 1, **kw),
+        "retrieve_global": lambda **kw: loop.retrieve_global(
+            m, torch.full((256,), 0.4), 0.5, **kw),
+        "verify": lambda **kw: loop.verify(m, 1, 0, None, lc, **kw),
+        "verify_features": lambda **kw: loop.verify_features(
+            m, feats.desc, feats.has_point, feats.points, 0, None, 0.1, 3, **kw),
+        "retrieve_and_verify": lambda **kw: loop.retrieve_and_verify(
+            m, 1, None, lc, intr, -1, 0, **kw),
+        "close": lambda **kw: loop.close(
+            m, 1, 0, torch.eye(4), PoseGraphConfig(iters=1), **kw),
+        "track_and_associate": lambda **kw: slam.track_and_associate(
+            feats, feats, m, torch.eye(4), torch.eye(4), None, False, 1, intr,
+            None, cfg, **kw),
+        "relocalize": lambda **kw: slam.relocalize(m, feats, None, cfg, **kw),
+        "keyframe_update": lambda **kw: slam.keyframe_update(
+            m, feats, torch.eye(4), 2, torch.zeros(k, dtype=torch.int32), none,
+            intr, cfg.replace(loop=lc), None, -1, 0, **kw),
+        "compact_if_full": lambda **kw: slam.compact_if_full(
+            m, cfg, 0, 0, 4, **kw),
+        "Slam": lambda **kw: slam.Slam(cfg, intr, **kw),
+        "init_scan_state": lambda **kw: slam_scan.init_scan_state(
+            g, g, intr, cfg, **kw),
+        "ChunkedSlam": lambda **kw: slam_scan.ChunkedSlam(cfg, intr, **kw),
+        "generate_lap_sequence": lambda **kw: generate_lap_sequence(
+            2, (48, 64), lap_frames=8, **kw),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+        call(device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        trun.main(["--synthetic", "2"])
+
+
+def test_patch_kernel_source_and_wrapper_contract():
+    """K4 is CUDA C++ with a plain C interface, built at first use and never
+    at import; its wrapper counts launches in one place, leaves the CPU to the
+    plain version and takes no other device."""
+    from jetracer_orbslam2_torch.ops import fused_patches
+
+    path = cuda_build.library_path("patch_gather")
+    assert re.fullmatch(r"patch_gather-[0-9a-f]{16}\.so", path.name)
+    assert "patch_gather" not in cuda_build.build_info or torch.cuda.is_available()
+    src = (PORT / "csrc" / "patch_gather.cu").read_text()
+    assert 'extern "C" int patch_gather_launch(' in src
+    for banned in ("torch/extension.h", "#include <ATen", "atomicAdd", "cublas"):
+        assert banned not in src, banned
+    wrapper = (PORT / "ops" / "fused_patches.py").read_text()
+    assert "torch.compile" not in wrapper and "import triton" not in wrapper
+    assert wrapper.count(".launches += 1") == 1
+    assert "except" not in wrapper
+    frontend = (PORT / "models" / "frontend.py").read_text()
+    assert "fused_patches.extract_patches_fused(" in frontend
+    assert "patches.extract_patches(" not in frontend.replace(
+        "fused_patches.extract_patches_fused(", "")
+    # a tensor that lies neither on the CPU nor on a CUDA device is refused:
+    # the plain version stands in for the kernel on the CPU only
+    canvas = torch.zeros((50, 60), device="meta")
+    origins = torch.zeros(3, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_patches.patch_gather(canvas, origins, origins, 37)
+    if not torch.cuda.is_available():
+        from jetracer_orbslam2_torch.config import FrontendConfig
+        from jetracer_orbslam2_torch.models.frontend import frontend_gray_depth
+        import numpy as np
+
+        g = np.zeros((48, 64), np.float32)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            frontend_gray_depth(g, g, np.float32([50, 50, 32, 24]),
+                                FrontendConfig(height=48, width=64, num_levels=1),
+                                device="cuda")
 
 
 def test_kernel_library_is_keyed_by_source_hash():
