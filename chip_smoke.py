@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # no arguments, one GPU
+    python3 chip_smoke.py --kernels  # phases 1-3, 6, 7, 11 only
 
 Drives `jetracer_orbslam2_torch`'s paths through the functions a user calls:
 RGB-D odometry on a synthetic 640x480 sequence at the CLI's defaults (4
@@ -20,18 +21,25 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
    2 build        nvcc compiles csrc/fast_nms.cu, csrc/ba_fused.cu and
                   csrc/patch_gather.cu side by side; prints seconds and ptxas'
                   notes
-   3 K1, K4 check fast_nms kernel vs plain version, torch.equal, every shape;
+   3 K1, K4 check fast_nms kernel vs plain version, torch.equal: the one-level
+                  call at every shape, the batched call (every level of a
+                  pyramid, one or two thresholds, one launch) on frame 0's
+                  levels, odd shapes, 1 and 8 levels, an unaligned level;
                   patch_gather kernel vs plain version, torch.equal, on the
                   pyramids of rendered frames at three sizes and on adversarial
                   window origins; two launches bit-identical
    4 semantics    tie orders and CPU/GPU agreement of the front-end
    5 main path    whole-sequence odometry: ATE, tracked fraction, kernel
-                  launches; --chunked 32 on the same frames gives the same
-                  poses; a second, warm run is timed
-   6 K1 time      median device time per launch at the four level shapes
+                  launches (K1 and K4 once a frame); --chunked 32 on the same
+                  frames gives the same poses; a second, warm run is timed
+   6 K1 time      device time of the one launch a frame at one and two
+                  thresholds, and of the old schedule (one launch per level
+                  and threshold) in the same run; the plain version and the
+                  bound; the one-level launch per level shape
    7 K2/K3 check  fused_normal_schur and fused_backsub vs their plain
-                  versions at every listed (P, L), against a float64 truth,
-                  and bit-identical between two launches
+                  versions at every listed (P, L), against a float64 truth;
+                  bit-identical between two launches and between two replays
+                  of a captured CUDA graph
    8 BA path      bundle_adjust, 8 x 4,096, 10 iterations through the
                   kernels: trace, gauge, launches, agreement with the dense
                   route; ms per LM iteration of both routes
@@ -76,6 +84,7 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
 FAST_THRESHOLD, FAST_ARC, FAST_BORDER = 13.0, 12, 19
+SLAM_FAST_MIN_THRESHOLD = 7.0   # the SLAM path's second FAST threshold
 N_FRAMES = 120
 N_PHASES = 16
 PATCH = 37
@@ -145,31 +154,40 @@ def time_launches(fn, reps: int, batch: int) -> float:
     return _median_event_ms(graph.replay, reps, batch)
 
 
-def fast_nms_work(img, threshold: float, border: int) -> tuple[int, int]:
-    """(bytes, f32 operations) the FAST+NMS function needs on THIS image:
-    each input read once and each output written once; per scored pixel 16
-    subtractions and 32 compares, 2 more per ring pixel that passes +-t
-    (counted from the data), and 9 compares per pixel for the 3x3 max."""
+def fast_nms_work(levels, thresholds, border: int) -> tuple[int, int]:
+    """(bytes, f32 operations) the FAST+NMS function needs on THESE levels at
+    these thresholds: each level read once and each (level, threshold)
+    output written once; per scored pixel 16 subtractions, and per threshold
+    32 compares plus 2 more per ring pixel that passes +-t (counted from the
+    data), and 9 compares per pixel for the 3x3 max."""
     from jetracer_orbslam2_torch.ops.fast import RING_OFFSETS
 
-    h, w = img.shape
-    b = border
-    scored = max(h - 2 * b, 0) * max(w - 2 * b, 0)
-    passes = 0
-    if scored:
-        c = img[b:h - b, b:w - b]
-        for dy, dx in RING_OFFSETS:
-            d = img[b + dy:h - b + dy, b + dx:w - b + dx] - c
-            passes += int((d.abs() > threshold).sum())
-    return 8 * h * w, scored * 48 + 2 * passes + 9 * h * w
+    n_bytes = n_ops = 0
+    for img in levels:
+        h, w = img.shape
+        b = border
+        n_bytes += 4 * h * w * (1 + len(thresholds))
+        scored = max(h - 2 * b, 0) * max(w - 2 * b, 0)
+        n_ops += 16 * scored
+        for t in thresholds:
+            passes = 0
+            if scored:
+                c = img[b:h - b, b:w - b]
+                for dy, dx in RING_OFFSETS:
+                    d = img[b + dy:h - b + dy, b + dx:w - b + dx] - c
+                    passes += int((d.abs() > t).sum())
+            n_ops += 32 * scored + 2 * passes + 9 * h * w
+    return n_bytes, n_ops
 
 
 def phase_kernel_checks(levels) -> tuple[float, bool]:
-    """Kernel vs plain version, bit for bit.  Returns the max abs error seen
-    and whether every comparison was torch.equal."""
+    """K1 vs its plain version, bit for bit: the one-level call at every
+    shape, then the batched call on multi-level lists at one and two
+    thresholds.  Returns the max abs error seen and whether every comparison
+    was torch.equal."""
     import numpy as np
     import torch
-    from jetracer_orbslam2_torch.ops import fused_fast
+    from jetracer_orbslam2_torch.ops import fused_fast, preprocess
 
     dev = levels[0].device
 
@@ -193,23 +211,73 @@ def phase_kernel_checks(levels) -> tuple[float, bool]:
     cases.append(("(203,331) non-integer f32 arc 9", rnd, 3.25, 9, 5))
 
     worst, all_equal = 0.0, True
-    for name, img, thr, arc, border in cases:
-        got = fused_fast.fast_nms_response(img, thr, arc, border)
-        ref = fused_fast.fast_nms_response_reference(img, thr, arc, border)
+
+    def compare(name, got, ref):
+        nonlocal worst, all_equal
         torch.cuda.synchronize()
         err = float((got - ref).abs().max()) if got.numel() else 0.0
         worst = max(worst, err)
-        corners = int((ref > 0).sum())
         equal = torch.equal(got, ref)
         all_equal = all_equal and equal
-        say(f"  kernel vs plain  {name:36s} corners {corners:6d}  "
-            f"max_abs_err {err:g}  equal {equal}")
         if not equal:
             raise SystemExit(f"FAIL: fast_nms kernel disagrees with its plain "
                              f"version at {name}")
+        return err, int((ref > 0).sum())
+
+    for name, img, thr, arc, border in cases:
+        got = fused_fast.fast_nms_response(img, thr, arc, border)
+        ref = fused_fast.fast_nms_response_reference(img, thr, arc, border)
+        err, corners = compare(name, got, ref)
+        say(f"  kernel vs plain  {name:36s} corners {corners:6d}  "
+            f"max_abs_err {err:g}  equal True")
+
+    # the batched call: lists of levels at one and two thresholds
+    frame = [l.contiguous() for l in levels]
+    odd = [integer_image((64, 128), 0), integer_image((52, 70), 7),
+           integer_image((41, 257), 7), integer_image((48, 128), 3),
+           integer_image((30, 40), 5), rnd]
+    eight = [l.contiguous() for l in preprocess.build_pyramid(
+        preprocess.gaussian_blur_3x3(integer_image((480, 640), 11)), 8)]
+    # a level whose rows are 16-byte multiples but whose start is not
+    shifted = torch.empty(1 + 64 * 128, device=dev)[1:].view(64, 128)
+    shifted.copy_(integer_image((64, 128), 4))
+    batched = [
+        ("frame 0, 4 levels", frame, (FAST_THRESHOLD,), FAST_ARC, FAST_BORDER),
+        ("frame 0, 4 levels", frame, (FAST_THRESHOLD, 7.0), FAST_ARC, FAST_BORDER),
+        ("odd shapes", odd, (13.0,), 12, 3),
+        ("odd shapes", odd, (3.25, 7.5), 9, 5),
+        ("odd shapes", odd, (13.0, 40.0), 16, 3),
+        ("odd shapes, border 19", odd, (13.0, 7.0), 12, 19),
+        ("1 level", [rnd], (7.5, 13.0), 12, 3),
+        ("8 levels of 480x640", eight, (13.0, 7.0), 12, FAST_BORDER),
+        ("8 levels of 480x640", eight, (13.0,), 12, 3),
+        ("unaligned level start", [shifted, frame[1]], (13.0, 7.0), 12, 3),
+    ]
+    for name, lv, thr, arc, border in batched:
+        before = fused_fast.fast_nms_pyramid.launches
+        got = fused_fast.fast_nms_pyramid(lv, thr, arc, border)
+        again = fused_fast.fast_nms_pyramid(lv, thr, arc, border)
+        if fused_fast.fast_nms_pyramid.launches != before + 2:
+            raise SystemExit("FAIL: fast_nms_pyramid did not launch once a call")
+        ref = fused_fast.fast_nms_pyramid_reference(lv, thr, arc, border)
+        err = 0.0
+        for j in range(len(thr)):
+            for i in range(len(lv)):
+                label = f"{name} t {thr[j]:g} level {i}"
+                err = max(err, compare(label, got[j][i], ref[j][i])[0])
+                if not torch.equal(got[j][i], again[j][i]):
+                    raise SystemExit(f"FAIL: two launches differ at {label}")
+        say(f"  kernel vs plain  pyramid: {name:28s} {len(lv)} levels x "
+            f"{len(thr)} thresholds  max_abs_err {err:g}  equal True")
+
+    cpu_level = rnd.cpu()
     for bad in (lambda: fused_fast.fast_nms_response(rnd, 7.5, 12, 2),
                 lambda: fused_fast.fast_nms_response(rnd.double(), 7.5, 12, 3),
-                lambda: fused_fast.fast_nms_response(rnd.T, 7.5, 12, 3)):
+                lambda: fused_fast.fast_nms_response(rnd.T, 7.5, 12, 3),
+                lambda: fused_fast.fast_nms_pyramid([], (7.5,), 12, 3),
+                lambda: fused_fast.fast_nms_pyramid([rnd] * 9, (7.5,), 12, 3),
+                lambda: fused_fast.fast_nms_pyramid([rnd], (1.0, 2.0, 3.0), 12, 3),
+                lambda: fused_fast.fast_nms_pyramid([rnd, cpu_level], (7.5,), 12, 3)):
         try:
             bad()
         except (ValueError, TypeError):
@@ -283,10 +351,10 @@ def phase_main_path(argv, args, source, dev):
     from jetracer_orbslam2_torch.ops import fused_fast, fused_patches
 
     frames, n, hw, intr, gt = source
-    fused_fast.fast_nms_response.launches = 0
+    fused_fast.fast_nms_pyramid.launches = 0
     fused_patches.patch_gather.launches = 0
     report, poses = run._run_odometry(args, frames, n, hw, intr, dev)
-    launches = fused_fast.fast_nms_response.launches
+    launches = fused_fast.fast_nms_pyramid.launches
     if fused_patches.patch_gather.launches != n:
         raise SystemExit(f"FAIL: patch_gather launches "
                          f"{fused_patches.patch_gather.launches} != {n}")
@@ -294,8 +362,9 @@ def phase_main_path(argv, args, source, dev):
     say("  main path (cold): " + json.dumps(report))
     if not np.isfinite(poses).all() or poses.shape != (n, 4, 4):
         raise SystemExit("FAIL: poses are not finite (N, 4, 4)")
-    if launches != args.levels * n:
-        raise SystemExit(f"FAIL: fast_nms launches {launches} != {args.levels} * {n}")
+    if launches != n:
+        raise SystemExit(f"FAIL: fast_nms_pyramid launches {launches} != {n} "
+                         "(one a frame)")
     if not report["ate_rmse_m"] < 0.10:
         raise SystemExit(f"FAIL: ATE RMSE {report['ate_rmse_m']} m >= 0.10 m")
     if not report["tracked_frac"] >= 0.95:
@@ -329,20 +398,61 @@ def phase_main_path(argv, args, source, dev):
 
 
 def phase_kernel_times(levels) -> dict:
-    """Per level shape: kernel ms, plain ms, bound ms; and their means over
-    the four launches a frame makes."""
+    """K1 on frame 0's pyramid.  Per configuration (odometry: one threshold;
+    the SLAM path: two), the one launch a frame and, in the same run and in
+    turns (new, old, old, new), the old schedule of one launch per level and
+    threshold; the plain version and the bound.  Then per level shape the
+    single launch, as before."""
     from jetracer_orbslam2_torch.ops import fused_fast
 
-    shapes = []
-    for lvl in levels:
-        img = lvl.contiguous()
-        n_bytes, n_ops = fast_nms_work(img, FAST_THRESHOLD, FAST_BORDER)
+    frame = [l.contiguous() for l in levels]
+    configs = {"odometry": (FAST_THRESHOLD,),
+               "slam": (FAST_THRESHOLD, SLAM_FAST_MIN_THRESHOLD)}
+    out = {}
+    for name, thr in configs.items():
+        def new():
+            before = fused_fast.fast_nms_pyramid.launches
+            ms = time_launches(lambda: fused_fast.fast_nms_pyramid(
+                frame, thr, FAST_ARC, FAST_BORDER), reps=20, batch=20)
+            assert fused_fast.fast_nms_pyramid.launches > before
+            return ms
+
+        def old():
+            return time_launches(lambda: [
+                fused_fast.fast_nms_response(img, t, FAST_ARC, FAST_BORDER)
+                for t in thr for img in frame], reps=20, batch=20)
+
+        new_ms, old_ms = [new()], [old(), old()]
+        new_ms.append(new())
+        plain_ms = time_launches(
+            lambda: fused_fast.fast_nms_pyramid_reference(
+                frame, thr, FAST_ARC, FAST_BORDER), reps=10, batch=2)
+        n_bytes, n_ops = fast_nms_work(frame, thr, FAST_BORDER)
         bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
         ops_ms = n_ops / F32_OPS_PER_S * 1e3
-        before = fused_fast.fast_nms_response.launches
+        row = {
+            "thresholds": list(thr), "levels": [list(l.shape) for l in frame],
+            "ms": min(new_ms), "readings_ms": new_ms,
+            "old_schedule_ms": min(old_ms), "old_schedule_readings_ms": old_ms,
+            "old_schedule_launches": len(thr) * len(frame),
+            "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": n_bytes, "operations": n_ops}
+        out[name] = row
+        say(f"  fast_nms_pyramid, {name} ({len(frame)} levels x {len(thr)} "
+            f"thresholds): one launch {new_ms[0] * 1e3:.2f} / {new_ms[1] * 1e3:.2f}"
+            f" us a frame; old schedule of {len(thr) * len(frame)} launches "
+            f"{old_ms[0] * 1e3:.2f} / {old_ms[1] * 1e3:.2f} us; plain "
+            f"{plain_ms:.4f} ms; bound {row['bound_ms'] * 1e3:.3f} us "
+            f"({row['bound_by']}: {n_bytes} B, {n_ops} f32 ops)")
+
+    shapes = []
+    for img in frame:
+        n_bytes, n_ops = fast_nms_work([img], (FAST_THRESHOLD,), FAST_BORDER)
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = n_ops / F32_OPS_PER_S * 1e3
         ms = time_launches(lambda: fused_fast.fast_nms_response(
             img, FAST_THRESHOLD, FAST_ARC, FAST_BORDER), reps=20, batch=20)
-        assert fused_fast.fast_nms_response.launches > before
         plain_ms = time_launches(
             lambda: fused_fast.fast_nms_response_reference(
                 img, FAST_THRESHOLD, FAST_ARC, FAST_BORDER), reps=20, batch=2)
@@ -351,20 +461,11 @@ def phase_kernel_times(levels) -> dict:
                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                "bytes": n_bytes, "operations": n_ops}
         shapes.append(row)
-        say(f"  fast_nms {tuple(img.shape)}: kernel {ms:.5f} ms on the card, "
-            f"plain {plain_ms:.4f} ms, bound {row['bound_ms']:.6f} ms "
+        say(f"  fast_nms {tuple(img.shape)}, one level: kernel {ms:.5f} ms on the "
+            f"card, plain {plain_ms:.4f} ms, bound {row['bound_ms']:.6f} ms "
             f"({row['bound_by']}: {n_bytes} B, {n_ops} f32 ops)")
-    k = len(shapes)
-    bytes_ms = sum(s["bytes"] for s in shapes) / HBM_BYTES_PER_S * 1e3 / k
-    ops_ms = sum(s["operations"] for s in shapes) / F32_OPS_PER_S * 1e3 / k
-    return {
-        # means per launch over the launches one frame makes (one per level)
-        "ms": sum(s["ms"] for s in shapes) / k,
-        "plain_ms": sum(s["plain_ms"] for s in shapes) / k,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "shapes": shapes,
-    }
+    out["shapes"] = shapes
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -524,6 +625,37 @@ def check_ba_kernels(label: str, inputs, worst: dict) -> None:
                      where=f"{name} at {label}")
 
 
+def check_ba_graph_replays(inputs) -> None:
+    """fused_normal_schur captured into one CUDA graph: two replays (the
+    outputs set to NaN in between) give the eager launch's bits, so no state
+    a launch leaves on the card changes the next one."""
+    import torch
+    from jetracer_orbslam2_torch.ops import fused_ba
+
+    P, L = inputs[0].shape[0], inputs[1].shape[1]
+    eager = fused_ba.fused_normal_schur(*inputs)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fused_ba.fused_normal_schur(*inputs)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = fused_ba.fused_normal_schur(*inputs)
+    for replay in (1, 2):
+        for o in outs:
+            o.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        for name, o, e in zip(K2_OUTPUTS, outs, eager):
+            if not torch.equal(o, e):
+                raise SystemExit(f"FAIL: replay {replay} of a captured "
+                                 f"fused_normal_schur differs from the eager "
+                                 f"launch in {name} at P {P}, L {L}")
+    say(f"  graph replays, P {P}, L {L}: two replays equal to the eager launch")
+
+
 def phase_ba_kernel_checks(dev) -> dict:
     """K2 and K3 vs their plain versions at every listed shape."""
     import torch
@@ -543,6 +675,10 @@ def phase_ba_kernel_checks(dev) -> dict:
         ("ring (6, 200), no depth", ring_problem(6, 200, 13, dev), 1e-3),
         ("synthetic (16, 512)", make_synthetic_ba(16, 512, 6), 1e3),
         ("synthetic (1, 70)", make_synthetic_ba(1, 70, 1), 1e-3),
+        # fewer landmark tiles than blocks, and many tiles a block
+        ("synthetic (8, 33)", make_synthetic_ba(8, 33, 6), 1e-3),
+        ("synthetic (8, 65536)", make_synthetic_ba(8, 65536, 6), 1e-3),
+        ("synthetic (16, 16384)", make_synthetic_ba(16, 16384, 6), 1e-3),
     ]
     # the awkward one: landmarks with one or no observation (frozen), slots
     # without depth, a landmark behind every camera; at the start and with
@@ -565,6 +701,8 @@ def phase_ba_kernel_checks(dev) -> dict:
                       (awkward, intr), lam))
     for label, (prob, intr), lam in cases:
         check_ba_kernels(label, ba_kernel_inputs(prob, intr, lam), worst)
+    for P, L in ((8, 16384), (8, 33), (16, 4096)):
+        check_ba_graph_replays(ba_kernel_inputs(*make_synthetic_ba(P, L, 6), 1e-3))
 
     inp = ba_kernel_inputs(*make_synthetic_ba(8, 64, 6), 1e-3)
     too_many = ba_kernel_inputs(*make_synthetic_ba(17, 64, 6), 1e-3)
@@ -1013,7 +1151,7 @@ def phase_patch_kernel_time(pyramid, kp) -> dict:
 def _kernel_counters() -> dict:
     from jetracer_orbslam2_torch.ops import fused_ba, fused_fast, fused_patches
 
-    return {"fast_nms_response": fused_fast.fast_nms_response,
+    return {"fast_nms_pyramid": fused_fast.fast_nms_pyramid,
             "patch_gather": fused_patches.patch_gather,
             "fused_normal_schur": fused_ba.fused_normal_schur,
             "fused_backsub": fused_ba.fused_backsub}
@@ -1172,7 +1310,8 @@ def phase_slam_path(dev) -> tuple[dict, dict]:
         FrontendConfig, MapConfig, SystemConfig, TrackingConfig)
 
     cfg = SystemConfig(
-        frontend=FrontendConfig(height=480, width=640, fast_min_threshold=7.0),
+        frontend=FrontendConfig(height=480, width=640,
+                                fast_min_threshold=SLAM_FAST_MIN_THRESHOLD),
         tracking=TrackingConfig(), map=MapConfig(max_keyframes=LONG_KEYFRAMES))
     t0 = time.perf_counter()
     seq, depth = _lap((480, 640), LONG_FRAMES, LONG_LAP, LONG_NOISE, 7, dev)
@@ -1214,7 +1353,7 @@ def phase_slam_path(dev) -> tuple[dict, dict]:
     if not (report["landmarks"] < m.lm_valid.shape[0]
             and report["observations"] < m.obs_valid.shape[0]):
         raise SystemExit("FAIL: the map ran out of landmark or observation slots")
-    want = {"fast_nms_response": 8 * LONG_FRAMES, "patch_gather": LONG_FRAMES,
+    want = {"fast_nms_pyramid": LONG_FRAMES, "patch_gather": LONG_FRAMES,
             "fused_normal_schur": 10 * inserted, "fused_backsub": 10 * inserted}
     if launches != want:
         raise SystemExit(f"FAIL: SLAM path launches {launches}, expected {want}")
@@ -1302,8 +1441,13 @@ def print_build(name: str) -> None:
         say("    " + line)
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
     t_start = time.perf_counter()
+    if argv not in ([], ["--kernels"]):
+        print("usage: python3 chip_smoke.py [--kernels]", file=sys.stderr)
+        return 2
+    # --kernels: build, check and time the kernels only (phases 1-3, 6, 7, 11)
+    kernels_only = argv == ["--kernels"]
 
     import torch
 
@@ -1347,15 +1491,16 @@ def main() -> int:
         patch_max_err, patch_all_equal, (patch_pyramid, patch_kp) = (
             phase_patch_kernel_checks(dev))
 
-        phase(4, "device semantics")
-        phase_semantics(dev)
+        if not kernels_only:
+            phase(4, "device semantics")
+            phase_semantics(dev)
 
-        phase(5, f"main path: {N_FRAMES} frames of 640x480, 4 levels, K=1024")
-        report, launches, poses = phase_main_path(argv_run, args, source, dev)
+            phase(5, f"main path: {N_FRAMES} frames of 640x480, 4 levels, K=1024")
+            report, launches, poses = phase_main_path(argv_run, args, source, dev)
 
-        phase(6, "fast_nms times (CUDA events around a replayed CUDA graph of 20 "
-                 "launches, median of 20; the image is L2-warm, as the front-end "
-                 "leaves it)")
+        phase(6, "fast_nms times: one launch a frame vs the old schedule, and per "
+                 "level (CUDA events around a replayed CUDA graph of 20 calls, "
+                 "median of 20; the image is L2-warm, as the front-end leaves it)")
         times = phase_kernel_times(levels)
 
         phase(7, "fused_normal_schur (K2) and fused_backsub (K3) vs their plain "
@@ -1364,21 +1509,28 @@ def main() -> int:
                  f"{TOL_FLOOR:g}")
         worst = phase_ba_kernel_checks(dev)
 
-        phase(8, f"BA path: bundle_adjust, {BA_POSES} poses x {BA_LANDMARKS} "
-                 f"landmarks, {BA_ITERS} LM iterations")
-        ba_report = phase_ba_path(dev)
+        if not kernels_only:
+            phase(8, f"BA path: bundle_adjust, {BA_POSES} poses x {BA_LANDMARKS} "
+                     f"landmarks, {BA_ITERS} LM iterations")
+            ba_report = phase_ba_path(dev)
 
-        phase(9, f"local BA: {KF_COUNT} keyframes (every {KF_EVERY}th frame) in a "
-                 "map of full capacity")
-        local_report = phase_local_ba(args, source, poses, dev)
+            phase(9, f"local BA: {KF_COUNT} keyframes (every {KF_EVERY}th frame) "
+                     "in a map of full capacity")
+            local_report = phase_local_ba(args, source, poses, dev)
 
-        phase(10, "pose graph")
-        pg_report = phase_pose_graph(dev)
+            phase(10, "pose graph")
+            pg_report = phase_pose_graph(dev)
 
         phase(11, "K2/K3 times (CUDA events around a replayed CUDA graph of 20 "
                   "launches, median of 20; inputs L2-warm, as the LM loop leaves "
                   "them)")
         ba_times = phase_ba_kernel_times(dev)
+        if kernels_only:
+            say(card)
+            say(json.dumps({"fast_nms_pyramid": times, "ba_kernels": ba_times,
+                            "fast_nms_max_abs_err": max_err, "ba_worst": worst,
+                            "card": card}))
+            return 0
 
         phase(12, f"SLAM lap: {LAP_FRAMES} frames of {LAP_SHAPE[1]}x{LAP_SHAPE[0]}, "
                   f"one lap of {LAP_LENGTH}, depth noise {LAP_NOISE:g} z^2; "
@@ -1402,20 +1554,29 @@ def main() -> int:
         patch_time = phase_patch_kernel_time(patch_pyramid, patch_kp)
     torch.cuda.synchronize()
 
+    k1 = times["odometry"]
     kernels = [{
-        "name": "fast_nms_response",
+        "name": "fast_nms_pyramid",
         "route": "cuda",
         "source": "jetracer_orbslam2_torch/csrc/fast_nms.cu",
         "replaces": "jetracer_orbslam2_tpu/ops/pallas_fast.py:190",
         "launches": launches,
         "max_abs_err": max_err,
-        "ms": times["ms"],
-        "plain_ms": times["plain_ms"],
-        "bound_ms": times["bound_ms"],
-        "bound_by": times["bound_by"],
+        "ms": k1["ms"],
+        "plain_ms": k1["plain_ms"],
+        "bound_ms": k1["bound_ms"],
+        "bound_by": k1["bound_by"],
         "library_ms": None,
         "exact_match": all_equal,
-        "numbers_are": "means per launch over the four level shapes of a frame",
+        "numbers_are": "per launch = per frame: the 4 levels of 640x480 at one "
+                       "threshold (the odometry path's configuration); launches "
+                       "are the odometry path's, one a frame; 'slam' is the same "
+                       "at the SLAM path's two thresholds, with its launches; "
+                       "old_schedule_ms is the same work as one launch per level "
+                       "and threshold, timed in the same run",
+        "old_schedule_ms": k1["old_schedule_ms"],
+        "slam": {**times["slam"], "launches": slam_launches["fast_nms_pyramid"]},
+        "odometry": k1,
         "shapes": times["shapes"],
     }]
     for key, name, line, count in (
@@ -1476,4 +1637,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

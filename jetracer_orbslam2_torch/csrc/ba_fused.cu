@@ -21,48 +21,59 @@
 // ba_backsub output: dxl (3,L) = free * Hll^-1 (bl - G^T dxp).
 //
 // Bound on this card.  ba_assemble is bound by operations: per landmark the
-// Schur product costs 2*(6P)*(6P+1)*3 f32 operations (13.9 k at P = 8)
-// against 4*(5P+16) bytes (224 B at P = 8).  ba_backsub is bound by bytes.
-// At the sizes the system runs (L = 4,096 .. 16,384) both bounds lie below
-// the cost of a launch.  What the design does: the only traffic is the
-// inputs, (12, L) of outputs and one (P*42 + 6P*(6P+1))-float partial per
-// block; everything else lives in registers and shared memory.
+// Schur product costs about (6n)(6n+1)*3 f32 operations for the n poses that
+// observe it, one triangle of the symmetric product (5.4 k at n = 6) against
+// 4*(5P+4) bytes (176 B at P = 8): 117.3 M operations = 1.75 us at (P 8,
+// L 16,384) against 67 TFLOP/s.  ba_backsub is bound by bytes.
 //
-// Design of ba_assemble (not the TPU kernel's: that one puts 8 poses on the
-// sublanes, a 1,024-landmark tile on the lanes and carries its sums from
-// grid step to grid step in order).  One block of 256 threads owns LT
-// consecutive landmarks, LT = 64 where that still gives every SM a block and
-// 32 otherwise.  The threads form PG = 256 / LT pose groups: thread (g, l)
-// loops over the poses p = g, g + PG, ... for landmark l.
-//   pass 1   weighted residual and Jacobian planes per (p, l); Hll (6 unique
-//            entries) and bl (3) accumulate in registers; the weighted Jp
-//            rows and residuals are staged in shared memory.  The pose
-//            groups' Hll/bl partials meet in shared memory and are added in
-//            the order g = 0..PG-1 by every thread, then damping, the
-//            identity for frozen landmarks and the symmetric adjugate inverse
-//            follow in registers.  Hll^-1 and bl go to device memory.
-//   Hpp, bp  each thread owns one of the P*27 sums (upper triangle of a 6x6
-//            block + bp column per pose; only the diagonal blocks of Jp Jp^T
-//            are needed) and loops over the 3*LT staged columns.
+// Design of ba_assemble (persistent split-K; not the TPU kernel's, which puts
+// 8 poses on the sublanes, a 1,024-landmark tile on the lanes and carries its
+// sums from grid step to grid step in order).  A grid of at most two blocks
+// an SM (an occupancy query; at most one at P > 8) walks the landmark tiles
+// of LT = 32: block b takes tiles b, b + grid, ...  Per tile, 256 threads:
+//   prefetch the NEXT tile's obs (5,P,LT), points (3,LT) and free (LT) go to
+//            the other half of a shared double buffer with cp.async (16-byte
+//            copies when L % 4 == 0, 4-byte copies otherwise; zero fill past
+//            L, so a tail landmark computes on zeros and stores nothing)
+//            while this tile's S product runs.  Both passes read the
+//            observations from shared memory.
+//   pass 1   thread (g, l), g = 0..7 a pose group: the weighted residual and
+//            Jacobian planes of the poses p = g, g + 8, ... for landmark l;
+//            Hll (6) and bl (3) in registers; Jp | r staged.  The groups'
+//            Hll/bl partials meet in shared memory and are added in the order
+//            g = 0..7, then damping, the identity for frozen landmarks and
+//            the symmetric adjugate inverse follow in registers; Hll^-1 and
+//            bl go to device memory.
 //   pass 2   G needs Hll^-1, which needs every pose, so the pose loop runs a
-//            second time and RECOMPUTES the planes (about 150 operations per
-//            slot) instead of keeping G (P*18 floats per thread: 144
-//            registers at P = 8, 288 at P = 16, which would spill).  G and
-//            Gh = G Hll^-1 are staged in shared memory, with bl as one more
-//            row of G so that rhs = Gh bl is one more column of the product.
-//   S        each thread owns 4x4 output tiles of the (6P) x (6P+1) product
-//            and loops over the 3*LT staged columns: FP32 FMA, no tensor
-//            cores (TF32 would break f32 parity with the dense route).
-// Each block writes its partial sums to a workspace; ba_reduce_kernel adds
-// the partials in an order that the shapes fix (warp w of a block adds the
-// partials w, w+8, ... in turn, then the eight sums are added in order).  No
-// float atomics anywhere, so two launches on the same inputs agree bit for
-// bit.
+//            second time.  The planes of a thread's last pose of pass 1 are
+//            still in registers (at P <= 8 its only pose: nothing is
+//            recomputed); any other pose's are RECOMPUTED (about 150
+//            operations per slot) rather than staged.  G | bl and
+//            Gh = G Hll^-1 are staged.
+//   product  the block's 256 threads are KG column groups x T tiles, T = P
+//            (Jp Jp^T | Jp r: Hpp and bp of one pose) + P(P+1)/2 (Gh_a G_b^T
+//            | Gh_a bl for pose pairs a <= b: the upper triangle of S and the
+//            rhs).  Every tile is a 6x6 + 6 register tile, the same loop for
+//            both kinds; group g takes the staged columns k = g, g + KG, ...
+//            of the 3*LT (a column: three float2 of each operand, one float).
+//            The 42 sums stay in registers ACROSS the block's tiles: a
+//            split-K over landmarks.  FP32 FMA, no tensor cores (TF32 would
+//            break f32 parity with the dense route).
+// After its last tile the block adds its KG groups in order and writes ONE
+// partial of T*42 floats (1,848 at P = 8).  ba_reduce_kernel then adds the
+// partials in block order; the order depends on the shapes only, never on
+// timing, and no atomic is used: two launches on the same inputs agree bit
+// for bit.  Mirroring fills the lower triangle of S and of each Hpp block.
+// (A one-launch variant, in which the last-arriving blocks of groups of 16
+// added the partials behind integer counters, was measured slower by 6-7 us
+// at both shapes of the path: one block adding 16 partials has too few loads
+// in flight; PERF.md, PR 4.)
 //
-// Shared memory: 3*LT*max(7P|1, 6P+1) + max(3*LT*(6P+1), 9*256) floats + the
-// poses: 81.0 KB at P = 8 and 162.0 KB at P = 16 with LT = 64 (half of that
-// with LT = 32), which is why MAX_POSES is 16 (the card allows a block
-// 227 KB).  Any L >= 1: tail threads compute on zeros and store nothing.
+// Shared memory: MAX_POSES*12 + 2*(5P+4)*LT + 3LT*(8P+2) + 2*3LT*(6P+2)
+// + 9*256 floats: 83.0 KB at P = 8 (two blocks an SM) and 153.0 KB at P = 16
+// (one), which is why MAX_POSES is 16 (the card allows a block 227 KB).
+// Registers: launch bounds of two 256-thread blocks an SM (<= 128 a thread).
+// Any L >= 1, any 1 <= P <= 16.
 //
 // Arithmetic: IEEE division and square root (do not build with
 // --use_fast_math); the compiler contracts a*b+c into FMAs, so sums differ
@@ -75,39 +86,42 @@
 namespace {
 
 constexpr int THREADS = 256;        // ba_assemble: LT landmarks x PG pose groups
-constexpr int S_UNROLL = 4;         // staged columns per step of the S loop
-constexpr int RED_WARPS = 8;        // ba_reduce: warps (block groups) per block
+constexpr int LT = 32;              // landmarks a tile
+constexpr int PG = THREADS / LT;    // pose groups
+constexpr int KCOLS = 3 * LT;       // staged columns a tile
+constexpr int MAX_KG = 8;           // column groups of the product
+constexpr int ACC = 42;             // sums of a product tile: 6x6 + 6
+constexpr int RED_WARPS = 16;       // ba_reduce: warps (block groups) per block
 constexpr int MAX_POSES = 16;
 constexpr int BS_THREADS = 128;     // ba_backsub: one thread per landmark
 
-__host__ __device__ inline int pad_j(int P) { return (7 * P) | 1; }
-__host__ __device__ inline int pad_g(int P) { return 6 * P + 1; }
-__host__ __device__ inline int part_floats(int P) {
-    return P * 42 + 6 * P * (6 * P + 1);
-}
+// Row pitches of the staged columns: even, so that a pose's six entries are
+// read as three float2; at P = 8 and 16 a warp's stores (32 landmarks, one
+// pitch apart) meet at most two to a bank.
+__host__ __device__ inline int pad_j(int P) { return 8 * P + 2; }   // Jp | r | 0
+__host__ __device__ inline int pad_g(int P) { return 6 * P + 2; }   // G | bl | 0
 __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+__host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
+// product tiles: P pose blocks (Hpp | bp) + P(P+1)/2 pose pairs (S | rhs)
+__host__ __device__ inline int n_tiles(int P) { return P + P * (P + 1) / 2; }
+__host__ __device__ inline int col_groups(int P) {
+    return imax(1, imin(MAX_KG, THREADS / n_tiles(P)));
+}
+__host__ __device__ inline int part_floats(int P) { return n_tiles(P) * ACC; }
 
-// Shared memory of ba_assemble with LT landmarks per block: region A (Jp | r,
-// then G | bl), region B (Hll partials, then Gh) and the poses.
-__host__ __device__ inline int smem_a_floats(int P, int LT) {
-    return 3 * LT * imax(pad_j(P), pad_g(P));
+// Shared memory of ba_assemble, in floats, region by region.
+__host__ __device__ inline int smem_obs_floats(int P) { return 2 * 5 * P * LT; }
+__host__ __device__ inline int smem_aux_floats() { return 2 * 4 * LT; }
+__host__ __device__ inline int smem_j_floats(int P) { return KCOLS * pad_j(P); }
+__host__ __device__ inline int smem_g_floats(int P) { return KCOLS * pad_g(P); }
+__host__ __device__ inline int smem_r_floats() { return 9 * THREADS; }
+inline size_t assemble_smem_bytes(int P) {
+    // the staging regions (J, G, H, R) take the column groups' sums at the end
+    const int staging = imax(smem_j_floats(P) + 2 * smem_g_floats(P) + smem_r_floats(),
+                             col_groups(P) * part_floats(P));
+    return sizeof(float) * (size_t)(MAX_POSES * 12 + smem_obs_floats(P) +
+                                    smem_aux_floats() + staging);
 }
-__host__ __device__ inline int smem_b_floats(int P, int LT) {
-    return imax(3 * LT * pad_g(P), 9 * THREADS);
-}
-inline size_t assemble_smem_bytes(int P, int LT) {
-    return sizeof(float) * (size_t)(smem_a_floats(P, LT) + smem_b_floats(P, LT)
-                                    + MAX_POSES * 12);
-}
-
-// The 27 sums a pose owns in the Hpp/bp step: the upper triangle (i <= c) of
-// its 6x6 block and, as column 6, its 6 entries of bp.
-__constant__ unsigned char PAIR_I[27] = {0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 1, 1,
-                                         2, 2, 2, 2, 2, 3, 3, 3, 3, 4, 4, 4,
-                                         5, 5};
-__constant__ unsigned char PAIR_C[27] = {0, 1, 2, 3, 4, 5, 6, 1, 2, 3, 4, 5, 6,
-                                         2, 3, 4, 5, 6, 3, 4, 5, 6, 4, 5, 6,
-                                         5, 6};
 
 struct Planes {
     float rw[3];        // weighted residual
@@ -192,226 +206,355 @@ __device__ __forceinline__ void slot_planes(
            fx, fy, cx, cy, huber, o);
 }
 
-template <int LT>
-__global__ void __launch_bounds__(THREADS)
+
+// The planes of slot (p, ll) of a landmark tile staged in shared memory
+// (`so` is its obs, (5, P, LT)); the same values, and so the same arithmetic,
+// as slot_planes on device memory.
+__device__ __forceinline__ void tile_planes(
+    const float* __restrict__ so, const float* __restrict__ s_pose,
+    int P, int p, int ll, float X0, float X1, float X2,
+    float fx, float fy, float cx, float cy, float huber, Planes& o) {
+    const int plane = P * LT, at = p * LT + ll;
+    planes(s_pose + 12 * p, X0, X1, X2, so[at], so[plane + at],
+           so[2 * plane + at], so[3 * plane + at], so[4 * plane + at],
+           fx, fy, cx, cy, huber, o);
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(s), "l"(src), "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(s), "l"(src), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all_but_newest() {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Issue the copies of landmark tile `tile`: rows 0..5P-1 are obs (c*P + p),
+// then points x, y, z and free, LT landmarks each, zero past L.  A copy that
+// reads nothing (src-size 0) is given a valid address all the same.
+__device__ __forceinline__ void load_landmarks(
+    const float* __restrict__ obs, const float* __restrict__ points,
+    const float* __restrict__ lm_free, int P, int L, bool vec4, int tile,
+    float* so, float* sa) {
+    const int l0 = tile * LT, rows = 5 * P + 4;
+    auto row_src = [&](int r) -> const float* {
+        if (r < 5 * P) return obs + (size_t)r * L;
+        if (r < 5 * P + 3) return points + (size_t)(r - 5 * P) * L;
+        return lm_free;
+    };
+    auto row_dst = [&](int r) -> float* {
+        return r < 5 * P ? so + r * LT : sa + (r - 5 * P) * LT;
+    };
+    if (vec4) {             // L % 4 == 0: a 4-landmark chunk is all in or out
+        constexpr int CW = LT / 4;
+        for (int i = threadIdx.x; i < rows * CW; i += THREADS) {
+            const int r = i / CW, c = 4 * (i - r * CW);
+            const float* src = row_src(r);
+            const bool ok = l0 + c < L;
+            cp_async16(row_dst(r) + c, ok ? src + l0 + c : src, ok);
+        }
+    } else {
+        for (int i = threadIdx.x; i < rows * LT; i += THREADS) {
+            const int r = i / LT, c = i - r * LT;
+            const float* src = row_src(r);
+            const bool ok = l0 + c < L;
+            cp_async4(row_dst(r) + c, ok ? src + l0 + c : src, ok);
+        }
+    }
+}
+
+// Pose pair q (0-based, a <= b, row-major over the upper triangle) -> (a, b).
+__device__ __forceinline__ void pair_of(int q, int P, int& a, int& b) {
+    a = 0;
+    int n = P;
+    while (q >= n) { q -= n; ++a; --n; }
+    b = a + q;
+}
+
+// Writes sum e of the partial layout (tile t = e / 42, entry c = e % 42) to
+// its place(s) in the outputs.  Pose tiles t < P: c < 36 is Jp Jp^T[i][j],
+// c >= 36 is Jp r (bp = -Jp r).  Pair tiles (a, b): c < 36 is S[a*6+i][b*6+j],
+// c >= 36 is rhs[a*6+i] (kept for a == b only).  The upper triangle of each
+// symmetric block is written twice, the lower one computed never.
+__device__ __forceinline__ void emit(int P, int e, float v, float* __restrict__ Hpp,
+                                     float* __restrict__ S, float* __restrict__ bp,
+                                     float* __restrict__ rhs) {
+    const int t = e / ACC, c = e - t * ACC;
+    if (t < P) {
+        if (c >= 36) { bp[t * 6 + c - 36] = -v; return; }
+        const int i = c / 6, j = c - i * 6;
+        if (i > j) return;
+        Hpp[t * 36 + i * 6 + j] = v;
+        Hpp[t * 36 + j * 6 + i] = v;
+        return;
+    }
+    int a, b;
+    pair_of(t - P, P, a, b);
+    if (c >= 36) {
+        if (a == b) rhs[a * 6 + c - 36] = v;
+        return;
+    }
+    const int i = c / 6, j = c - i * 6;
+    if (a == b && i > j) return;
+    const int M = 6 * P;
+    S[(a * 6 + i) * M + b * 6 + j] = v;
+    S[(b * 6 + j) * M + a * 6 + i] = v;
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
 ba_assemble_kernel(const float* __restrict__ poses,
                    const float* __restrict__ points,
                    const float* __restrict__ obs,
                    const float* __restrict__ lm_free,
                    const float* __restrict__ scal,
-                   int P, int L,
+                   int P, int L, int vec4,
                    float* __restrict__ work,
                    float* __restrict__ hinv_out,
                    float* __restrict__ bl_out) {
-    constexpr int PG = THREADS / LT;                    // pose groups
-    extern __shared__ float smem[];
+    extern __shared__ __align__(16) float smem[];
     const int padJ = pad_j(P), padG = pad_g(P);
-    float* sA = smem;                                   // Jp|r, then G|bl
-    float* sB = sA + smem_a_floats(P, LT);              // Hll partials, then Gh
-    float* s_pose = sB + smem_b_floats(P, LT);
+    float* s_pose = smem;                               // MAX_POSES * 12
+    float* s_obs = s_pose + MAX_POSES * 12;             // [2][5][P][LT]
+    float* s_aux = s_obs + smem_obs_floats(P);          // [2][4][LT]
+    float* sJ = s_aux + smem_aux_floats();              // [3LT][padJ]: p*8: Jp | r
+    float* sG = sJ + smem_j_floats(P);                  // [3LT][padG]: p*6: G; bl
+    float* sH = sG + smem_g_floats(P);                  // [3LT][padG]: p*6: Gh
+    float* sR = sH + smem_g_floats(P);                  // [PG][9][LT]: Hll, bl
+    float* s_stage = sJ;                                // [KG][T][42] at the end
 
     const int tid = threadIdx.x;
-    const int ll = tid % LT;            // landmark within the block
+    const int ll = tid % LT;            // landmark within the tile
     const int g = tid / LT;             // pose group
-    const int l = blockIdx.x * LT + ll;
-    const bool in_range = l < L;
+    const int ntiles = (L + LT - 1) / LT;
+    const int T = n_tiles(P), KG = col_groups(P), n_part = T * ACC;
 
     for (int i = tid; i < P * 12; i += THREADS) s_pose[i] = poses[i];
     const float fx = scal[0], fy = scal[1], cx = scal[2], cy = scal[3];
     const float lam = scal[4], huber = scal[5];
-    float X0 = 0.0f, X1 = 0.0f, X2 = 0.0f, freel = 0.0f;
-    if (in_range) {
-        X0 = points[l];
-        X1 = points[(size_t)L + l];
-        X2 = points[2 * (size_t)L + l];
-        freel = lm_free[l];
+
+    // this thread's product tile: A (6 rows) x B (6 columns) and A x X
+    const int kg = tid / T, tile = tid - kg * T;
+    const bool active = kg < KG;
+    const float *A, *B, *X;
+    int stride;
+    if (tile < P) {                     // pose block: Jp Jp^T | Jp r
+        A = sJ + tile * 8; B = A; X = A + 6; stride = padJ;
+    } else {                            // pose pair a <= b: Gh_a G_b^T | Gh_a bl
+        int a, b;
+        pair_of(tile - P, P, a, b);
+        A = sH + a * 6; B = sG + b * 6; X = sG + 6 * P; stride = padG;
     }
+    float acc[36], accx[6];
+#pragma unroll
+    for (int i = 0; i < 36; ++i) acc[i] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 6; ++i) accx[i] = 0.0f;
+
+    // prologue: this block's first two tiles in flight
+    const int first = blockIdx.x;
+    if (first < ntiles)
+        load_landmarks(obs, points, lm_free, P, L, vec4, first, s_obs, s_aux);
+    cp_async_commit();
+    if (first + (int)gridDim.x < ntiles)
+        load_landmarks(obs, points, lm_free, P, L, vec4, first + gridDim.x,
+                       s_obs + 5 * P * LT, s_aux + 4 * LT);
+    cp_async_commit();
+    cp_async_wait_all_but_newest();
     __syncthreads();
 
-    // ---- pass 1: Hll, bl in registers; weighted Jp and r staged ---------
-    float h00 = 0.0f, h01 = 0.0f, h02 = 0.0f, h11 = 0.0f, h12 = 0.0f,
-          h22 = 0.0f, bl0 = 0.0f, bl1 = 0.0f, bl2 = 0.0f;
-    Planes q;
-    for (int p = g; p < P; p += PG) {
-        slot_planes(obs, s_pose, P, L, p, l, in_range, X0, X1, X2,
-                    fx, fy, cx, cy, huber, q);
-#pragma unroll
-        for (int r = 0; r < 3; ++r) {
-            h00 += q.jl[r][0] * q.jl[r][0];
-            h01 += q.jl[r][0] * q.jl[r][1];
-            h02 += q.jl[r][0] * q.jl[r][2];
-            h11 += q.jl[r][1] * q.jl[r][1];
-            h12 += q.jl[r][1] * q.jl[r][2];
-            h22 += q.jl[r][2] * q.jl[r][2];
-            bl0 -= q.jl[r][0] * q.rw[r];
-            bl1 -= q.jl[r][1] * q.rw[r];
-            bl2 -= q.jl[r][2] * q.rw[r];
-            float* col = sA + (size_t)(r * LT + ll) * padJ + p * 7;
-#pragma unroll
-            for (int i = 0; i < 6; ++i) col[i] = q.jp[r][i];
-            col[6] = q.rw[r];
-        }
-    }
-    {
-        float* red = sB + (size_t)(g * 9) * LT + ll;
-        red[0 * LT] = h00; red[1 * LT] = h01; red[2 * LT] = h02;
-        red[3 * LT] = h11; red[4 * LT] = h12; red[5 * LT] = h22;
-        red[6 * LT] = bl0; red[7 * LT] = bl1; red[8 * LT] = bl2;
-    }
-    __syncthreads();
-    {
-        float acc[9];
-#pragma unroll
-        for (int c = 0; c < 9; ++c) acc[c] = sB[(size_t)c * LT + ll];
-        for (int gg = 1; gg < PG; ++gg) {
-#pragma unroll
-            for (int c = 0; c < 9; ++c)
-                acc[c] += sB[(size_t)(gg * 9 + c) * LT + ll];
-        }
-        h00 = acc[0]; h01 = acc[1]; h02 = acc[2];
-        h11 = acc[3]; h12 = acc[4]; h22 = acc[5];
-        bl0 = acc[6]; bl1 = acc[7]; bl2 = acc[8];
-    }
+    int buf = 0;
+    for (int cur = first; cur < ntiles; cur += gridDim.x) {
+        float* so = s_obs + buf * 5 * P * LT;
+        float* sa = s_aux + buf * 4 * LT;
+        const int l = cur * LT + ll;
+        const bool in_range = l < L;
+        const float X0 = sa[ll], X1 = sa[LT + ll], X2 = sa[2 * LT + ll];
+        const float freel = sa[3 * LT + ll];
 
-    // LM damping, identity for frozen landmarks, symmetric adjugate inverse
-    float i00, i01, i02, i11, i12, i22;
-    {
-        const bool fr = freel > 0.0f;
-        const float a = fr ? h00 + lam * fmaxf(h00, 1e-6f) : 1.0f;
-        const float e = fr ? h11 + lam * fmaxf(h11, 1e-6f) : 1.0f;
-        const float k = fr ? h22 + lam * fmaxf(h22, 1e-6f) : 1.0f;
-        const float b = fr ? h01 : 0.0f;
-        const float c = fr ? h02 : 0.0f;
-        const float f = fr ? h12 : 0.0f;
-        const float c11 = e * k - f * f;
-        const float c12 = c * f - b * k;
-        const float c13 = b * f - c * e;
-        const float c22 = a * k - c * c;
-        const float c23 = c * b - a * f;
-        const float c33 = a * e - b * b;
-        const float det = a * c11 + b * c12 + c * c13;
-        const float inv_det = 1.0f / det;
-        i00 = c11 * inv_det; i01 = c12 * inv_det; i02 = c13 * inv_det;
-        i11 = c22 * inv_det; i12 = c23 * inv_det; i22 = c33 * inv_det;
-    }
-    if (g == 0 && in_range) {
-        const size_t Ls = (size_t)L;
-        hinv_out[0 * Ls + l] = i00; hinv_out[1 * Ls + l] = i01;
-        hinv_out[2 * Ls + l] = i02; hinv_out[3 * Ls + l] = i01;
-        hinv_out[4 * Ls + l] = i11; hinv_out[5 * Ls + l] = i12;
-        hinv_out[6 * Ls + l] = i02; hinv_out[7 * Ls + l] = i12;
-        hinv_out[8 * Ls + l] = i22;
-        bl_out[0 * Ls + l] = bl0;
-        bl_out[1 * Ls + l] = bl1;
-        bl_out[2 * Ls + l] = bl2;
-    }
-
-    float* part = work + (size_t)blockIdx.x * part_floats(P);
-
-    // ---- Hpp diagonal blocks and bp from the staged Jp | r -------------
-    // partial layout o = (p, i, c): c < 6 is Hpp[p][i][c], c == 6 is bp[p][i];
-    // a block is symmetric, so each thread sums one entry of its upper
-    // triangle and stores it twice
-    for (int o = tid; o < P * 27; o += THREADS) {
-        const int p = o / 27, rem = o - p * 27;
-        const int i = PAIR_I[rem], c = PAIR_C[rem];
-        const float* a = sA + p * 7 + i;
-        const float* b = sA + p * 7 + c;
-        float acc = 0.0f;
-#pragma unroll 8
-        for (int k = 0; k < 3 * LT; ++k)
-            acc += a[(size_t)k * padJ] * b[(size_t)k * padJ];
-        if (c == 6) {
-            part[p * 42 + i * 7 + 6] = -acc;
-        } else {
-            part[p * 42 + i * 7 + c] = acc;
-            part[p * 42 + c * 7 + i] = acc;
-        }
-    }
-    __syncthreads();        // sA (Jp) and sB (Hll partials) are reused below
-
-    // ---- pass 2: planes again, G and Gh = G Hll^-1 staged --------------
-    for (int p = g; p < P; p += PG) {
-        slot_planes(obs, s_pose, P, L, p, l, in_range, X0, X1, X2,
-                    fx, fy, cx, cy, huber, q);
+        // ---- pass 1: Hll, bl in registers; weighted Jp and r staged ------
+        float h00 = 0.0f, h01 = 0.0f, h02 = 0.0f, h11 = 0.0f, h12 = 0.0f,
+              h22 = 0.0f, bl0 = 0.0f, bl1 = 0.0f, bl2 = 0.0f;
+        Planes q;
+        int last = -1;                  // the pose whose planes q still holds
+        for (int p = g; p < P; p += PG) {
+            tile_planes(so, s_pose, P, p, ll, X0, X1, X2, fx, fy, cx, cy,
+                        huber, q);
+            last = p;
 #pragma unroll
-        for (int i = 0; i < 6; ++i) {
-            // G[i][j] = sum_r Jp[r][i] Jl[r][j]
-            const float g0 = q.jp[0][i] * q.jl[0][0] + q.jp[1][i] * q.jl[1][0]
-                           + q.jp[2][i] * q.jl[2][0];
-            const float g1 = q.jp[0][i] * q.jl[0][1] + q.jp[1][i] * q.jl[1][1]
-                           + q.jp[2][i] * q.jl[2][1];
-            const float g2 = q.jp[0][i] * q.jl[0][2] + q.jp[1][i] * q.jl[1][2]
-                           + q.jp[2][i] * q.jl[2][2];
-            // Gh[i][m] = sum_k G[i][k] Hinv[k][m]
-            const float gh0 = g0 * i00 + g1 * i01 + g2 * i02;
-            const float gh1 = g0 * i01 + g1 * i11 + g2 * i12;
-            const float gh2 = g0 * i02 + g1 * i12 + g2 * i22;
-            const int row = p * 6 + i;
-            sA[(size_t)(0 * LT + ll) * padG + row] = g0;
-            sA[(size_t)(1 * LT + ll) * padG + row] = g1;
-            sA[(size_t)(2 * LT + ll) * padG + row] = g2;
-            sB[(size_t)(0 * LT + ll) * padG + row] = gh0;
-            sB[(size_t)(1 * LT + ll) * padG + row] = gh1;
-            sB[(size_t)(2 * LT + ll) * padG + row] = gh2;
-        }
-    }
-    if (g == 0) {                       // bl as row 6P of G
-        sA[(size_t)(0 * LT + ll) * padG + 6 * P] = bl0;
-        sA[(size_t)(1 * LT + ll) * padG + 6 * P] = bl1;
-        sA[(size_t)(2 * LT + ll) * padG + 6 * P] = bl2;
-    }
-    __syncthreads();
-
-    // ---- S = Gh G^T (6P x 6P) and rhs = Gh bl (column 6P) --------------
-    // 4x4 register tiles; a tile's rows are ti + q*MT and its columns
-    // tj + q*NT, so the threads of a warp read neighbouring words.
-    const int M = 6 * P, N = 6 * P + 1;
-    const int MT = (M + 3) / 4, NT = (N + 3) / 4;
-    float* s_part = part + P * 42;
-    for (int t = tid; t < MT * NT; t += THREADS) {
-        const int ti = t / NT, tj = t - ti * NT;
-        int ra[4], cb[4];
+            for (int r = 0; r < 3; ++r) {
+                h00 += q.jl[r][0] * q.jl[r][0];
+                h01 += q.jl[r][0] * q.jl[r][1];
+                h02 += q.jl[r][0] * q.jl[r][2];
+                h11 += q.jl[r][1] * q.jl[r][1];
+                h12 += q.jl[r][1] * q.jl[r][2];
+                h22 += q.jl[r][2] * q.jl[r][2];
+                bl0 -= q.jl[r][0] * q.rw[r];
+                bl1 -= q.jl[r][1] * q.rw[r];
+                bl2 -= q.jl[r][2] * q.rw[r];
+                float* col = sJ + (size_t)(r * LT + ll) * padJ + p * 8;
 #pragma unroll
-        for (int s = 0; s < 4; ++s) {
-            ra[s] = min(ti + s * MT, M - 1);
-            cb[s] = min(tj + s * NT, N - 1);
-        }
-        float acc[4][4];
-#pragma unroll
-        for (int s = 0; s < 4; ++s)
-#pragma unroll
-            for (int u = 0; u < 4; ++u) acc[s][u] = 0.0f;
-#pragma unroll (S_UNROLL)
-        for (int k = 0; k < 3 * LT; ++k) {
-            const float* gh = sB + (size_t)k * padG;
-            const float* gg = sA + (size_t)k * padG;
-            float a[4], b[4];
-#pragma unroll
-            for (int s = 0; s < 4; ++s) { a[s] = gh[ra[s]]; b[s] = gg[cb[s]]; }
-#pragma unroll
-            for (int s = 0; s < 4; ++s)
-#pragma unroll
-                for (int u = 0; u < 4; ++u) acc[s][u] += a[s] * b[u];
-        }
-#pragma unroll
-        for (int s = 0; s < 4; ++s) {
-            const int row = ti + s * MT;
-            if (row >= M) continue;
-#pragma unroll
-            for (int u = 0; u < 4; ++u) {
-                const int col = tj + u * NT;
-                if (col < N) s_part[(size_t)row * N + col] = acc[s][u];
+                for (int i = 0; i < 6; ++i) col[i] = q.jp[r][i];
+                col[6] = q.rw[r];
             }
         }
+        {
+            float* red = sR + (size_t)(g * 9) * LT + ll;
+            red[0 * LT] = h00; red[1 * LT] = h01; red[2 * LT] = h02;
+            red[3 * LT] = h11; red[4 * LT] = h12; red[5 * LT] = h22;
+            red[6 * LT] = bl0; red[7 * LT] = bl1; red[8 * LT] = bl2;
+        }
+        __syncthreads();
+        {
+            float sum[9];
+#pragma unroll
+            for (int c = 0; c < 9; ++c) sum[c] = sR[(size_t)c * LT + ll];
+            for (int gg = 1; gg < PG; ++gg) {
+#pragma unroll
+                for (int c = 0; c < 9; ++c)
+                    sum[c] += sR[(size_t)(gg * 9 + c) * LT + ll];
+            }
+            h00 = sum[0]; h01 = sum[1]; h02 = sum[2];
+            h11 = sum[3]; h12 = sum[4]; h22 = sum[5];
+            bl0 = sum[6]; bl1 = sum[7]; bl2 = sum[8];
+        }
+
+        // LM damping, identity for frozen landmarks, symmetric adjugate inverse
+        float i00, i01, i02, i11, i12, i22;
+        {
+            const bool fr = freel > 0.0f;
+            const float a = fr ? h00 + lam * fmaxf(h00, 1e-6f) : 1.0f;
+            const float e = fr ? h11 + lam * fmaxf(h11, 1e-6f) : 1.0f;
+            const float k = fr ? h22 + lam * fmaxf(h22, 1e-6f) : 1.0f;
+            const float b = fr ? h01 : 0.0f;
+            const float c = fr ? h02 : 0.0f;
+            const float f = fr ? h12 : 0.0f;
+            const float c11 = e * k - f * f;
+            const float c12 = c * f - b * k;
+            const float c13 = b * f - c * e;
+            const float c22 = a * k - c * c;
+            const float c23 = c * b - a * f;
+            const float c33 = a * e - b * b;
+            const float det = a * c11 + b * c12 + c * c13;
+            const float inv_det = 1.0f / det;
+            i00 = c11 * inv_det; i01 = c12 * inv_det; i02 = c13 * inv_det;
+            i11 = c22 * inv_det; i12 = c23 * inv_det; i22 = c33 * inv_det;
+        }
+        if (g == 0 && in_range) {
+            const size_t Ls = (size_t)L;
+            hinv_out[0 * Ls + l] = i00; hinv_out[1 * Ls + l] = i01;
+            hinv_out[2 * Ls + l] = i02; hinv_out[3 * Ls + l] = i01;
+            hinv_out[4 * Ls + l] = i11; hinv_out[5 * Ls + l] = i12;
+            hinv_out[6 * Ls + l] = i02; hinv_out[7 * Ls + l] = i12;
+            hinv_out[8 * Ls + l] = i22;
+            bl_out[0 * Ls + l] = bl0;
+            bl_out[1 * Ls + l] = bl1;
+            bl_out[2 * Ls + l] = bl2;
+        }
+
+        // ---- pass 2: G | bl and Gh = G Hll^-1 staged.  The last pose of pass 1
+        // is still in q (at P <= 8 the only one); the others are recomputed.
+        for (int p = last; p >= g; p -= PG) {
+            if (p != last)
+                tile_planes(so, s_pose, P, p, ll, X0, X1, X2, fx, fy, cx, cy,
+                            huber, q);
+#pragma unroll
+            for (int i = 0; i < 6; ++i) {
+                // G[i][j] = sum_r Jp[r][i] Jl[r][j]
+                const float g0 = q.jp[0][i] * q.jl[0][0] + q.jp[1][i] * q.jl[1][0]
+                               + q.jp[2][i] * q.jl[2][0];
+                const float g1 = q.jp[0][i] * q.jl[0][1] + q.jp[1][i] * q.jl[1][1]
+                               + q.jp[2][i] * q.jl[2][1];
+                const float g2 = q.jp[0][i] * q.jl[0][2] + q.jp[1][i] * q.jl[1][2]
+                               + q.jp[2][i] * q.jl[2][2];
+                // Gh[i][m] = sum_k G[i][k] Hinv[k][m]
+                const float gh0 = g0 * i00 + g1 * i01 + g2 * i02;
+                const float gh1 = g0 * i01 + g1 * i11 + g2 * i12;
+                const float gh2 = g0 * i02 + g1 * i12 + g2 * i22;
+                const int row = p * 6 + i;
+                sG[(size_t)(0 * LT + ll) * padG + row] = g0;
+                sG[(size_t)(1 * LT + ll) * padG + row] = g1;
+                sG[(size_t)(2 * LT + ll) * padG + row] = g2;
+                sH[(size_t)(0 * LT + ll) * padG + row] = gh0;
+                sH[(size_t)(1 * LT + ll) * padG + row] = gh1;
+                sH[(size_t)(2 * LT + ll) * padG + row] = gh2;
+            }
+        }
+        if (g == 0) {                       // bl as row 6P of G
+            sG[(size_t)(0 * LT + ll) * padG + 6 * P] = bl0;
+            sG[(size_t)(1 * LT + ll) * padG + 6 * P] = bl1;
+            sG[(size_t)(2 * LT + ll) * padG + 6 * P] = bl2;
+        }
+        __syncthreads();
+
+        // every thread is done with this tile's obs: the tile after next goes
+        // into this half of the buffer while the product runs
+        const int after_next = cur + 2 * (int)gridDim.x;
+        if (after_next < ntiles)
+            load_landmarks(obs, points, lm_free, P, L, vec4, after_next, so, sa);
+        cp_async_commit();
+
+        // ---- product: this thread's 6x6 + 6 sums over its columns ----------
+        if (active) {
+#pragma unroll 2
+            for (int k = kg; k < KCOLS; k += KG) {
+                const float2* a = reinterpret_cast<const float2*>(A + (size_t)k * stride);
+                const float2* b = reinterpret_cast<const float2*>(B + (size_t)k * stride);
+                const float x = X[(size_t)k * stride];
+                float av[6], bv[6];
+#pragma unroll
+                for (int i = 0; i < 3; ++i) {
+                    const float2 ai = a[i], bi = b[i];
+                    av[2 * i] = ai.x; av[2 * i + 1] = ai.y;
+                    bv[2 * i] = bi.x; bv[2 * i + 1] = bi.y;
+                }
+#pragma unroll
+                for (int i = 0; i < 6; ++i) {
+#pragma unroll
+                    for (int j = 0; j < 6; ++j) acc[i * 6 + j] += av[i] * bv[j];
+                    accx[i] += av[i] * x;
+                }
+            }
+        }
+        // the next tile's copies (issued one tile ago) have landed; after the
+        // barrier every thread sees them and none reads this tile's staging
+        cp_async_wait_all_but_newest();
+        __syncthreads();
+        buf ^= 1;
+    }
+
+    // ---- this block's partial: its column groups added in order g = 0..KG-1
+    if (active) {
+        float* st = s_stage + (size_t)(kg * T + tile) * ACC;
+#pragma unroll
+        for (int i = 0; i < 36; ++i) st[i] = acc[i];
+#pragma unroll
+        for (int i = 0; i < 6; ++i) st[36 + i] = accx[i];
+    }
+    __syncthreads();
+    float* part = work + (size_t)blockIdx.x * n_part;
+    for (int e = tid; e < n_part; e += THREADS) {
+        float v = s_stage[e];
+        for (int k = 1; k < KG; ++k) v += s_stage[(size_t)k * n_part + e];
+        part[e] = v;
     }
 }
 
-// Adds the blocks' partial sums in a fixed order and writes Hpp, bp, S and rhs
-// in their final layouts.  A block owns 32 consecutive outputs; warp w adds
-// the partials of the blocks b = w, w + 8, ... in that order (its 32 lanes
-// read 32 consecutive floats), then the eight warps' sums are added in the
-// order w = 0..7.  The order depends on the shapes only, never on timing.
+// Adds the blocks' partials in a fixed order and writes Hpp, bp, S and rhs in
+// their final layouts.  A block owns 32 consecutive sums; warp w adds the
+// partials of the blocks b = w, w + RED_WARPS, ... in that order (its 32 lanes
+// read 32 consecutive floats), then the warps' sums are added in the order
+// w = 0..RED_WARPS-1.  The order depends on the shapes only, never on timing.
 __global__ void __launch_bounds__(32 * RED_WARPS)
 ba_reduce_kernel(const float* __restrict__ work, int P, int nblocks,
                  float* __restrict__ Hpp, float* __restrict__ S,
@@ -432,17 +575,7 @@ ba_reduce_kernel(const float* __restrict__ work, int P, int nblocks,
     acc = s_sum[0][lane];
 #pragma unroll
     for (int k = 1; k < RED_WARPS; ++k) acc += s_sum[k][lane];
-    if (e < P * 42) {
-        const int pi = e / 7, c = e - pi * 7;       // pi = p*6 + i
-        if (c < 6) Hpp[pi * 6 + c] = acc;
-        else bp[pi] = acc;
-    } else {
-        const int M = 6 * P, N = 6 * P + 1;
-        const int s = e - P * 42;
-        const int row = s / N, col = s - row * N;
-        if (col < M) S[row * M + col] = acc;
-        else rhs[row] = acc;
-    }
+    emit(P, e, acc, Hpp, S, bp, rhs);
 }
 
 __global__ void __launch_bounds__(BS_THREADS)
@@ -494,6 +627,7 @@ ba_backsub_kernel(const float* __restrict__ poses,
     }
 }
 
+
 }  // namespace
 
 // Plain C entries: enqueue on `stream`, no synchronisation, no allocation.
@@ -502,46 +636,39 @@ ba_backsub_kernel(const float* __restrict__ poses,
 
 extern "C" int ba_max_poses() { return MAX_POSES; }
 
-// Landmarks per block of ba_assemble: 64 when that still gives every SM a
-// block, else 32 (timed on an H100: 32 is faster at L = 4,096, 64 at 16,384).
-static int landmarks_per_block(int L) {
+// Blocks of ba_assemble for (P, L): as many as the occupancy query lets
+// reside at once, capped at two an SM, and never more than there are tiles.
+// 0 if the device cannot be queried.
+static int assemble_grid(int P, int L) {
+    static int per_sm[MAX_POSES + 1] = {0};
     static int sm_count = 0;
-    if (sm_count == 0) {
-        int dev = 0;
+    if (sm_count == 0 || per_sm[P] == 0) {
+        int dev = 0, sms = 0, n = 0;
         if (cudaGetDevice(&dev) != cudaSuccess ||
-            cudaDeviceGetAttribute(&sm_count, cudaDevAttrMultiProcessorCount,
-                                   dev) != cudaSuccess || sm_count <= 0)
-            sm_count = 132;
+            cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   dev) != cudaSuccess ||
+            cudaFuncSetAttribute(ba_assemble_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)assemble_smem_bytes(MAX_POSES)) != cudaSuccess ||
+            cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &n, ba_assemble_kernel, THREADS, assemble_smem_bytes(P)) != cudaSuccess)
+            return 0;
+        sm_count = sms;
+        per_sm[P] = imax(1, imin(2, n));
     }
-    return (L + 63) / 64 >= sm_count ? 64 : 32;
+    return imin((L + LT - 1) / LT, per_sm[P] * sm_count);
 }
 
-// Floats of workspace ba_assemble_launch needs for (P, L).
+// Floats of workspace ba_assemble_launch needs for (P, L): one partial per
+// block.  -1 if the device cannot be queried.
 extern "C" long long ba_workspace_floats(int P, int L) {
-    const int lt = landmarks_per_block(L);
-    const long long nblocks = (L + lt - 1) / lt;
-    return nblocks * part_floats(P);
+    if (P < 1 || P > MAX_POSES || L < 1) return -1;
+    const int grid = assemble_grid(P, L);
+    if (grid <= 0) return -1;
+    return (long long)grid * part_floats(P);
 }
 
-template <int LT>
-static cudaError_t launch_assemble(
-    const float* poses, const float* points, const float* obs,
-    const float* lm_free, const float* scal, int P, int L, float* work,
-    float* hinv, float* bl, cudaStream_t st) {
-    static bool attr_set = false;
-    if (!attr_set) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            ba_assemble_kernel<LT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)assemble_smem_bytes(MAX_POSES, LT));
-        if (err != cudaSuccess) return err;
-        attr_set = true;
-    }
-    ba_assemble_kernel<LT><<<(L + LT - 1) / LT, THREADS,
-                             assemble_smem_bytes(P, LT), st>>>(
-        poses, points, obs, lm_free, scal, P, L, work, hinv, bl);
-    return cudaGetLastError();
-}
-
+// ba_assemble_kernel, then ba_reduce_kernel over its partials.
 extern "C" int ba_assemble_launch(
     const float* poses, const float* points, const float* obs,
     const float* lm_free, const float* scal, int P, int L, float* work,
@@ -549,16 +676,20 @@ extern "C" int ba_assemble_launch(
     void* stream) {
     if (P < 1 || P > MAX_POSES || L < 1) return (int)cudaErrorInvalidValue;
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const int lt = landmarks_per_block(L);
-    const cudaError_t err =
-        lt == 64 ? launch_assemble<64>(poses, points, obs, lm_free, scal, P, L,
-                                       work, hinv, bl, st)
-                 : launch_assemble<32>(poses, points, obs, lm_free, scal, P, L,
-                                       work, hinv, bl, st);
+    const int grid = assemble_grid(P, L);
+    if (grid <= 0) return (int)cudaErrorInvalidDevice;
+    auto aligned = [](const void* p) {
+        return reinterpret_cast<unsigned long long>(p) % 16 == 0;
+    };
+    const int vec4 = L % 4 == 0 && aligned(obs) && aligned(points) &&
+                     aligned(lm_free);
+    ba_assemble_kernel<<<grid, THREADS, assemble_smem_bytes(P), st>>>(
+        poses, points, obs, lm_free, scal, P, L, vec4, work, hinv, bl);
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     const int n = part_floats(P);
     ba_reduce_kernel<<<(n + 31) / 32, 32 * RED_WARPS, 0, st>>>(
-        work, P, (L + lt - 1) / lt, Hpp, S, bp, rhs);
+        work, P, grid, Hpp, S, bp, rhs);
     return (int)cudaGetLastError();
 }
 

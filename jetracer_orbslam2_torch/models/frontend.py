@@ -1,10 +1,10 @@
 """ORB front-end: image -> fixed-K features.
 
 Counterpart of `jetracer_orbslam2_tpu/models/frontend.py`: gray -> blur ->
-pyramid -> FAST+NMS (the hand-written kernel, once per level) -> grid NMS ->
-top-K -> patches (the hand-written gather kernel, once per frame) ->
-orientation -> BRIEF-256 -> backprojection.  Eager PyTorch on one stream;
-nothing here reads a value back to the host.
+pyramid -> FAST+NMS (the hand-written kernel, once per frame for every level
+and both thresholds) -> grid NMS -> top-K -> patches (the hand-written gather
+kernel, once per frame) -> orientation -> BRIEF-256 -> backprojection.
+Eager PyTorch on one stream; nothing here reads a value back to the host.
 """
 
 from __future__ import annotations
@@ -53,19 +53,22 @@ def extract_features(
     blurred = preprocess.gaussian_blur_3x3(gray)
     levels = preprocess.build_pyramid(blurred, cfg.num_levels)
 
-    def cell_winners(img, threshold):
-        resp = fused_fast.fast_nms_response(
-            img.contiguous(), threshold, cfg.fast_arc_length, cfg.fast_border)
-        return nms.grid_nms(resp, cfg.cell_size, suppress=False)
+    # two-threshold adaptive detection (ORB-SLAM2 iniThFAST / minThFAST):
+    # cells empty at the primary epsilon take the low-epsilon winner, so
+    # texture-poor views keep features.  Every level at both thresholds comes
+    # from one kernel launch.
+    thresholds = [cfg.fast_threshold]
+    if cfg.fast_min_threshold > 0.0:
+        thresholds.append(cfg.fast_min_threshold)
+    resp = fused_fast.fast_nms_pyramid(
+        [img.contiguous() for img in levels], thresholds,
+        cfg.fast_arc_length, cfg.fast_border)
 
     winners = []
-    for img in levels:
-        hi = cell_winners(img, cfg.fast_threshold)
-        if cfg.fast_min_threshold > 0.0:
-            # two-threshold adaptive detection (ORB-SLAM2 iniThFAST /
-            # minThFAST): cells empty at the primary epsilon take the
-            # low-epsilon winner, so texture-poor views keep features.
-            lo = cell_winners(img, cfg.fast_min_threshold)
+    for i, primary in enumerate(resp[0]):
+        hi = nms.grid_nms(primary, cfg.cell_size, suppress=False)
+        if len(resp) > 1:
+            lo = nms.grid_nms(resp[1][i], cfg.cell_size, suppress=False)
             use_hi = hi.score > cfg.min_score
             hi = nms.CellWinners(
                 score=torch.where(use_hi, hi.score, lo.score),

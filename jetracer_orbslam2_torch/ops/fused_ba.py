@@ -4,10 +4,13 @@ PyTorch versions beside them.
 
 Counterpart of `jetracer_orbslam2_tpu/ops/pallas_ba.py` (`fused_normal_schur`
 and `fused_backsub`, two Pallas kernels).  The CUDA source is
-`jetracer_orbslam2_torch/csrc/ba_fused.cu`; its header describes the design
-(one block per 32 or 64 landmarks, a thread per landmark and pose group,
-Jacobians in registers and shared memory only, per-block partial sums added
-in a fixed order by a second small kernel).
+`jetracer_orbslam2_torch/csrc/ba_fused.cu`; its header describes the design.
+`fused_normal_schur` is a persistent split-K over landmarks: at most two
+blocks an SM walk tiles of 32 landmarks (the next tile's observations copied
+into shared memory while the current one is reduced), keep their Hpp/bp and
+S/rhs sums in registers across tiles (the upper triangle of S only), and
+write ONE partial per block; a second, wide kernel adds the partials in
+block order.  Jacobians live in registers and shared memory only.
 
 What the port's kernels return differs from the TPU kernels' in layout only:
 `Hpp` comes as its (P, 6, 6) diagonal blocks (the TPU kernel returns the full
@@ -15,11 +18,13 @@ What the port's kernels return differs from the TPU kernels' in layout only:
 pose-major order (row p*6 + i), so the caller has nothing to un-interleave.
 Any 1 <= P <= MAX_POSES and any L >= 1; no padding.
 
-Bound on the card: `fused_normal_schur` by operations (the (6P) x (6P+1) x 3L
-product), `fused_backsub` by bytes; `chip_smoke.py` counts both per shape.
-The kernels' sums are FP32 FMAs in a fixed order: two launches on the same
-inputs agree bit for bit, and both agree with the plain versions to
-rounding (a stated tolerance, not bit for bit).
+Bound on the card: `fused_normal_schur` by operations (one triangle of the
+(6n) x (6n+1) x 3 product per landmark and its n observing poses: 117.3 M
+f32 operations = 1.75 us at P 8, L 16,384), `fused_backsub` by bytes;
+`chip_smoke.py` counts both per shape.  The kernels' sums are FP32 FMAs in a
+fixed order and no float atomic is used: two launches on the same inputs
+agree bit for bit, and both agree with the plain versions to rounding (a
+stated tolerance, not bit for bit).
 
 Each wrapper launches its kernel for a CUDA tensor or raises; it runs the
 plain version only for a CPU tensor.
@@ -37,9 +42,10 @@ from jetracer_orbslam2_torch.utils import cuda_build
 Tensor = torch.Tensor
 
 _LIB_NAME = "ba_fused"
-# The kernels' cap on the pose count: ba_assemble stages two (6P)-row
-# operands of up to 3 x 64 columns in shared memory, 162 KB at P = 16 of the
-# 227 KB a block may use.  Must equal MAX_POSES in csrc/ba_fused.cu.
+# The kernels' cap on the pose count: ba_assemble stages three (6P)-row
+# operands of 3 x 32 columns and two tiles of observations in shared memory,
+# 153 KB at P = 16 of the 227 KB a block may use.  Must equal MAX_POSES in
+# csrc/ba_fused.cu.
 MAX_POSES = 16
 
 
@@ -166,8 +172,9 @@ def fused_normal_schur(poses_flat: Tensor, points: Tensor, obs: Tensor,
     rhs_gh (P,6) = Gh bl, Hll^-1 (9,L), bl (3,L)).  The Schur complement is
     damped Hpp (block diagonal) - GhG.
 
-    CUDA tensors: launches the kernels on the current stream (no sync,
-    outputs from `torch.empty`) and raises if they do not build, load or
+    CUDA tensors: launches the kernels (the persistent pass and the
+    reduction of its partials) on the current stream (no sync, outputs and
+    workspace from `torch.empty`) and raises if they do not build, load or
     launch.  CPU tensors: the plain version.
     """
     P, L, dev = _check(dict(poses_flat=poses_flat, points=points, obs=obs,
@@ -180,7 +187,10 @@ def fused_normal_schur(poses_flat: Tensor, points: Tensor, obs: Tensor,
     Hpp, GhG = new(P, 6, 6), new(6 * P, 6 * P)
     bp, rhs_gh = new(P, 6), new(P, 6)
     hll_inv, bl = new(9, L), new(3, L)
-    work = new(lib.ba_workspace_floats(P, L))
+    n_work = lib.ba_workspace_floats(P, L)
+    if n_work < 0:
+        raise RuntimeError("ba_assemble: the CUDA device could not be queried")
+    work = new(n_work)
     err = lib.ba_assemble_launch(
         poses_flat.data_ptr(), points.data_ptr(), obs.data_ptr(),
         lm_free.data_ptr(), scalars.data_ptr(), P, L, work.data_ptr(),

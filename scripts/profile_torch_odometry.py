@@ -13,9 +13,10 @@ pass: device time and wall time come from the same pass, and the untraced
 wall time of the same frames stands beside them.  A second pass over
 `--table-frames` frames traces host and device and prints the top operators
 by host time and by device time.  With `--sync-debug` it first prints the
-host's cost of one eager call of the FAST+NMS wrapper per level shape, the
-lines of the port that make the host wait for the device, and the number of
-ATen ops each function issues in one frame.
+host's cost of one eager call of the FAST+NMS wrapper (a frame's one call,
+and the one-level call per level shape), the lines of the port that make
+the host wait for the device, and the number of ATen ops each function
+issues in one frame.
 
 With `--ba` it profiles `bundle_adjust` instead, on the synthetic problem of 8
 poses x `--landmarks` landmarks, 10 LM iterations, by the fused route (the
@@ -120,26 +121,31 @@ def report_op_counts(fn, rows: int, what: str = "one frame") -> None:
 
 def report_wrapper_host_cost(gray, fcfg, calls: int = 200) -> None:
     """Print what one eager call of the FAST+NMS wrapper costs on the host's
-    clock at each pyramid level shape (issue `calls` launches, then wait)."""
+    clock (issue `calls` launches, then wait): the one call a frame makes,
+    over every level at one and at two thresholds, and the one-level call
+    per level shape."""
     import torch
 
     from jetracer_orbslam2_torch.ops import fused_fast, preprocess
 
-    levels = preprocess.build_pyramid(
-        preprocess.gaussian_blur_3x3(gray), fcfg.num_levels)
-    for img in levels:
-        img = img.contiguous()
-        fused_fast.fast_nms_response(
-            img, fcfg.fast_threshold, fcfg.fast_arc_length, fcfg.fast_border)
+    levels = [lvl.contiguous() for lvl in preprocess.build_pyramid(
+        preprocess.gaussian_blur_3x3(gray), fcfg.num_levels)]
+    args = (fcfg.fast_arc_length, fcfg.fast_border)
+    cases = [(f"fast_nms_pyramid {len(levels)} levels x {len(thr)} thresholds",
+              lambda thr=thr: fused_fast.fast_nms_pyramid(levels, thr, *args))
+             for thr in ((fcfg.fast_threshold,), (fcfg.fast_threshold, 7.0))]
+    cases += [(f"fast_nms_response {tuple(img.shape)}",
+               lambda img=img: fused_fast.fast_nms_response(
+                   img, fcfg.fast_threshold, *args)) for img in levels]
+    for name, fn in cases:
+        fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(calls):
-            fused_fast.fast_nms_response(
-                img, fcfg.fast_threshold, fcfg.fast_arc_length, fcfg.fast_border)
+            fn()
         torch.cuda.synchronize()
         us = (time.perf_counter() - t0) / calls * 1e6
-        print(f"fast_nms_response {tuple(img.shape)}: {us:.1f} us per eager call "
-              f"(host clock, {calls} calls)")
+        print(f"{name}: {us:.1f} us per eager call (host clock, {calls} calls)")
 
 
 def profile_ba(landmarks: int, rows: int) -> None:

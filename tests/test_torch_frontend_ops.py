@@ -121,7 +121,7 @@ def test_fast_nms_reference_is_what_the_cpu_wrapper_runs():
 @pytest.mark.parametrize("bad", ["border", "dtype", "layout", "ndim", "arc"])
 def test_fast_nms_wrapper_contract(bad):
     img = t(image_u8((40, 56), 9))
-    before = fused_fast.fast_nms_response.launches
+    before = fused_fast.fast_nms_pyramid.launches
     with pytest.raises((ValueError, TypeError)):
         if bad == "border":
             fused_fast.fast_nms_response(img, 13.0, 12, 2)
@@ -135,7 +135,7 @@ def test_fast_nms_wrapper_contract(bad):
             fused_fast.fast_nms_response(img, 13.0, 17, 3)
     # the CPU path never counts as a kernel launch
     fused_fast.fast_nms_response(img, 13.0, 12, 3)
-    assert fused_fast.fast_nms_response.launches == before
+    assert fused_fast.fast_nms_pyramid.launches == before
 
 
 # ------------------------------------------------------- grid NMS / selection

@@ -187,7 +187,8 @@ def test_route_choice_follows_device_and_pose_count():
 
 
 @pytest.mark.parametrize("case", ["f64", "strided", "too_many_poses",
-                                  "wrong_obs_shape", "not_a_tensor"])
+                                  "wrong_obs_shape", "not_a_tensor",
+                                  "other_device"])
 def test_wrappers_refuse_what_the_kernels_do_not_take(case):
     inp = [t(a) for a in kernel_inputs(3, 4, 16, 1e-3, True)]
     err = ValueError
@@ -199,6 +200,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(case):
         inp = [t(a) for a in kernel_inputs(3, 17, 16, 1e-3, True)]
     elif case == "wrong_obs_shape":
         inp[2] = inp[2][:, :, :15].contiguous()
+    elif case == "other_device":
+        # one launch takes every input's pointer: they must share a device
+        inp[3] = inp[3].to("meta")
     else:
         inp[4], err = inp[4].numpy(), TypeError
     with pytest.raises(err):

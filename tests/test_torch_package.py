@@ -365,7 +365,7 @@ def test_kernel_library_is_keyed_by_source_hash():
     src = (PORT / "csrc" / "fast_nms.cu").read_text()
     assert "--use_fast_math" not in " ".join(cuda_build.NVCC_FLAGS)
     assert "sm_90a" in " ".join(cuda_build.NVCC_FLAGS)
-    assert 'extern "C" int fast_nms_launch' in src
+    assert 'extern "C" int fast_nms_pyramid_launch' in src
     ignore = (ROOT / ".gitignore").read_text().split()
     assert "jetracer_orbslam2_torch/_build/" in ignore
 
