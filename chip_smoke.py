@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # no arguments, one GPU
-    python3 chip_smoke.py --kernels  # phases 1-3, 6, 7, 11 only
+    python3 chip_smoke.py --kernels  # phases 1-3, 6, 7, 11, 16 only
 
 Drives `jetracer_orbslam2_torch`'s paths through the functions a user calls:
 RGB-D odometry on a synthetic 640x480 sequence at the CLI's defaults (4
@@ -25,29 +25,36 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
                   call at every shape, the batched call (every level of a
                   pyramid, one or two thresholds, one launch) on frame 0's
                   levels, odd shapes, 1 and 8 levels, an unaligned level;
-                  patch_gather kernel vs plain version, torch.equal, on the
-                  pyramids of rendered frames at three sizes and on adversarial
+                  K4's levels entry (extract_patches_fused) vs
+                  extract_patches, torch.equal, on the pyramids
+                  of rendered frames at three sizes, on levels smaller than
+                  the patch, at K = 1 and 0, on 1 and 8 levels; its canvas
+                  entry (patch_gather) vs its plain version on adversarial
                   window origins; two launches bit-identical
    4 semantics    tie orders and CPU/GPU agreement of the front-end
    5 main path    whole-sequence odometry: ATE, tracked fraction, kernel
-                  launches (K1 and K4 once a frame); --chunked 32 on the same
-                  frames gives the same poses; a second, warm run is timed
-   6 K1 time      device time of the one launch a frame at one and two
-                  thresholds, and of the old schedule (one launch per level
-                  and threshold) in the same run; the plain version and the
-                  bound; the one-level launch per level shape
+                  launches (K1 and K4 once a frame, no canvas packed);
+                  --chunked 32 on the same frames gives the same poses; a
+                  second, warm run is timed
+   6 K1 time      the empty-kernel launch floor; device time of the one
+                  launch a frame at one and two thresholds, and of the old
+                  schedule (one launch per level and threshold) in the same
+                  run; the plain version and the bound; the one-level launch
+                  per level shape
    7 K2/K3 check  fused_normal_schur and fused_backsub vs their plain
                   versions at every listed (P, L), against a float64 truth;
                   bit-identical between two launches and between two replays
-                  of a captured CUDA graph
+                  of a captured CUDA graph; whether K3 equals the kernel it
+                  replaced, bit for bit
    8 BA path      bundle_adjust, 8 x 4,096, 10 iterations through the
                   kernels: trace, gauge, launches, agreement with the dense
                   route; ms per LM iteration of both routes
    9 local BA     eight keyframes of the rendered sequence inserted into a
                   full-size map, then local_ba by both routes
   10 pose graph   a drifted ring closes; a second run gives the same poses
-  11 K2/K3 time   device time per launch beside the counted bound and the
-                  plain version's time
+  11 K2/K3 time   device time per launch beside the counted bound, the
+                  floor and the plain version's time; K3 beside the kernel
+                  it replaced, in the same run
   12 SLAM lap     126 frames of 240x180 around one lap with 2 %.z^2 depth
                   noise: slam_scan twice (bit-identical) and Slam on the same
                   frames must agree; over three draws of the noise every lap
@@ -56,13 +63,15 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
                   median ATE must stay under 58 cm
   13 SLAM path    slam_scan over 1,200 frames of 640x480, three laps, map of
                   128 keyframe slots / 16,384 landmarks / 65,536 observations:
-                  tracked fraction, loops, ATE, every kernel's launch count;
-                  frames/s of the run
+                  tracked fraction, loops, ATE, every kernel's launch count
+                  (no canvas packed); frames/s of the run
   14 lifecycle    three laps at 240x180 with 32 keyframe slots: keyframes are
                   culled and their slots recycled, tracking holds to the end
   15 CLI          run.main at its default mode (slam), whole and --chunked 8
-  16 K4 time      device time per launch beside the bound, the plain version
-                  and the one indexing call that computes the same
+  16 K4 time      device time of the levels kernel (two readings around
+                  the others), the canvas kernel, PR 4's whole route, the plain version,
+                  the one indexing call that computes the same, a copy of
+                  the output's bytes, the floor and the bound, in one run
 Kernel times are CUDA events around a replayed CUDA graph of launches.  Then
 the paths' reports, one JSON line `{"kernels": [...]}`, and as the last line
 `{"ok": true, "device": {...}}`.
@@ -72,6 +81,7 @@ Imports torch and the port only: no JAX, nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -342,6 +352,30 @@ def open_source(n_frames: int, dev):
     return argv, args, source, levels
 
 
+@contextlib.contextmanager
+def counting_calls():
+    """Counts the calls of PR 4's K4 route, `patches.pack_levels` and
+    `fused_patches.patch_origins`, while active: the gate that a path
+    packs no canvas.  Yields {name: calls}."""
+    from jetracer_orbslam2_torch.ops import fused_patches, patches
+
+    counts, saved = {}, []
+    for mod, name in ((patches, "pack_levels"), (fused_patches, "patch_origins")):
+        fn = getattr(mod, name)
+        counts[name] = 0
+
+        def wrapped(*a, _fn=fn, _name=name, **kw):
+            counts[_name] += 1
+            return _fn(*a, **kw)
+        setattr(mod, name, wrapped)
+        saved.append((mod, name, fn))
+    try:
+        yield counts
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
 def phase_main_path(argv, args, source, dev):
     """Whole-sequence odometry through the CLI's functions; returns the
     report, the kernel's launch count on that run and the tracked poses."""
@@ -352,12 +386,20 @@ def phase_main_path(argv, args, source, dev):
 
     frames, n, hw, intr, gt = source
     fused_fast.fast_nms_pyramid.launches = 0
+    fused_patches.extract_patches_fused.launches = 0
     fused_patches.patch_gather.launches = 0
-    report, poses = run._run_odometry(args, frames, n, hw, intr, dev)
+    with counting_calls() as calls:
+        report, poses = run._run_odometry(args, frames, n, hw, intr, dev)
     launches = fused_fast.fast_nms_pyramid.launches
-    if fused_patches.patch_gather.launches != n:
-        raise SystemExit(f"FAIL: patch_gather launches "
-                         f"{fused_patches.patch_gather.launches} != {n}")
+    if fused_patches.extract_patches_fused.launches != n:
+        raise SystemExit(f"FAIL: extract_patches_fused launches "
+                         f"{fused_patches.extract_patches_fused.launches} != {n}")
+    if fused_patches.patch_gather.launches or any(calls.values()):
+        raise SystemExit(f"FAIL: the odometry path took PR 4's K4 route: "
+                         f"patch_gather {fused_patches.patch_gather.launches}, "
+                         f"{calls}")
+    say(f"  K4: extract_patches_fused launched {n} times (one a frame); "
+        f"patch_gather 0, calls {calls}")
     run._accuracy(report, poses, gt, n)
     say("  main path (cold): " + json.dumps(report))
     if not np.isfinite(poses).all() or poses.shape != (n, 4, 4):
@@ -397,7 +439,7 @@ def phase_main_path(argv, args, source, dev):
     return report, launches, poses
 
 
-def phase_kernel_times(levels) -> dict:
+def phase_kernel_times(levels, floor_ms: float) -> dict:
     """K1 on frame 0's pyramid.  Per configuration (odometry: one threshold;
     the SLAM path: two), the one launch a frame and, in the same run and in
     turns (new, old, old, new), the old schedule of one launch per level and
@@ -437,14 +479,15 @@ def phase_kernel_times(levels) -> dict:
             "old_schedule_launches": len(thr) * len(frame),
             "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes": n_bytes, "operations": n_ops}
+            "bytes": n_bytes, "operations": n_ops, "floor_ms": floor_ms}
         out[name] = row
         say(f"  fast_nms_pyramid, {name} ({len(frame)} levels x {len(thr)} "
             f"thresholds): one launch {new_ms[0] * 1e3:.2f} / {new_ms[1] * 1e3:.2f}"
             f" us a frame; old schedule of {len(thr) * len(frame)} launches "
             f"{old_ms[0] * 1e3:.2f} / {old_ms[1] * 1e3:.2f} us; plain "
-            f"{plain_ms:.4f} ms; bound {row['bound_ms'] * 1e3:.3f} us "
-            f"({row['bound_by']}: {n_bytes} B, {n_ops} f32 ops)")
+            f"{plain_ms:.4f} ms; floor {floor_ms * 1e3:.3f} us; bound "
+            f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}: {n_bytes} B, "
+            f"{n_ops} f32 ops)")
 
     shapes = []
     for img in frame:
@@ -563,6 +606,29 @@ def _errors(name, got, plain, truth):
     return err_k, err_p, float((got - plain).abs().max()), scale
 
 
+def backsub_serial(poses_flat, points, obs, lm_free, scalars, hll_inv, bl,
+                   dxp):
+    """dxl by the one-thread-a-landmark kernel that K3's redesign replaced
+    (`ba_backsub_serial_launch` in csrc/ba_fused.cu, PR 4's arithmetic):
+    the yardstick K3 is compared and timed against.  No path launches it."""
+    import ctypes
+    import torch
+    from jetracer_orbslam2_torch.utils import cuda_build
+
+    fn = cuda_build.load_library("ba_fused").ba_backsub_serial_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+        fn.restype = ctypes.c_int
+    P, L = poses_flat.shape[0], points.shape[1]
+    dxl = torch.empty((3, L), dtype=torch.float32, device=points.device)
+    err = fn(*(x.data_ptr() for x in (poses_flat, points, obs, lm_free, scalars,
+                                      hll_inv, bl, dxp)),
+             P, L, dxl.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise SystemExit(f"FAIL: the serial back-substitution did not launch ({err})")
+    return dxl
+
+
 def check_ba_kernels(label: str, inputs, worst: dict) -> None:
     """K2 and K3 on `inputs` against their plain versions; raises SystemExit
     on a disagreement or on two launches that differ."""
@@ -600,16 +666,21 @@ def check_ba_kernels(label: str, inputs, worst: dict) -> None:
     k3_in = (*inputs, got[4], got[5], dxp)
     dxl = fused_ba.fused_backsub(*k3_in)
     dxl_again = fused_ba.fused_backsub(*k3_in)
+    dxl_serial = backsub_serial(*k3_in)
     dxl_plain = fused_ba.fused_backsub_reference(*k3_in)
     dxl_truth = fused_ba.fused_backsub_reference(*as64(k3_in))
     torch.cuda.synchronize()
     if not torch.equal(dxl, dxl_again):
         raise SystemExit(f"FAIL: two launches of fused_backsub differ at {label}")
     rows.append(("K3", "dxl") + _errors("dxl", dxl, dxl_plain, dxl_truth))
+    same_as_serial = torch.equal(dxl, dxl_serial)
+    worst["K3_equals_serial"] = worst.get("K3_equals_serial", True) and same_as_serial
 
     n_free = int(inputs[3].sum())
     say(f"  {label}: P {P}, L {L}, free landmarks {n_free}, "
-        f"lambda {float(inputs[4][0, 4]):g}")
+        f"lambda {float(inputs[4][0, 4]):g}; K3 dxl equal to PR 4's kernel "
+        f"(one thread a landmark): {same_as_serial} (largest difference "
+        f"{float((dxl - dxl_serial).abs().max()):.3e})")
     for kern, name, err_k, err_p, diff, scale in rows:
         tol = TOL_FACTOR * err_p + TOL_FLOOR
         good = np.isfinite(err_k) and err_k <= tol
@@ -626,9 +697,10 @@ def check_ba_kernels(label: str, inputs, worst: dict) -> None:
 
 
 def check_ba_graph_replays(inputs) -> None:
-    """fused_normal_schur captured into one CUDA graph: two replays (the
-    outputs set to NaN in between) give the eager launch's bits, so no state
-    a launch leaves on the card changes the next one."""
+    """fused_normal_schur, then fused_backsub, captured into a CUDA graph:
+    two replays (the outputs set to NaN in between) give the eager launch's
+    bits, so no state a launch leaves on the card changes the next one."""
+    import numpy as np
     import torch
     from jetracer_orbslam2_torch.ops import fused_ba
 
@@ -653,7 +725,27 @@ def check_ba_graph_replays(inputs) -> None:
                 raise SystemExit(f"FAIL: replay {replay} of a captured "
                                  f"fused_normal_schur differs from the eager "
                                  f"launch in {name} at P {P}, L {L}")
-    say(f"  graph replays, P {P}, L {L}: two replays equal to the eager launch")
+    # K3 the same way, on K2's eager outputs and a seeded pose step
+    dxp = torch.from_numpy(np.random.default_rng(P + L).normal(
+        0, 1e-2, (P, 6)).astype(np.float32)).to(inputs[0].device)
+    k3_in = (*inputs, eager[4], eager[5], dxp)
+    dxl_eager = fused_ba.fused_backsub(*k3_in)
+    with torch.cuda.stream(side):
+        fused_ba.fused_backsub(*k3_in)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph3 = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph3):
+        dxl = fused_ba.fused_backsub(*k3_in)
+    for replay in (1, 2):
+        dxl.fill_(float("nan"))
+        graph3.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(dxl, dxl_eager):
+            raise SystemExit(f"FAIL: replay {replay} of a captured fused_backsub "
+                             f"differs from the eager launch at P {P}, L {L}")
+    say(f"  graph replays, P {P}, L {L}: two replays of K2 and of K3 equal to "
+        "the eager launch")
 
 
 def phase_ba_kernel_checks(dev) -> dict:
@@ -679,6 +771,15 @@ def phase_ba_kernel_checks(dev) -> dict:
         ("synthetic (8, 33)", make_synthetic_ba(8, 33, 6), 1e-3),
         ("synthetic (8, 65536)", make_synthetic_ba(8, 65536, 6), 1e-3),
         ("synthetic (16, 16384)", make_synthetic_ba(16, 16384, 6), 1e-3),
+        # K3's warps a block: one pose (seven idle warps), two poses a warp,
+        # a part-filled last block
+        ("synthetic (1, 1)", make_synthetic_ba(1, 1, 1), 1e-3),
+        ("synthetic (16, 1)", make_synthetic_ba(16, 1, 6), 1e-3),
+        ("synthetic (6, 33)", make_synthetic_ba(6, 33, 6), 1e-3),
+        ("ring (16, 300), no depth", ring_problem(16, 300, 14, dev), 1e-3),
+        ("synthetic (1, 65536)", make_synthetic_ba(1, 65536, 1), 1e-3),
+        ("synthetic (6, 65536)", make_synthetic_ba(6, 65536, 6), 1e-3),
+        ("synthetic (16, 65536)", make_synthetic_ba(16, 65536, 6), 1e-3),
     ]
     # the awkward one: landmarks with one or no observation (frozen), slots
     # without depth, a landmark behind every camera; at the start and with
@@ -701,8 +802,9 @@ def phase_ba_kernel_checks(dev) -> dict:
                       (awkward, intr), lam))
     for label, (prob, intr), lam in cases:
         check_ba_kernels(label, ba_kernel_inputs(prob, intr, lam), worst)
-    for P, L in ((8, 16384), (8, 33), (16, 4096)):
-        check_ba_graph_replays(ba_kernel_inputs(*make_synthetic_ba(P, L, 6), 1e-3))
+    for P, L in ((8, 16384), (8, 33), (16, 4096), (1, 300)):
+        check_ba_graph_replays(ba_kernel_inputs(
+            *make_synthetic_ba(P, L, min(P, 6)), 1e-3))
 
     inp = ba_kernel_inputs(*make_synthetic_ba(8, 64, 6), 1e-3)
     too_many = ba_kernel_inputs(*make_synthetic_ba(17, 64, 6), 1e-3)
@@ -992,9 +1094,10 @@ def ba_work(inputs) -> dict:
     }
 
 
-def phase_ba_kernel_times(dev) -> dict:
+def phase_ba_kernel_times(dev, floor_ms: float) -> dict:
     """K2 and K3 at (8, 4096) and (8, 16384): device ms per launch, the plain
-    version's, and the bound counted from the inputs."""
+    version's, and the bound counted from the inputs; K3 in turns with the
+    kernel it replaced (new, old, old, new), beside the empty-kernel floor."""
     import numpy as np
     import torch
     from jetracer_orbslam2_torch.ops import fused_ba
@@ -1014,25 +1117,39 @@ def phase_ba_kernel_times(dev) -> dict:
                 ("fused_backsub", fused_ba.fused_backsub,
                  fused_ba.fused_backsub_reference, k3_in)):
             before = fn.launches
-            ms = time_launches(lambda: fn(*args_), reps=20, batch=20)
+            readings = [time_launches(lambda: fn(*args_), reps=20, batch=20)]
+            if name == "fused_backsub":
+                serial = [time_launches(lambda: backsub_serial(*args_),
+                                        reps=20, batch=20) for _ in range(2)]
+                readings.append(time_launches(lambda: fn(*args_), reps=20, batch=20))
             assert fn.launches > before
+            ms = min(readings)
             plain_ms = time_launches(lambda: ref(*args_), reps=10, batch=2)
             n_bytes, n_ops = work[name]
             bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
             ops_ms = n_ops / F32_OPS_PER_S * 1e3
-            row = {"shape": [8, L], "ms": ms, "plain_ms": plain_ms,
+            row = {"shape": [8, L], "ms": ms, "readings_ms": readings,
+                   "plain_ms": plain_ms, "floor_ms": floor_ms,
                    "bound_ms": max(bytes_ms, ops_ms),
                    "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                    "bytes": n_bytes, "operations": n_ops}
+            extra = ""
+            if name == "fused_backsub":
+                row["serial_ms"] = min(serial)
+                row["serial_readings_ms"] = serial
+                extra = (f" ({' / '.join(f'{r * 1e3:.3f}' for r in readings)} us); "
+                         f"the kernel it replaced (one thread a landmark) "
+                         f"{' / '.join(f'{r * 1e3:.3f}' for r in serial)} us")
             out[name].append(row)
-            say(f"  {name} (P 8, L {L}): kernel {ms:.5f} ms on the card, plain "
-                f"{plain_ms:.4f} ms, bound {row['bound_ms']:.6f} ms "
-                f"({row['bound_by']}: {n_bytes} B, {n_ops} f32 ops)")
+            say(f"  {name} (P 8, L {L}): kernel {ms:.5f} ms on the card{extra}; "
+                f"plain {plain_ms:.4f} ms, floor {floor_ms * 1e3:.3f} us, bound "
+                f"{row['bound_ms']:.6f} ms ({row['bound_by']}: {n_bytes} B, "
+                f"{n_ops} f32 ops)")
     return out
 
 
 # ---------------------------------------------------------------------------
-# K4 (patch_gather) and the SLAM paths
+# K4 (extract_patches_fused, patch_gather) and the SLAM paths
 # ---------------------------------------------------------------------------
 
 def _frame_pyramid(shape, levels, k, dev):
@@ -1051,32 +1168,110 @@ def _frame_pyramid(shape, levels, k, dev):
     return pyramid, kp
 
 
-def phase_patch_kernel_checks(dev) -> tuple:
-    """patch_gather vs its plain version, bit for bit.  Returns the largest
-    absolute difference and the AND of torch.equal over all cases, and the
-    640x480 pyramid and keypoints for the timing phase."""
+def _forced_keypoints(pyramid, k, seed, level=None):
+    """K keypoints drawn from numpy with `seed`: on `level` (every level
+    when None), at level-local positions from well outside each level to
+    well past it, so that windows clamp, leave small levels and wrap."""
+    import numpy as np
+    import torch
+    from jetracer_orbslam2_torch.ops.nms import Keypoints
+
+    dev = pyramid[0].device
+    rng = np.random.default_rng(seed)
+    n_lv = len(pyramid)
+    lv = (np.full(k, level) if level is not None
+          else rng.integers(0, n_lv, k)).astype(np.int32)
+    hw = np.array([im.shape for im in pyramid])[lv]             # (K, 2) h, w
+    xy = np.stack([rng.integers(-40, hw[:, 1] + 40),
+                   rng.integers(-40, hw[:, 0] + 40)], -1).astype(np.int32)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    return Keypoints(xy=to(xy.astype(np.float32)), xy_level=to(xy), level=to(lv),
+                     score=torch.ones(k, device=dev),
+                     valid=torch.zeros(k, dtype=torch.bool, device=dev))
+
+
+def _check_levels_entry(name, pyramid, kp) -> tuple:
+    """K4's levels entry against the plain version, torch.equal, twice; one
+    launch a call.  Returns the largest absolute difference and whether both
+    launches equal the plain version."""
     import torch
     from jetracer_orbslam2_torch.ops import fused_patches, patches
+
+    ref = patches.extract_patches(pyramid, kp, PATCH)
+    before = fused_patches.extract_patches_fused.launches
+    got = fused_patches.extract_patches_fused(pyramid, kp, PATCH)
+    again = fused_patches.extract_patches_fused(pyramid, kp, PATCH)
+    torch.cuda.synchronize()
+    launched = fused_patches.extract_patches_fused.launches - before
+    if got.shape != ref.shape or launched != (2 if kp.level.numel() else 0):
+        raise SystemExit(f"FAIL: extract_patches_fused gave shape "
+                         f"{tuple(got.shape)} in {launched} launches at {name}")
+    err = float((got - ref).abs().max()) if got.numel() else 0.0
+    equal = torch.equal(got, ref) and torch.equal(got, again)
+    say(f"  kernel vs plain  levels entry: {name:44s} K {kp.level.numel():5d}  "
+        f"max_abs_err {err:g}  equal {equal}")
+    if not equal:
+        raise SystemExit(f"FAIL: extract_patches_fused disagrees with "
+                         f"extract_patches at {name}")
+    return err, equal
+
+
+def phase_patch_kernel_checks(dev) -> tuple:
+    """K4 vs its plain versions, bit for bit: the levels entry (the
+    front-end's) against `patches.extract_patches` on rendered frames, on a
+    pyramid with levels smaller than the patch, at K = 1 and 0, on 1 and 8
+    levels; the canvas entry against `patch_gather_reference` on the packed
+    canvas and adversarial origins.  Returns the largest absolute
+    difference, the AND of torch.equal over all cases, and the 640x480
+    pyramid and keypoints for the timing phase."""
+    import torch
+    from jetracer_orbslam2_torch.ops import fused_patches, patches, preprocess
 
     full = None
     max_err, all_equal = 0.0, True
     for shape, levels, k in (((480, 640), 4, 1024), ((240, 320), 3, 512),
                              ((120, 160), 2, 256)):
         pyramid, kp = _frame_pyramid(shape, levels, k, dev)
+        pyramid = [im.contiguous() for im in pyramid]
         full = full or (pyramid, kp)
-        before = fused_patches.patch_gather.launches
-        got = fused_patches.extract_patches_fused(pyramid, kp, PATCH)
-        again = fused_patches.extract_patches_fused(pyramid, kp, PATCH)
-        ref = patches.extract_patches(pyramid, kp, PATCH)
-        torch.cuda.synchronize()
-        equal = torch.equal(got, ref) and torch.equal(got, again)
-        err = float((got - ref).abs().max())
+        label = f"{shape[1]}x{shape[0]}, {levels} levels ({int(kp.valid.sum())} valid)"
+        err, equal = _check_levels_entry(label, pyramid, kp)
         max_err, all_equal = max(max_err, err), all_equal and equal
-        say(f"  kernel vs plain  patches {shape[1]}x{shape[0]}, {levels} levels, "
-            f"K {k} ({int(kp.valid.sum())} valid)  max_abs_err {err:g}  equal {equal}")
-        if not equal or fused_patches.patch_gather.launches != before + 2:
-            raise SystemExit("FAIL: patch_gather disagrees with its plain version "
-                             f"at {shape}")
+        # the canvas entry through PR 4's route on the same frame
+        canvas, offsets = patches.pack_levels(pyramid)
+        ys, xs = fused_patches.patch_origins(pyramid, offsets, kp, PATCH)
+        got = fused_patches.patch_gather(canvas.contiguous(), ys, xs, PATCH)
+        torch.cuda.synchronize()
+        equal = torch.equal(got, patches.extract_patches(pyramid, kp, PATCH))
+        all_equal = all_equal and equal
+        if not equal:
+            raise SystemExit(f"FAIL: the canvas route disagrees at {shape}")
+
+    def blurred(shape, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        img = torch.rand(shape, generator=g, device=dev) * 255.0
+        return preprocess.gaussian_blur_3x3(img)
+
+    small = [im.contiguous() for im in preprocess.build_pyramid(blurred((120, 160), 1), 5)]
+    eight = [im.contiguous() for im in preprocess.build_pyramid(blurred((480, 640), 2), 8)]
+    one = [blurred((96, 200), 3).contiguous()]
+    say(f"  small pyramid: {[tuple(im.shape) for im in small]}; "
+        f"8 levels: {[tuple(im.shape) for im in eight]}")
+    cases = [
+        ("5 levels of 120x160, all on the last", small,
+         _forced_keypoints(small, 300, 1, level=4)),
+        ("5 levels of 120x160, any level", small, _forced_keypoints(small, 1024, 2)),
+        ("K = 1", full[0], _forced_keypoints(full[0], 1, 3)),
+        ("K = 0", full[0], _forced_keypoints(full[0], 0, 4)),
+        ("1 level (96x200)", one, _forced_keypoints(one, 777, 5)),
+        ("8 levels of 480x640", eight, _forced_keypoints(eight, 1024, 6)),
+        ("8 levels of 480x640, all on the last", eight,
+         _forced_keypoints(eight, 64, 7, level=7)),
+    ]
+    for name, pyramid, kp in cases:
+        err, equal = _check_levels_entry(name, pyramid, kp)
+        max_err, all_equal = max(max_err, err), all_equal and equal
+
     canvas, _ = patches.pack_levels(full[0])
     canvas = canvas.contiguous()
     rows, cols = canvas.shape
@@ -1089,6 +1284,7 @@ def phase_patch_kernel_checks(dev) -> tuple:
     }
     for name, (ys, xs) in cases.items():
         ys, xs = torch.tensor(ys, **i32), torch.tensor(xs, **i32)
+        before = fused_patches.patch_gather.launches
         got = fused_patches.patch_gather(canvas, ys, xs, PATCH)
         again = fused_patches.patch_gather(canvas, ys, xs, PATCH)
         ref = fused_patches.patch_gather_reference(canvas, ys, xs, PATCH)
@@ -1096,55 +1292,121 @@ def phase_patch_kernel_checks(dev) -> tuple:
         equal = torch.equal(got, ref) and torch.equal(got, again)
         err = float((got - ref).abs().max())
         max_err, all_equal = max(max_err, err), all_equal and equal
-        say(f"  kernel vs plain  origins: {name:24s} max_abs_err {err:g}  equal {equal}")
-        if not equal:
+        say(f"  kernel vs plain  canvas entry: {name:24s} max_abs_err {err:g}  "
+            f"equal {equal}")
+        if not equal or fused_patches.patch_gather.launches != before + 2:
             raise SystemExit(f"FAIL: patch_gather disagrees at {name}")
     origins = torch.zeros(4, **i32)
+    kp = full[1]
+    f64 = [im.double() for im in full[0]]
     for bad in (lambda: fused_patches.patch_gather(canvas.double(), origins, origins, PATCH),
                 lambda: fused_patches.patch_gather(canvas.T, origins, origins, PATCH),
                 lambda: fused_patches.patch_gather(canvas, origins.long(), origins.long(), PATCH),
-                lambda: fused_patches.patch_gather(canvas, origins.cpu(), origins, PATCH)):
+                lambda: fused_patches.patch_gather(canvas, origins.cpu(), origins, PATCH),
+                lambda: fused_patches.extract_patches_fused([], kp, PATCH),
+                lambda: fused_patches.extract_patches_fused(eight + one, kp, PATCH),
+                lambda: fused_patches.extract_patches_fused(f64, kp, PATCH),
+                lambda: fused_patches.extract_patches_fused(
+                    full[0], kp._replace(xy_level=kp.xy_level.long()), PATCH),
+                lambda: fused_patches.extract_patches_fused(
+                    full[0][:-1] + [full[0][-1].cpu()], kp, PATCH)):
         try:
             bad()
         except (ValueError, TypeError):
             continue
-        raise SystemExit("FAIL: the patch wrapper accepted an input the kernel does not take")
+        raise SystemExit("FAIL: a patch wrapper accepted an input the kernel does not take")
     return max_err, all_equal, full
 
 
-def phase_patch_kernel_time(pyramid, kp) -> dict:
-    """patch_gather at the main path's shape: kernel, the whole plain
-    version, one indexing call with its index prebuilt, and the bound."""
+def _empty_launcher():
+    """The empty kernel of csrc/patch_gather.cu (one block of one thread that
+    does nothing), launched on the current stream."""
+    import ctypes
+    import torch
+    from jetracer_orbslam2_torch.utils import cuda_build
+
+    fn = cuda_build.load_library("patch_gather").empty_launch
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+
+    def launch():
+        if fn(torch.cuda.current_stream().cuda_stream) != 0:
+            raise SystemExit("FAIL: the empty kernel did not launch")
+    return launch
+
+
+def launch_floor_ms() -> float:
+    """Device ms of one empty launch through `time_launches`: the floor under
+    every timed launch of phases 6, 11 and 16."""
+    return time_launches(_empty_launcher(), reps=20, batch=20)
+
+
+def phase_patch_kernel_time(pyramid, kp, floor_ms: float) -> dict:
+    """K4 at the main path's shape (frame 0's 640x480 pyramid, K 1024, P 37),
+    in one run: the levels kernel (read first and again last), the canvas
+    entry alone, PR 4's whole route
+    (pack_levels + patch_origins + the canvas kernel, one captured graph),
+    the plain version, one indexing call with its index prebuilt, a plain
+    copy of as many bytes as the output, and the bound of the levels
+    kernel."""
     import torch
     from jetracer_orbslam2_torch.ops import fused_patches, patches
+
+    def levels_ms():
+        return time_launches(lambda: fused_patches.extract_patches_fused(
+            pyramid, kp, PATCH), reps=20, batch=20)
+
+    before = fused_patches.extract_patches_fused.launches
+    readings = [levels_ms()]
 
     canvas, offsets = patches.pack_levels(pyramid)
     canvas = canvas.contiguous()
     ys, xs = fused_patches.patch_origins(pyramid, offsets, kp, PATCH)
-    before = fused_patches.patch_gather.launches
-    ms = time_launches(lambda: fused_patches.patch_gather(canvas, ys, xs, PATCH),
-                       reps=20, batch=20)
-    assert fused_patches.patch_gather.launches > before
+    canvas_ms = time_launches(
+        lambda: fused_patches.patch_gather(canvas, ys, xs, PATCH), reps=20, batch=20)
+
+    def pr4_route():
+        c, off = patches.pack_levels(pyramid)
+        y, x = fused_patches.patch_origins(pyramid, off, kp, PATCH)
+        return fused_patches.patch_gather(c.contiguous(), y, x, PATCH)
+    route_ms = time_launches(pr4_route, reps=20, batch=20)
     plain_ms = time_launches(lambda: patches.extract_patches(pyramid, kp, PATCH),
                              reps=20, batch=4)
     offs = torch.arange(PATCH, device=canvas.device)
     index = ((ys.long()[:, None, None] + offs[None, :, None]) * canvas.shape[1]
              + xs.long()[:, None, None] + offs[None, None, :])
     flat = canvas.reshape(-1)
-    if not torch.equal(flat[index], fused_patches.patch_gather(canvas, ys, xs, PATCH)):
-        raise SystemExit("FAIL: the library call does not compute patch_gather")
+    if not torch.equal(flat[index], fused_patches.extract_patches_fused(pyramid, kp, PATCH)):
+        raise SystemExit("FAIL: the library call does not compute extract_patches")
     library_ms = time_launches(lambda: flat[index], reps=20, batch=20)
-    # every input read once, the output written once; nothing is computed
-    n_bytes = 4 * (canvas.numel() + ys.numel() + xs.numel()
-                   + ys.numel() * PATCH * PATCH)
-    row = {"shape": [list(canvas.shape), int(ys.numel()), PATCH], "ms": ms,
-           "plain_ms": plain_ms, "library_ms": library_ms,
+    # a yardstick of moving the output alone: one contiguous copy of as
+    # many bytes (PyTorch's copy kernel)
+    out_a, out_b = torch.empty_like(index, dtype=torch.float32), flat[index]
+    copy_ms = time_launches(lambda: out_a.copy_(out_b), reps=20, batch=20)
+    readings.append(levels_ms())
+    assert fused_patches.extract_patches_fused.launches > before
+    ms = min(readings)
+    # every input read once (the levels, level and xy_level), the output
+    # written once; nothing is computed but addresses
+    k = kp.level.numel()
+    n_bytes = 4 * (sum(im.numel() for im in pyramid) + 3 * k + k * PATCH * PATCH)
+    canvas_bytes = 4 * (canvas.numel() + 2 * k + k * PATCH * PATCH)
+    row = {"levels": [list(im.shape) for im in pyramid], "keypoints": k,
+           "patch": PATCH, "ms": ms, "readings_ms": readings,
+           "canvas_kernel_ms": canvas_ms, "pr4_route_ms": route_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms, "floor_ms": floor_ms,
+           "output_copy_ms": copy_ms,
            "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-           "bytes": n_bytes, "operations": 0}
-    say(f"  patch_gather canvas {tuple(canvas.shape)}, K {ys.numel()}, P {PATCH}: "
-        f"kernel {ms:.5f} ms on the card, plain extract_patches {plain_ms:.4f} ms, "
-        f"one indexing call {library_ms:.5f} ms, bound {row['bound_ms']:.6f} ms "
-        f"(bytes: {n_bytes} B)")
+           "bytes": n_bytes, "operations": 0,
+           "canvas_bound_ms": canvas_bytes / HBM_BYTES_PER_S * 1e3}
+    say(f"  extract_patches_fused, levels {row['levels']}, K {k}, P {PATCH}: "
+        f"levels kernel {readings[0] * 1e3:.3f} / {readings[1] * 1e3:.3f} us")
+    say(f"  same run: canvas kernel alone {canvas_ms * 1e3:.3f} us (its bound "
+        f"{row['canvas_bound_ms'] * 1e3:.3f} us); PR 4's route (pack_levels + "
+        f"patch_origins + canvas kernel, one graph) {route_ms * 1e3:.3f} us; plain "
+        f"extract_patches {plain_ms * 1e3:.3f} us; one indexing call "
+        f"{library_ms * 1e3:.3f} us; a copy of the output's {4 * index.numel()} "
+        f"B {copy_ms * 1e3:.3f} us; empty-kernel floor {floor_ms * 1e3:.3f} us; "
+        f"bound {row['bound_ms'] * 1e3:.3f} us (bytes: {n_bytes} B)")
     return row
 
 
@@ -1152,6 +1414,7 @@ def _kernel_counters() -> dict:
     from jetracer_orbslam2_torch.ops import fused_ba, fused_fast, fused_patches
 
     return {"fast_nms_pyramid": fused_fast.fast_nms_pyramid,
+            "extract_patches_fused": fused_patches.extract_patches_fused,
             "patch_gather": fused_patches.patch_gather,
             "fused_normal_schur": fused_ba.fused_normal_schur,
             "fused_backsub": fused_ba.fused_backsub}
@@ -1325,10 +1588,11 @@ def phase_slam_path(dev) -> tuple[dict, dict]:
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    start.record()
-    final, out, poses, rmse = _scan(seq, depth, cfg)
-    stop.record()
-    stop.synchronize()
+    with counting_calls() as calls:
+        start.record()
+        final, out, poses, rmse = _scan(seq, depth, cfg)
+        stop.record()
+        stop.synchronize()
     launches = _read_counters()
     ms = start.elapsed_time(stop)
     inserted = int(out.is_kf.sum())
@@ -1343,7 +1607,7 @@ def phase_slam_path(dev) -> tuple[dict, dict]:
         "keyframes_recycled": int(m.num_dead), "landmarks": int(m.num_lm),
         "observations": int(m.num_obs), "ate_rmse_m": rmse,
         "ms_per_frame": ms / LONG_FRAMES, "fps": LONG_FRAMES / (ms / 1e3),
-        "launches": launches,
+        "launches": launches, "k4_route_calls": calls,
     }
     say("  SLAM path: " + json.dumps(report))
     if report["tracked_frac"] < 0.95 or report["loops"] < 1:
@@ -1353,10 +1617,13 @@ def phase_slam_path(dev) -> tuple[dict, dict]:
     if not (report["landmarks"] < m.lm_valid.shape[0]
             and report["observations"] < m.obs_valid.shape[0]):
         raise SystemExit("FAIL: the map ran out of landmark or observation slots")
-    want = {"fast_nms_pyramid": LONG_FRAMES, "patch_gather": LONG_FRAMES,
+    want = {"fast_nms_pyramid": LONG_FRAMES, "extract_patches_fused": LONG_FRAMES,
+            "patch_gather": 0,
             "fused_normal_schur": 10 * inserted, "fused_backsub": 10 * inserted}
     if launches != want:
         raise SystemExit(f"FAIL: SLAM path launches {launches}, expected {want}")
+    if any(calls.values()):
+        raise SystemExit(f"FAIL: the SLAM path packed a canvas: {calls}")
     _check_obs_prefix(m, "SLAM path")
     return report, launches
 
@@ -1446,7 +1713,7 @@ def main(argv: list[str]) -> int:
     if argv not in ([], ["--kernels"]):
         print("usage: python3 chip_smoke.py [--kernels]", file=sys.stderr)
         return 2
-    # --kernels: build, check and time the kernels only (phases 1-3, 6, 7, 11)
+    # --kernels: build, check and time the kernels only (phases 1-3, 6, 7, 11, 16)
     kernels_only = argv == ["--kernels"]
 
     import torch
@@ -1478,13 +1745,13 @@ def main(argv: list[str]) -> int:
     cuda_build.build_libraries(sources)
     fused_fast._launcher()
     fused_ba._launchers()
-    fused_patches._launcher()
+    fused_patches._library()
     say(f"  three libraries built and loaded in {time.perf_counter() - t0:.2f} s")
     for name in sources:
         print_build(name)
 
     with torch.no_grad():
-        phase(3, "fast_nms and patch_gather kernels vs their plain versions "
+        phase(3, "fast_nms and patch kernels vs their plain versions "
                  "(torch.equal)")
         argv_run, args, source, levels = open_source(N_FRAMES, dev)
         max_err, all_equal = phase_kernel_checks(levels)
@@ -1501,7 +1768,10 @@ def main(argv: list[str]) -> int:
         phase(6, "fast_nms times: one launch a frame vs the old schedule, and per "
                  "level (CUDA events around a replayed CUDA graph of 20 calls, "
                  "median of 20; the image is L2-warm, as the front-end leaves it)")
-        times = phase_kernel_times(levels)
+        floor_ms = launch_floor_ms()
+        say(f"  launch floor: an empty kernel (one block of one thread) "
+            f"{floor_ms * 1e3:.3f} us a launch through the same harness")
+        times = phase_kernel_times(levels, floor_ms)
 
         phase(7, "fused_normal_schur (K2) and fused_backsub (K3) vs their plain "
                  "versions; errors relative to each output's scale, against the "
@@ -1524,12 +1794,17 @@ def main(argv: list[str]) -> int:
         phase(11, "K2/K3 times (CUDA events around a replayed CUDA graph of 20 "
                   "launches, median of 20; inputs L2-warm, as the LM loop leaves "
                   "them)")
-        ba_times = phase_ba_kernel_times(dev)
+        ba_times = phase_ba_kernel_times(dev, floor_ms)
         if kernels_only:
+            phase(16, "K4 time (CUDA events around a replayed CUDA graph of 20 "
+                      "launches, median of 20; the levels are L2-warm, as the "
+                      "pyramid leaves them)")
+            patch_time = phase_patch_kernel_time(patch_pyramid, patch_kp, floor_ms)
             say(card)
             say(json.dumps({"fast_nms_pyramid": times, "ba_kernels": ba_times,
+                            "patches": patch_time, "floor_ms": floor_ms,
                             "fast_nms_max_abs_err": max_err, "ba_worst": worst,
-                            "card": card}))
+                            "patch_max_abs_err": patch_max_err, "card": card}))
             return 0
 
         phase(12, f"SLAM lap: {LAP_FRAMES} frames of {LAP_SHAPE[1]}x{LAP_SHAPE[0]}, "
@@ -1548,10 +1823,10 @@ def main(argv: list[str]) -> int:
         phase(15, "CLI: python -m jetracer_orbslam2_torch.run --synthetic 60 --json")
         cli_reports = phase_cli()
 
-        phase(16, "patch_gather time (CUDA events around a replayed CUDA graph of "
-                  "20 launches, median of 20; the canvas is L2-warm, as the "
-                  "pyramid leaves it)")
-        patch_time = phase_patch_kernel_time(patch_pyramid, patch_kp)
+        phase(16, "K4 time (CUDA events around a replayed CUDA graph of 20 "
+                  "launches, median of 20; the levels are L2-warm, as the "
+                  "pyramid leaves them)")
+        patch_time = phase_patch_kernel_time(patch_pyramid, patch_kp, floor_ms)
     torch.cuda.synchronize()
 
     k1 = times["odometry"]
@@ -1597,17 +1872,25 @@ def main(argv: list[str]) -> int:
             "bound_ms": at_path["bound_ms"],
             "bound_by": at_path["bound_by"],
             "library_ms": None,
+            "floor_ms": at_path["floor_ms"],
             "numbers_are": "per launch at (P 8, L 4096), the BA path's shape; "
                            "launches are the BA path's (local BA launched "
-                           f"{local_report['launches']} more)",
+                           f"{local_report['launches']} more); floor_ms is an "
+                           "empty kernel's launch through the same harness"
+                           + ("; serial_ms is the kernel K3 replaced (one thread "
+                              "a landmark), timed in the same run"
+                              if key == "K3" else ""),
+            **({"serial_ms": at_path["serial_ms"],
+                "equals_serial": worst.get("K3_equals_serial")}
+               if key == "K3" else {}),
             "shapes": ba_times[name],
         })
     kernels.append({
-        "name": "patch_gather",
+        "name": "extract_patches_fused",
         "route": "cuda",
         "source": "jetracer_orbslam2_torch/csrc/patch_gather.cu",
         "replaces": "scripts/experiment_pallas_patches.py:52",
-        "launches": slam_launches["patch_gather"],
+        "launches": slam_launches["extract_patches_fused"],
         "max_abs_err": patch_max_err,
         "exact_match": patch_all_equal,
         "ms": patch_time["ms"],
@@ -1615,10 +1898,19 @@ def main(argv: list[str]) -> int:
         "bound_ms": patch_time["bound_ms"],
         "bound_by": patch_time["bound_by"],
         "library_ms": patch_time["library_ms"],
-        "numbers_are": "per launch at the 640x480 canvas, K 1024, P 37; launches "
-                       "are the SLAM path's (one a frame); plain_ms is the whole "
-                       "extract_patches, library_ms one indexing call with its "
-                       "index prebuilt",
+        "pr4_route_ms": patch_time["pr4_route_ms"],
+        "pr4_route_launches": slam_launches["patch_gather"],
+        "canvas_kernel_ms": patch_time["canvas_kernel_ms"],
+        "floor_ms": patch_time["floor_ms"],
+        "numbers_are": "per launch = per frame on frame 0's 640x480 pyramid (4 "
+                       "levels), K 1024, P 37, read from the levels; launches "
+                       "are the SLAM path's (one a frame); pr4_route_ms is PR "
+                       "4's route (pack_levels + patch_origins + the canvas "
+                       "kernel, one graph) and canvas_kernel_ms its kernel "
+                       "alone, timed in the same run, pr4_route_launches the "
+                       "canvas kernel's launches on the SLAM path; plain_ms is "
+                       "the whole extract_patches, library_ms one indexing "
+                       "call with its index prebuilt",
         "shapes": [patch_time],
     })
     seconds = round(time.perf_counter() - t_start, 1)

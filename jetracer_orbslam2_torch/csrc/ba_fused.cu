@@ -24,7 +24,11 @@
 // Schur product costs about (6n)(6n+1)*3 f32 operations for the n poses that
 // observe it, one triangle of the symmetric product (5.4 k at n = 6) against
 // 4*(5P+4) bytes (176 B at P = 8): 117.3 M operations = 1.75 us at (P 8,
-// L 16,384) against 67 TFLOP/s.  ba_backsub is bound by bytes.
+// L 16,384) against 67 TFLOP/s.  ba_backsub is bound by bytes (3.87 MB at
+// (8, 16,384): 1.15 us), yet one thread a landmark walking all P poses made
+// it a chain of ~150 dependent operations and 5 loads a pose on 1-4 warps
+// an SM; its design (thread (pose, landmark), a 9-FMA fold) is at the
+// kernel.
 //
 // Design of ba_assemble (persistent split-K; not the TPU kernel's, which puts
 // 8 poses on the sublanes, a 1,024-landmark tile on the lanes and carries its
@@ -93,7 +97,11 @@ constexpr int MAX_KG = 8;           // column groups of the product
 constexpr int ACC = 42;             // sums of a product tile: 6x6 + 6
 constexpr int RED_WARPS = 16;       // ba_reduce: warps (block groups) per block
 constexpr int MAX_POSES = 16;
-constexpr int BS_THREADS = 128;     // ba_backsub: one thread per landmark
+constexpr int BS_LM = 32;           // ba_backsub: landmarks a block (lanes)
+constexpr int BS_WARPS = 8;         //   x pose warps
+constexpr int BS_THREADS = 32 * BS_WARPS;
+constexpr int BS_STAGE = 12;        //   staged floats a slot: Jl (9) | u (3)
+constexpr int BS_SERIAL_THREADS = 128;  // the former one-thread-a-landmark kernel
 
 // Row pitches of the staged columns: even, so that a pose's six entries are
 // read as three float2; at P = 8 and 16 a warp's stores (32 landmarks, one
@@ -578,6 +586,18 @@ ba_reduce_kernel(const float* __restrict__ work, int P, int nblocks,
     emit(P, e, acc, Hpp, S, bp, rhs);
 }
 
+// ba_backsub: thread (pose, landmark).  A block is BS_LM consecutive
+// landmarks (the lanes) x BS_WARPS pose warps; warp w takes the poses
+// p = w, w + BS_WARPS, so a warp's obs loads are one 128-byte row a channel.
+// Each (p, l) computes its planes (slot_planes, as ba_assemble does) and
+// u[r] = sum_i Jp[r][i] dxp[p][i], and stages Jl[r][0..2] | u[r] (12 floats)
+// in shared memory.  Then warp 0 folds, one thread a landmark, in the order
+// of the one-thread-a-landmark kernel below: e_j = bl_j, then
+// e_j -= Jl[r][j] u[r] over p = 0..P-1 and r = 0..2, then Hll^-1 and free.
+// The serial part is 9 FMAs a pose.  Every load comes first: the fold
+// warp's bl, Hll^-1 and free, every warp's point and its pose's obs (poses
+// and dxp are read in place, broadcast through L1; no barrier before the
+// pose loop).
 __global__ void __launch_bounds__(BS_THREADS)
 ba_backsub_kernel(const float* __restrict__ poses,
                   const float* __restrict__ points,
@@ -588,13 +608,80 @@ ba_backsub_kernel(const float* __restrict__ poses,
                   const float* __restrict__ bl,
                   const float* __restrict__ dxp,
                   int P, int L, float* __restrict__ dxl) {
+    __shared__ float s_stage[MAX_POSES * BS_STAGE * BS_LM];
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    const int l = blockIdx.x * BS_LM + lane;
+    const bool in_range = l < L;
+    const size_t Ls = (size_t)L;
+    float e0 = 0.0f, e1 = 0.0f, e2 = 0.0f, fr = 0.0f;
+    float h[9] = {};
+    if (w == 0 && in_range) {
+        e0 = bl[l]; e1 = bl[Ls + l]; e2 = bl[2 * Ls + l];
+#pragma unroll
+        for (int m = 0; m < 9; ++m) h[m] = hinv[m * Ls + l];
+        fr = lm_free[l];
+    }
+    float X0 = 0.0f, X1 = 0.0f, X2 = 0.0f;
+    if (in_range) { X0 = points[l]; X1 = points[Ls + l]; X2 = points[2 * Ls + l]; }
+    const float fx = scal[0], fy = scal[1], cx = scal[2], cy = scal[3];
+    const float huber = scal[5];
+    Planes q;
+    for (int p = w; p < P; p += BS_WARPS) {
+        slot_planes(obs, poses, P, L, p, l, in_range, X0, X1, X2,
+                    fx, fy, cx, cy, huber, q);
+        const float* d = dxp + 6 * p;
+        float* st = s_stage + (size_t)p * BS_STAGE * BS_LM + lane;
+#pragma unroll
+        for (int r = 0; r < 3; ++r) {
+            float u = 0.0f;
+#pragma unroll
+            for (int i = 0; i < 6; ++i) u += q.jp[r][i] * d[i];
+            st[(3 * r + 0) * BS_LM] = q.jl[r][0];
+            st[(3 * r + 1) * BS_LM] = q.jl[r][1];
+            st[(3 * r + 2) * BS_LM] = q.jl[r][2];
+            st[(9 + r) * BS_LM] = u;
+        }
+    }
+    __syncthreads();
+    if (w != 0 || !in_range) return;
+    for (int p = 0; p < P; ++p) {
+        const float* st = s_stage + (size_t)p * BS_STAGE * BS_LM + lane;
+#pragma unroll
+        for (int r = 0; r < 3; ++r) {
+            const float u = st[(9 + r) * BS_LM];
+            e0 -= st[(3 * r + 0) * BS_LM] * u;
+            e1 -= st[(3 * r + 1) * BS_LM] * u;
+            e2 -= st[(3 * r + 2) * BS_LM] * u;
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+        const float v = h[3 * j + 0] * e0 + h[3 * j + 1] * e1 + h[3 * j + 2] * e2;
+        dxl[j * Ls + l] = v * fr;
+    }
+}
+
+// The one-thread-a-landmark back-substitution that ba_backsub_kernel
+// replaced: each thread walks every pose in turn.  Kept as the yardstick
+// the new kernel is timed and compared against (chip_smoke.py phases 7
+// and 11); no path of the port launches it.
+__global__ void __launch_bounds__(BS_SERIAL_THREADS)
+ba_backsub_serial_kernel(const float* __restrict__ poses,
+                         const float* __restrict__ points,
+                         const float* __restrict__ obs,
+                         const float* __restrict__ lm_free,
+                         const float* __restrict__ scal,
+                         const float* __restrict__ hinv,
+                         const float* __restrict__ bl,
+                         const float* __restrict__ dxp,
+                         int P, int L, float* __restrict__ dxl) {
     __shared__ float s_pose[MAX_POSES * 12];
     __shared__ float s_dxp[MAX_POSES * 6];
     const int tid = threadIdx.x;
-    for (int i = tid; i < P * 12; i += BS_THREADS) s_pose[i] = poses[i];
-    for (int i = tid; i < P * 6; i += BS_THREADS) s_dxp[i] = dxp[i];
+    for (int i = tid; i < P * 12; i += BS_SERIAL_THREADS) s_pose[i] = poses[i];
+    for (int i = tid; i < P * 6; i += BS_SERIAL_THREADS) s_dxp[i] = dxp[i];
     __syncthreads();
-    const int l = blockIdx.x * BS_THREADS + tid;
+    const int l = blockIdx.x * BS_SERIAL_THREADS + tid;
     if (l >= L) return;
     const size_t Ls = (size_t)L;
     const float fx = scal[0], fy = scal[1], cx = scal[2], cy = scal[3];
@@ -699,9 +786,24 @@ extern "C" int ba_backsub_launch(
     const float* bl, const float* dxp, int P, int L, float* dxl,
     void* stream) {
     if (P < 1 || P > MAX_POSES || L < 1) return (int)cudaErrorInvalidValue;
-    const int nblocks = (L + BS_THREADS - 1) / BS_THREADS;
+    const int nblocks = (L + BS_LM - 1) / BS_LM;
     ba_backsub_kernel<<<nblocks, BS_THREADS, 0,
                         static_cast<cudaStream_t>(stream)>>>(
+        poses, points, obs, lm_free, scal, hinv, bl, dxp, P, L, dxl);
+    return (int)cudaGetLastError();
+}
+
+// The former back-substitution (one thread a landmark), same arguments and
+// output; for comparison only.
+extern "C" int ba_backsub_serial_launch(
+    const float* poses, const float* points, const float* obs,
+    const float* lm_free, const float* scal, const float* hinv,
+    const float* bl, const float* dxp, int P, int L, float* dxl,
+    void* stream) {
+    if (P < 1 || P > MAX_POSES || L < 1) return (int)cudaErrorInvalidValue;
+    const int nblocks = (L + BS_SERIAL_THREADS - 1) / BS_SERIAL_THREADS;
+    ba_backsub_serial_kernel<<<nblocks, BS_SERIAL_THREADS, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
         poses, points, obs, lm_free, scal, hinv, bl, dxp, P, L, dxl);
     return (int)cudaGetLastError();
 }

@@ -3,7 +3,8 @@
 Counterpart of `jetracer_orbslam2_tpu/models/frontend.py`: gray -> blur ->
 pyramid -> FAST+NMS (the hand-written kernel, once per frame for every level
 and both thresholds) -> grid NMS -> top-K -> patches (the hand-written gather
-kernel, once per frame) -> orientation -> BRIEF-256 -> backprojection.
+kernel, once per frame, straight from the pyramid levels) -> orientation
+-> BRIEF-256 -> backprojection.
 Eager PyTorch on one stream; nothing here reads a value back to the host.
 """
 
@@ -60,9 +61,9 @@ def extract_features(
     thresholds = [cfg.fast_threshold]
     if cfg.fast_min_threshold > 0.0:
         thresholds.append(cfg.fast_min_threshold)
+    levels = [img.contiguous() for img in levels]
     resp = fused_fast.fast_nms_pyramid(
-        [img.contiguous() for img in levels], thresholds,
-        cfg.fast_arc_length, cfg.fast_border)
+        levels, thresholds, cfg.fast_arc_length, cfg.fast_border)
 
     winners = []
     for i, primary in enumerate(resp[0]):

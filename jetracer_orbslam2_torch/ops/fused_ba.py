@@ -10,7 +10,10 @@ blocks an SM walk tiles of 32 landmarks (the next tile's observations copied
 into shared memory while the current one is reduced), keep their Hpp/bp and
 S/rhs sums in registers across tiles (the upper triangle of S only), and
 write ONE partial per block; a second, wide kernel adds the partials in
-block order.  Jacobians live in registers and shared memory only.
+block order.  `fused_backsub` runs a thread per (pose, landmark): 32
+landmarks x 8 pose warps a block stage each slot's Jl and Jp dxp, and one
+thread a landmark folds them in pose order.  Jacobians live in registers
+and shared memory only.
 
 What the port's kernels return differs from the TPU kernels' in layout only:
 `Hpp` comes as its (P, 6, 6) diagonal blocks (the TPU kernel returns the full

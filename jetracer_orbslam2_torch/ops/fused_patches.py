@@ -1,22 +1,28 @@
 """Keypoint patch extraction through the hand-written gather kernel, with the
-kernel's plain PyTorch version beside it.
+kernel's plain PyTorch versions beside it.
 
 Replaces the TPU kernel `scripts/experiment_pallas_patches.py::make_kernel` /
 `pallas_extract` (a Pallas kernel that slices an aligned window per keypoint
-out of the VMEM-resident canvas and rolls it into place).  The CUDA source is
-`jetracer_orbslam2_torch/csrc/patch_gather.cu`: one block per keypoint,
-consecutive threads on consecutive output elements.
+out of the VMEM-resident packed canvas and rolls it into place).  The CUDA
+source is `jetracer_orbslam2_torch/csrc/patch_gather.cu`; its header gives
+the design.  It has two entries that share one store loop (a flat run of
+16-byte stores over the (K, P, P) output):
 
-Contract: `patch_gather(canvas (R, W) f32, ys (K,) i32, xs (K,) i32, P)` gives
-`out[k, i, j] = canvas[ys[k] + i, xs[k] + j]`, reads clamped into the canvas.
-`extract_patches_fused(levels, kp, P)` packs the pyramid into the canvas,
-turns each keypoint into the canvas position of its window's first pixel and
-calls `patch_gather`; it computes `ops/patches.extract_patches` bit for bit
-(a copy of pixels) wherever every level holds a whole patch.
+- `extract_patches_fused(levels, kp, P)`, the front-end's path: one launch a
+  frame that reads the windows straight from the pyramid levels (a by-value
+  table of up to 8 level pointers) and computes each keypoint's window
+  itself.  No canvas is packed and no origin is computed outside the kernel.
+  It equals `ops/patches.extract_patches(levels, kp, P)` bit for bit, a
+  keypoint on a level smaller than the patch included (its window is clamped
+  into the concatenated levels, as the plain version does).
+- `patch_gather(canvas (R, W) f32, ys (K,) i32, xs (K,) i32, P)`, the TPU
+  kernel's own contract: `out[k, i, j] = canvas[ys[k] + i, xs[k] + j]`, reads
+  clamped per axis into the canvas.  `patches.pack_levels` and
+  `patch_origins` build its inputs; the front-end no longer calls them.
 
-Bound on the card: bytes, K*P*P*4 written once and the canvas and origins read
-once (7.9 MB at K = 1024, P = 37 on the 900 x 640 canvas, about 2.4 us at
-3.35 TB/s); nothing but addresses is computed.
+Bound on the card: bytes, the output written once and each input read once
+(7.25 MB at 640x480, four levels, K = 1024, P = 37 by the levels entry:
+about 2.2 us at 3.35 TB/s); nothing but addresses is computed.
 """
 
 from __future__ import annotations
@@ -35,18 +41,24 @@ from jetracer_orbslam2_torch.utils.consts import const_table
 Tensor = torch.Tensor
 
 _LIB_NAME = "patch_gather"
+# Must equal MAX_LEVELS in csrc/patch_gather.cu.
+MAX_LEVELS = 8
 
 
-def _launcher():
+def _library():
     lib = cuda_build.load_library(_LIB_NAME)
-    fn = lib.patch_gather_launch
-    if fn.argtypes is None:
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+    if lib.patch_gather_launch.argtypes is None:
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.patch_gather_launch.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
+        lib.patch_gather_launch.restype = i32
+        lib.patch_levels_launch.argtypes = (
+            [ptr] * 3 + [i32] + [ptr] * 3 + [i32] * 2 + [ptr])
+        lib.patch_levels_launch.restype = i32
+        lib.patch_max_levels.restype = i32
+        if lib.patch_max_levels() != MAX_LEVELS:
+            raise RuntimeError("MAX_LEVELS differs between ops/fused_patches.py "
+                               "and csrc/patch_gather.cu")
+    return lib
 
 
 def patch_gather_reference(canvas: Tensor, ys: Tensor, xs: Tensor,
@@ -96,7 +108,7 @@ def patch_gather(canvas: Tensor, ys: Tensor, xs: Tensor, patch_size: int) -> Ten
                       device=canvas.device)
     if k == 0:
         return out
-    launch = _launcher()
+    launch = _library().patch_gather_launch
     if canvas.device.index != torch.cuda.current_device():
         raise ValueError(f"canvas lives on {canvas.device}, the current CUDA "
                          f"device is {torch.cuda.current_device()}")
@@ -131,10 +143,74 @@ def patch_origins(levels: List[Tensor], offsets, kp: Keypoints,
             (xc - r).to(torch.int32).contiguous())
 
 
+def _check_levels(levels: List[Tensor], kp: Keypoints,
+                  patch_size: int) -> torch.device:
+    if not 1 <= len(levels) <= MAX_LEVELS:
+        raise ValueError(f"1..{MAX_LEVELS} levels, got {len(levels)}")
+    dev = levels[0].device
+    for img in levels:
+        if img.dim() != 2 or img.numel() == 0:
+            raise ValueError("a level must be a non-empty (H, W), got shape "
+                             f"{tuple(img.shape)}")
+        if img.dtype != torch.float32:
+            raise TypeError(f"levels must be float32, got {img.dtype}")
+        if not img.is_contiguous():
+            raise ValueError("levels must be contiguous")
+        if img.device != dev:
+            raise ValueError(f"levels lie on {img.device} and {dev}")
+    if patch_size < 1:
+        raise ValueError("patch_size must be >= 1")
+    level, xy = kp.level, kp.xy_level
+    if level.dim() != 1 or xy.shape != (level.shape[0], 2):
+        raise ValueError(f"kp.level must be (K,) and kp.xy_level (K, 2), got "
+                         f"{tuple(level.shape)} and {tuple(xy.shape)}")
+    for name, v in (("kp.level", level), ("kp.xy_level", xy)):
+        if v.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {v.dtype}")
+        if not v.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if v.device != dev:
+            raise ValueError(f"{name} lies on {v.device}, the levels on {dev}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and dev.index != torch.cuda.current_device():
+        raise ValueError(f"levels live on {dev}, the current CUDA device is "
+                         f"{torch.cuda.current_device()}")
+    return dev
+
+
 def extract_patches_fused(levels: List[Tensor], kp: Keypoints,
                           patch_size: int) -> Tensor:
-    """(K, P, P) float32 patches centred on each keypoint (level-local):
-    `ops/patches.extract_patches` through the gather kernel."""
-    canvas, offsets = patches.pack_levels(levels)
-    ys, xs = patch_origins(levels, offsets, kp, patch_size)
-    return patch_gather(canvas.contiguous(), ys, xs, patch_size)
+    """(K, P, P) float32 patches centred on each keypoint (level-local),
+    read straight from the pyramid levels: `ops/patches.extract_patches` bit
+    for bit.  levels: 1..8 contiguous (H_i, W_i) float32 on one device;
+    kp.level (K,) and kp.xy_level (K, 2) int32, contiguous, on that device.
+
+    CUDA tensors: ONE kernel launch on the current stream (no sync, output
+    from `torch.empty`, no other op); raises if it does not build, load or
+    launch.  CPU tensors: the plain version, `patches.extract_patches`.
+    """
+    levels = list(levels)
+    dev = _check_levels(levels, kp, patch_size)
+    if dev.type == "cpu":
+        return patches.extract_patches(levels, kp, patch_size)
+    k = kp.level.shape[0]
+    out = torch.empty((k, patch_size, patch_size), dtype=torch.float32,
+                      device=dev)
+    if k == 0:
+        return out
+    launch = _library().patch_levels_launch
+    n = len(levels)
+    imgs = (ctypes.c_void_p * n)(*[img.data_ptr() for img in levels])
+    hs = (ctypes.c_int * n)(*[img.shape[0] for img in levels])
+    ws = (ctypes.c_int * n)(*[img.shape[1] for img in levels])
+    err = launch(imgs, hs, ws, n, kp.level.data_ptr(), kp.xy_level.data_ptr(),
+                 out.data_ptr(), k, int(patch_size),
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"patch_levels kernel launch failed: cudaError {err}")
+    extract_patches_fused.launches += 1
+    return out
+
+
+extract_patches_fused.launches = 0

@@ -7,8 +7,12 @@ is flattened into one 1-D buffer and each patch pixel is fetched by one
 advanced-index gather.  Values are pure copies of pixels, so the result is
 bit-exact whatever the method.
 
-`extract_patches` is the plain version of the hand-written gather kernel
-(`ops/fused_patches.py`), which reads the packed canvas `pack_levels` builds.
+`extract_patches` is the plain version of the hand-written gather kernel's
+levels entry (`ops/fused_patches.extract_patches_fused`), which the front-end
+calls: it reads the pyramid levels themselves, so the main path packs no
+canvas.  `pack_levels` builds the packed canvas of the TPU kernel's own
+contract, whose counterpart is the kernel's canvas entry
+(`fused_patches.patch_gather`); it stays for that entry and its tests.
 """
 
 from __future__ import annotations

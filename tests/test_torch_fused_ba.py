@@ -109,6 +109,29 @@ def test_wrappers_run_the_plain_versions_on_cpu_tensors():
                       fused_ba.fused_backsub.launches)
 
 
+@pytest.mark.parametrize("P,L", [(1, 40), (16, 40), (8, 1)])
+def test_backsub_plain_version_matches_the_dense_back_substitution(P, L):
+    """fused_backsub's plain version (the yardstick of K3 on the card) gives
+    the dense route's dxl = Hll^-1 (bl - G^T dxp) of `ba._solve_schur`,
+    masked by lm_free, on the pose step that solve returns.  Every landmark
+    is optimised, so a single pose (where each landmark has one
+    observation) still has a landmark step to compare."""
+    inp = [t(a) for a in kernel_inputs(40 + P, P, L, 1.0, True)]
+    inp[3] = torch.ones_like(inp[3])
+    hll_inv, bl = fused_ba.fused_normal_schur_reference(*inp)[4:]
+    poses_cw, dense, intr, lam, huber = fused_ba._unpack(inp[0], inp[2], inp[4])
+    Hpp, Hll, G, bp, bl_dense, _ = tba.dense_normal_equations(
+        poses_cw, inp[1], dense, dense.w, intr, huber)
+    free = torch.ones(P, dtype=torch.bool)
+    dxp, dxl, ok = tba._solve_schur(Hpp, Hll, G, bp, bl_dense, lam, free,
+                                    inp[3][0])
+    assert bool(ok) and float(dxp.abs().max()) > 0.0
+    got = fused_ba.fused_backsub_reference(*inp, hll_inv, bl, dxp.contiguous())
+    want = dxl * inp[3]
+    assert got.shape == (3, L)
+    close(n(got), n(want), rtol=1e-5, atol=1e-6 * float(want.abs().max()))
+
+
 def test_plain_versions_run_in_float64():
     inp = [t(a).double() for a in kernel_inputs(2, 8, 50, 1e-3, True)]
     out = fused_ba.fused_normal_schur_reference(*inp)

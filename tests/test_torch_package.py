@@ -321,8 +321,9 @@ def test_slam_entry_points_default_to_the_card():
 
 def test_patch_kernel_source_and_wrapper_contract():
     """K4 is CUDA C++ with a plain C interface, built at first use and never
-    at import; its wrapper counts launches in one place, leaves the CPU to the
-    plain version and takes no other device."""
+    at import; each of its two entries (levels, canvas) counts its launches
+    in one place, leaves the CPU to the plain version and takes no other
+    device; the front-end calls the levels entry and packs no canvas."""
     from jetracer_orbslam2_torch.ops import fused_patches
 
     path = cuda_build.library_path("patch_gather")
@@ -330,14 +331,16 @@ def test_patch_kernel_source_and_wrapper_contract():
     assert "patch_gather" not in cuda_build.build_info or torch.cuda.is_available()
     src = (PORT / "csrc" / "patch_gather.cu").read_text()
     assert 'extern "C" int patch_gather_launch(' in src
+    assert 'extern "C" int patch_levels_launch(' in src
     for banned in ("torch/extension.h", "#include <ATen", "atomicAdd", "cublas"):
         assert banned not in src, banned
     wrapper = (PORT / "ops" / "fused_patches.py").read_text()
     assert "torch.compile" not in wrapper and "import triton" not in wrapper
-    assert wrapper.count(".launches += 1") == 1
+    assert wrapper.count(".launches += 1") == 2         # one per entry
     assert "except" not in wrapper
     frontend = (PORT / "models" / "frontend.py").read_text()
     assert "fused_patches.extract_patches_fused(" in frontend
+    assert "pack_levels" not in frontend and "patch_origins" not in frontend
     assert "patches.extract_patches(" not in frontend.replace(
         "fused_patches.extract_patches_fused(", "")
     # a tensor that lies neither on the CPU nor on a CUDA device is refused:

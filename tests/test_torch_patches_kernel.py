@@ -1,5 +1,7 @@
-"""The patch-gather kernel's plain version and wrapper (CPU) against the JAX
-package's `patches.extract_patches`, bit for bit.
+"""The patch-gather kernel's plain versions and wrappers (CPU) against the
+JAX package's `patches.extract_patches`, bit for bit: the levels entry the
+front-end calls (`extract_patches_fused`) and the canvas entry of the TPU
+kernel's contract (`patch_gather`).
 
 The TPU kernel itself (`scripts/experiment_pallas_patches.py`) runs only on a
 TPU (`pltpu.roll`, scalar prefetch); that script holds it `assert_array_equal`
@@ -18,6 +20,7 @@ from jetracer_orbslam2_tpu.ops import patches as jpatches
 from jetracer_orbslam2_tpu.ops import preprocess as jpre
 
 from jetracer_orbslam2_torch.ops import fused_patches, patches as tpatches
+from jetracer_orbslam2_torch.ops import preprocess as tpre
 from jetracer_orbslam2_torch.ops.nms import Keypoints
 
 from _torch_port_util import image_u8, n, t
@@ -63,14 +66,16 @@ def test_wrapper_on_cpu_matches_jax_extract_patches(shape, levels, k):
     want = np.asarray(jpatches.extract_patches(lv, kp, P))
     levels_t, kp_t = [t(n(im)) for im in lv], _torch_keypoints(kp)
     assert int(kp_t.valid.sum()) > 10
-    before = fused_patches.patch_gather.launches
+    before = (fused_patches.extract_patches_fused.launches,
+              fused_patches.patch_gather.launches)
     got = fused_patches.extract_patches_fused(levels_t, kp_t, P)
     assert got.shape == (k, P, P) and got.dtype == torch.float32
     eq(n(got), want)
     # the plain version of the whole function agrees too
     eq(n(tpatches.extract_patches(levels_t, kp_t, P)), want)
     # on the CPU no kernel is launched, so nothing is counted
-    assert fused_patches.patch_gather.launches == before
+    assert (fused_patches.extract_patches_fused.launches,
+            fused_patches.patch_gather.launches) == before
 
 
 def test_pack_levels_and_origins_match_the_tpu_script():
@@ -123,3 +128,93 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
     }[bad]
     with pytest.raises((TypeError, ValueError)):
         fused_patches.patch_gather(*args)
+
+
+@pytest.mark.parametrize("shape,levels,k", [
+    ((240, 320), 3, 512), ((120, 160), 2, 256), ((96, 200), 1, 64)])
+def test_canvas_route_on_cpu_matches_jax_extract_patches(shape, levels, k):
+    """The canvas entry (the TPU kernel's contract) through pack_levels and
+    patch_origins, the route the front-end took before it read the levels."""
+    lv, kp = _jax_keypoints(shape, levels, k, seed=levels + 10)
+    levels_t, kp_t = [t(n(im)) for im in lv], _torch_keypoints(kp)
+    canvas, offsets = tpatches.pack_levels(levels_t)
+    ys, xs = fused_patches.patch_origins(levels_t, offsets, kp_t, P)
+    got = fused_patches.patch_gather(canvas.contiguous(), ys, xs, P)
+    eq(n(got), np.asarray(jpatches.extract_patches(lv, kp, P)))
+
+
+def _numpy_levels_gather(levels, level, xy, p):
+    """The levels kernel's algorithm (csrc/patch_gather.cu) in numpy: the
+    centre clamp, then the whole window read from the keypoint's level when
+    it lies inside the level's flat range, else each pixel's flat index
+    clamped into the concatenation and looked up in the prefix table."""
+    r = p // 2
+    flat = np.concatenate([im.reshape(-1) for im in levels])
+    sizes = [im.size for im in levels]
+    start = np.concatenate([[0], np.cumsum(sizes)])
+    out = np.empty((len(level), p, p), np.float32)
+    for k, (lvl, (x, y)) in enumerate(zip(level, xy)):
+        h, w = levels[lvl].shape
+        yc = min(max(int(y), r), h - 1 - r)
+        xc = min(max(int(x), r), w - 1 - r)
+        base = start[lvl] + (yc - r) * w + (xc - r)
+        idx = base + np.arange(p)[:, None] * w + np.arange(p)[None, :]
+        if base >= start[lvl] and idx[-1, -1] < start[lvl + 1]:
+            out[k] = levels[lvl].reshape(-1)[idx - start[lvl]]
+            continue
+        idx = np.clip(idx, 0, flat.size - 1)
+        m = np.searchsorted(start[1:], idx, side="right")     # level holding idx
+        for mm in np.unique(m):
+            sel = m == mm
+            out[k][sel] = levels[mm].reshape(-1)[idx[sel] - start[mm]]
+    return out
+
+
+@pytest.mark.parametrize("on_level", [4, None])
+def test_levels_entry_on_a_level_smaller_than_the_patch(on_level):
+    """Five levels of 120x160: the last ones are smaller than the patch, so
+    a keypoint there leaves its level; the levels entry (its plain version on
+    the CPU) reads the clamped concatenation as the kernel's algorithm does."""
+    rng = np.random.default_rng(3)
+    levels_t = tpre.build_pyramid(tpre.gaussian_blur_3x3(t(image_u8((120, 160), 4))), 5)
+    assert min(im.shape[0] for im in levels_t) < P
+    k = 200
+    lvl = (np.full(k, on_level) if on_level is not None
+           else rng.integers(0, 5, k)).astype(np.int32)
+    hw = np.array([tuple(im.shape) for im in levels_t])[lvl]
+    xy = np.stack([rng.integers(-40, hw[:, 1] + 40),
+                   rng.integers(-40, hw[:, 0] + 40)], -1).astype(np.int32)
+    kp = Keypoints(xy=t(xy.astype(np.float32)), xy_level=t(xy), level=t(lvl),
+                   score=torch.ones(k), valid=torch.zeros(k, dtype=torch.bool))
+    got = fused_patches.extract_patches_fused(levels_t, kp, P)
+    eq(n(got), n(tpatches.extract_patches(levels_t, kp, P)))
+    eq(n(got), _numpy_levels_gather([n(im) for im in levels_t], lvl, xy, P))
+
+
+def test_levels_entry_with_no_keypoints():
+    levels_t = [t(image_u8((60, 80), 1))]
+    none = Keypoints(xy=torch.zeros(0, 2), xy_level=torch.zeros(0, 2, dtype=torch.int32),
+                     level=torch.zeros(0, dtype=torch.int32), score=torch.zeros(0),
+                     valid=torch.zeros(0, dtype=torch.bool))
+    out = fused_patches.extract_patches_fused(levels_t, none, P)
+    assert out.shape == (0, P, P) and out.dtype == torch.float32
+
+
+@pytest.mark.parametrize("bad", ["no_levels", "nine_levels", "level_dtype",
+                                 "xy_dtype", "other_device"])
+def test_levels_entry_refuses_what_the_kernel_does_not_take(bad):
+    levels_t = [t(image_u8((60, 80), 1)), t(image_u8((30, 40), 2))]
+    k = 4
+    kp = Keypoints(xy=torch.zeros(k, 2), xy_level=torch.full((k, 2), 20, dtype=torch.int32),
+                   level=torch.zeros(k, dtype=torch.int32), score=torch.zeros(k),
+                   valid=torch.ones(k, dtype=torch.bool))
+    args = {
+        "no_levels": ([], kp),
+        "nine_levels": (levels_t * 4 + levels_t[:1], kp),
+        "level_dtype": ([levels_t[0].double(), levels_t[1]], kp),
+        "xy_dtype": (levels_t, kp._replace(xy_level=kp.xy_level.long())),
+        # one launch takes every level's pointer: they must share a device
+        "other_device": ([levels_t[0], levels_t[1].to("meta")], kp),
+    }[bad]
+    with pytest.raises((TypeError, ValueError)):
+        fused_patches.extract_patches_fused(*args, P)
