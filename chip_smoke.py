@@ -11,7 +11,9 @@ adjustment at 8 poses x 4,096 landmarks, windowed BA over a keyframe map at
 its full capacity (256 keyframe slots, 16,384 landmarks, 65,536
 observations), the pose graph, and the full SLAM system (`slam_scan`, `Slam`,
 the CLI's default mode) with loop closure: a 126-frame lap at 240x180 and
-1,200 frames of 640x480 over three laps.  It builds the hand-written CUDA
+1,200 frames of 640x480 over three laps; the stereo SLAM system over 120
+stereo pairs of 640x480 (an arc and a lap); and the CLI on the committed TUM,
+EuRoC and KITTI fixtures.  It builds the hand-written CUDA
 kernels from the sources in this checkout, holds each against its plain
 PyTorch version, shows that each path launched its kernels, and times them.
 
@@ -40,12 +42,13 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
                   launch a frame at one and two thresholds, and of the old
                   schedule (one launch per level and threshold) in the same
                   run; the plain version and the bound; the one-level launch
-                  per level shape
+                  per level shape; a stereo frame's two 4-level pyramids by
+                  one launch each against one launch of all 8 levels
+                  (torch.equal outputs), in the same run
    7 K2/K3 check  fused_normal_schur and fused_backsub vs their plain
                   versions at every listed (P, L), against a float64 truth;
                   bit-identical between two launches and between two replays
-                  of a captured CUDA graph; whether K3 equals the kernel it
-                  replaced, bit for bit
+                  of a captured CUDA graph
    8 BA path      bundle_adjust, 8 x 4,096, 10 iterations through the
                   kernels: trace, gauge, launches, agreement with the dense
                   route; ms per LM iteration of both routes
@@ -53,8 +56,7 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
                   full-size map, then local_ba by both routes
   10 pose graph   a drifted ring closes; a second run gives the same poses
   11 K2/K3 time   device time per launch beside the counted bound, the
-                  floor and the plain version's time; K3 beside the kernel
-                  it replaced, in the same run
+                  floor and the plain version's time
   12 SLAM lap     126 frames of 240x180 around one lap with 2 %.z^2 depth
                   noise: slam_scan twice (bit-identical) and Slam on the same
                   frames must agree; over three draws of the noise every lap
@@ -72,8 +74,22 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
                   the others), the canvas kernel, PR 4's whole route, the plain version,
                   the one indexing call that computes the same, a copy of
                   the output's bytes, the floor and the bound, in one run
+  17 stereo check frontend_stereo on a 640x480 pair, card vs CPU (keypoints
+                  torch.equal, descriptors, disparity-derived points); one
+                  call under set_sync_debug_mode("error"); launches a call
+                  (one K1 launch for both pyramids, torch.equal to one launch
+                  an image; at 5 levels, launches of 8 and 2 levels)
+  18 stereo path  slam_scan over 120 stereo pairs of 640x480, an arc and a
+                  lap of 105 (bench.py's stereo rows): ATE, tracked fraction,
+                  loops and keyframes as the JAX package reaches them, every
+                  kernel's launch count; frames/s
+  19 datasets     run.main --dataset on every fixture (TUM registered and
+                  not, EuRoC rectified and distorted, KITTI; whole and
+                  --chunked 4) on the card with the CPU tests' bars; which
+                  PNG decoder served; align_depth_to_color card vs CPU
 Kernel times are CUDA events around a replayed CUDA graph of launches.  Then
-the paths' reports, one JSON line `{"kernels": [...]}`, and as the last line
+the paths' reports (the stereo path's and the datasets' on one line), one
+JSON line `{"kernels": [...]}` (launches: the stereo path's), and as the last line
 `{"ok": true, "device": {...}}`.
 
 Imports torch and the port only: no JAX, nothing of the JAX package.
@@ -82,6 +98,7 @@ Imports torch and the port only: no JAX, nothing of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -96,7 +113,7 @@ F32_OPS_PER_S = 67e12
 FAST_THRESHOLD, FAST_ARC, FAST_BORDER = 13.0, 12, 19
 SLAM_FAST_MIN_THRESHOLD = 7.0   # the SLAM path's second FAST threshold
 N_FRAMES = 120
-N_PHASES = 16
+N_PHASES = 19
 PATCH = 37
 
 # SLAM path at full width (the JAX package's long-sequence benchmark): frames,
@@ -109,6 +126,19 @@ LAP_NOISE_SEEDS = (0, 1, 2)
 # median over the noise draws; the JAX package gives 44.5 cm on the first draw
 # when it runs on a CPU (scripts/compare_lap_cpu.py), + 30 %
 LAP_ATE_M = 0.58
+
+# stereo path (bench.py's stereo rows, nothing cut): frames, lap length,
+# baseline, K1 launches a stereo frame (both pyramids in one launch)
+STEREO_FRAMES, STEREO_LAP, STEREO_BASELINE, STEREO_K1_PER_FRAME = 120, 105, 0.11, 1
+# bench.py's bars, TPU readings; the JAX package on a CPU gives 2.88 cm (arc)
+# and 3.91 cm (lap) on these frames (scripts/compare_stereo_cpu.py), so the
+# bars stand.
+STEREO_ATE_M = {"arc": 0.15, "lap": 0.21}
+# (loops, keyframes) of the JAX package on a CPU on these frames
+# (scripts/compare_stereo_cpu.py): the card must reach the same outcome.  No
+# loop closes on the lap in either package (bench.py's comment reports one
+# on the TPU; ROADMAP.md queue 3).
+STEREO_OUTCOME = {"arc": (0, 4), "lap": (0, 12)}
 
 # BA path: the standalone problem size, and the keyframes of the local-BA map
 BA_POSES, BA_LANDMARKS, BA_OBS_PER_LM, BA_ITERS = 8, 4096, 6, 10
@@ -384,12 +414,13 @@ def phase_main_path(argv, args, source, dev):
     from jetracer_orbslam2_torch import run
     from jetracer_orbslam2_torch.ops import fused_fast, fused_patches
 
-    frames, n, hw, intr, gt = source
+    frames, n, hw, intr, baseline, gt, cal = source
     fused_fast.fast_nms_pyramid.launches = 0
     fused_patches.extract_patches_fused.launches = 0
     fused_patches.patch_gather.launches = 0
     with counting_calls() as calls:
-        report, poses = run._run_odometry(args, frames, n, hw, intr, dev)
+        report, poses = run._run_odometry(args, frames, n, hw, intr, baseline,
+                                          cal, dev)
     launches = fused_fast.fast_nms_pyramid.launches
     if fused_patches.extract_patches_fused.launches != n:
         raise SystemExit(f"FAIL: extract_patches_fused launches "
@@ -414,7 +445,8 @@ def phase_main_path(argv, args, source, dev):
 
     # constant-memory streaming on the same frames: the same poses
     chunk_args = run.build_argparser().parse_args(argv + ["--chunked", "32"])
-    c_report, c_poses = run._run_odometry(chunk_args, frames, n, hw, intr, dev)
+    c_report, c_poses = run._run_odometry(chunk_args, frames, n, hw, intr,
+                                          baseline, cal, dev)
     say("  main path (--chunked 32): " + json.dumps(c_report))
     if not np.array_equal(c_poses, poses):
         raise SystemExit("FAIL: --chunked 32 poses differ from the whole scan "
@@ -425,7 +457,8 @@ def phase_main_path(argv, args, source, dev):
     stop = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    w_report, w_poses = run._run_odometry(args, frames, n, hw, intr, dev)
+    w_report, w_poses = run._run_odometry(args, frames, n, hw, intr, baseline,
+                                          cal, dev)
     stop.record()
     stop.synchronize()
     ms = start.elapsed_time(stop)
@@ -606,29 +639,6 @@ def _errors(name, got, plain, truth):
     return err_k, err_p, float((got - plain).abs().max()), scale
 
 
-def backsub_serial(poses_flat, points, obs, lm_free, scalars, hll_inv, bl,
-                   dxp):
-    """dxl by the one-thread-a-landmark kernel that K3's redesign replaced
-    (`ba_backsub_serial_launch` in csrc/ba_fused.cu, PR 4's arithmetic):
-    the yardstick K3 is compared and timed against.  No path launches it."""
-    import ctypes
-    import torch
-    from jetracer_orbslam2_torch.utils import cuda_build
-
-    fn = cuda_build.load_library("ba_fused").ba_backsub_serial_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
-        fn.restype = ctypes.c_int
-    P, L = poses_flat.shape[0], points.shape[1]
-    dxl = torch.empty((3, L), dtype=torch.float32, device=points.device)
-    err = fn(*(x.data_ptr() for x in (poses_flat, points, obs, lm_free, scalars,
-                                      hll_inv, bl, dxp)),
-             P, L, dxl.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise SystemExit(f"FAIL: the serial back-substitution did not launch ({err})")
-    return dxl
-
-
 def check_ba_kernels(label: str, inputs, worst: dict) -> None:
     """K2 and K3 on `inputs` against their plain versions; raises SystemExit
     on a disagreement or on two launches that differ."""
@@ -666,21 +676,16 @@ def check_ba_kernels(label: str, inputs, worst: dict) -> None:
     k3_in = (*inputs, got[4], got[5], dxp)
     dxl = fused_ba.fused_backsub(*k3_in)
     dxl_again = fused_ba.fused_backsub(*k3_in)
-    dxl_serial = backsub_serial(*k3_in)
     dxl_plain = fused_ba.fused_backsub_reference(*k3_in)
     dxl_truth = fused_ba.fused_backsub_reference(*as64(k3_in))
     torch.cuda.synchronize()
     if not torch.equal(dxl, dxl_again):
         raise SystemExit(f"FAIL: two launches of fused_backsub differ at {label}")
     rows.append(("K3", "dxl") + _errors("dxl", dxl, dxl_plain, dxl_truth))
-    same_as_serial = torch.equal(dxl, dxl_serial)
-    worst["K3_equals_serial"] = worst.get("K3_equals_serial", True) and same_as_serial
 
     n_free = int(inputs[3].sum())
     say(f"  {label}: P {P}, L {L}, free landmarks {n_free}, "
-        f"lambda {float(inputs[4][0, 4]):g}; K3 dxl equal to PR 4's kernel "
-        f"(one thread a landmark): {same_as_serial} (largest difference "
-        f"{float((dxl - dxl_serial).abs().max()):.3e})")
+        f"lambda {float(inputs[4][0, 4]):g}")
     for kern, name, err_k, err_p, diff, scale in rows:
         tol = TOL_FACTOR * err_p + TOL_FLOOR
         good = np.isfinite(err_k) and err_k <= tol
@@ -914,7 +919,7 @@ def phase_local_ba(args, source, poses, dev) -> dict:
     from jetracer_orbslam2_torch.models.frontend import frontend_gray_depth
     from jetracer_orbslam2_torch.ops import geometry as geo
 
-    frames, n, hw, intr, _ = source
+    frames, n, hw, intr = source[:4]
     fcfg = FrontendConfig(height=hw[0], width=hw[1], num_levels=args.levels,
                           max_keypoints=args.max_keypoints,
                           fast_min_threshold=args.fast_min_threshold)
@@ -1096,8 +1101,8 @@ def ba_work(inputs) -> dict:
 
 def phase_ba_kernel_times(dev, floor_ms: float) -> dict:
     """K2 and K3 at (8, 4096) and (8, 16384): device ms per launch, the plain
-    version's, and the bound counted from the inputs; K3 in turns with the
-    kernel it replaced (new, old, old, new), beside the empty-kernel floor."""
+    version's, and the bound counted from the inputs, beside the empty-kernel
+    floor."""
     import numpy as np
     import torch
     from jetracer_orbslam2_torch.ops import fused_ba
@@ -1118,10 +1123,6 @@ def phase_ba_kernel_times(dev, floor_ms: float) -> dict:
                  fused_ba.fused_backsub_reference, k3_in)):
             before = fn.launches
             readings = [time_launches(lambda: fn(*args_), reps=20, batch=20)]
-            if name == "fused_backsub":
-                serial = [time_launches(lambda: backsub_serial(*args_),
-                                        reps=20, batch=20) for _ in range(2)]
-                readings.append(time_launches(lambda: fn(*args_), reps=20, batch=20))
             assert fn.launches > before
             ms = min(readings)
             plain_ms = time_launches(lambda: ref(*args_), reps=10, batch=2)
@@ -1133,15 +1134,8 @@ def phase_ba_kernel_times(dev, floor_ms: float) -> dict:
                    "bound_ms": max(bytes_ms, ops_ms),
                    "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                    "bytes": n_bytes, "operations": n_ops}
-            extra = ""
-            if name == "fused_backsub":
-                row["serial_ms"] = min(serial)
-                row["serial_readings_ms"] = serial
-                extra = (f" ({' / '.join(f'{r * 1e3:.3f}' for r in readings)} us); "
-                         f"the kernel it replaced (one thread a landmark) "
-                         f"{' / '.join(f'{r * 1e3:.3f}' for r in serial)} us")
             out[name].append(row)
-            say(f"  {name} (P 8, L {L}): kernel {ms:.5f} ms on the card{extra}; "
+            say(f"  {name} (P 8, L {L}): kernel {ms:.5f} ms on the card; "
                 f"plain {plain_ms:.4f} ms, floor {floor_ms * 1e3:.3f} us, bound "
                 f"{row['bound_ms']:.6f} ms ({row['bound_by']}: {n_bytes} B, "
                 f"{n_ops} f32 ops)")
@@ -1447,21 +1441,27 @@ def _lap(shape, n_frames, lap_frames, noise, noise_seed, dev):
     return seq, seq.depth * (1.0 + noise * seq.depth * rnd)
 
 
-def _scan(seq, depth, cfg):
-    """init_scan_state + slam_scan + one fetch -> (final, out, poses, ATE m)."""
+def _scan_pair(firsts, seconds, intr, gt, cfg):
+    """init_scan_state + slam_scan over (first, second) stacks (gray + depth,
+    or left + right) + one fetch -> (final, out, poses, ATE m)."""
     import numpy as np
     import torch
     from jetracer_orbslam2_torch.evaluation import ate
     from jetracer_orbslam2_torch.models import slam_scan as ss
 
-    state = ss.init_scan_state(seq.gray[0], depth[0], seq.intrinsics, cfg)
-    final, out = ss.slam_scan(state, seq.gray[1:], depth[1:], seq.intrinsics, cfg)
+    state = ss.init_scan_state(firsts[0], seconds[0], intr, cfg)
+    final, out = ss.slam_scan(state, firsts[1:], seconds[1:], intr, cfg)
     poses = np.concatenate([final.m.kf_pose[:1].cpu().numpy(),
                             ss.compose_trajectory(final, out)])
-    if not np.isfinite(poses).all() or poses.shape != (seq.gray.shape[0], 4, 4):
+    if not np.isfinite(poses).all() or poses.shape != (firsts.shape[0], 4, 4):
         raise SystemExit("FAIL: slam_scan's poses are not finite (N, 4, 4)")
-    rmse = float(ate(torch.from_numpy(poses), seq.poses.cpu()).rmse)
+    rmse = float(ate(torch.from_numpy(poses), gt.cpu()).rmse)
     return final, out, poses, rmse
+
+
+def _scan(seq, depth, cfg):
+    """init_scan_state + slam_scan + one fetch -> (final, out, poses, ATE m)."""
+    return _scan_pair(seq.gray, depth, seq.intrinsics, seq.poses, cfg)
 
 
 def _check_obs_prefix(m, what: str) -> None:
@@ -1698,6 +1698,377 @@ def phase_cli() -> list:
     return reports
 
 
+# ---------------------------------------------------------------------------
+# stereo and datasets
+# ---------------------------------------------------------------------------
+
+def _stereo_pyramids(dev):
+    """Frame 0 of the stereo arc at 640x480 on the card, and the 4-level
+    pyramids of its left and right images, as the front-end makes them."""
+    from jetracer_orbslam2_torch.io.synthetic import generate_stereo_sequence
+    from jetracer_orbslam2_torch.ops import preprocess
+
+    seq = generate_stereo_sequence(1, (480, 640), baseline=STEREO_BASELINE,
+                                   device=dev)
+    return seq, [[l.contiguous() for l in preprocess.build_pyramid(
+        preprocess.gaussian_blur_3x3(img), 4)] for img in (seq.left[0],
+                                                           seq.right[0])]
+
+
+def phase_k1_stereo_batch(dev, floor_ms: float) -> dict:
+    """K1 for a stereo frame at two thresholds: one launch per image (4 levels
+    each) against one launch of both images' 8 levels, in turns (two, one,
+    one, two); the outputs must be torch.equal."""
+    import torch
+    from jetracer_orbslam2_torch.ops import fused_fast
+
+    _, (left, right) = _stereo_pyramids(dev)
+    thr = (FAST_THRESHOLD, SLAM_FAST_MIN_THRESHOLD)
+
+    def per_image():
+        return (fused_fast.fast_nms_pyramid(left, thr, FAST_ARC, FAST_BORDER),
+                fused_fast.fast_nms_pyramid(right, thr, FAST_ARC, FAST_BORDER))
+
+    def one_launch():
+        return fused_fast.fast_nms_pyramid(left + right, thr, FAST_ARC,
+                                           FAST_BORDER)
+
+    two, one = per_image(), one_launch()
+    torch.cuda.synchronize()
+    n = len(left)
+    equal = all(torch.equal(one[j][i], two[0][j][i])
+                and torch.equal(one[j][n + i], two[1][j][i])
+                for j in range(len(thr)) for i in range(n))
+    if not equal:
+        raise SystemExit("FAIL: one launch of both pyramids differs from one "
+                         "launch per image")
+    two_ms = [time_launches(per_image, reps=20, batch=20)]
+    one_ms = [time_launches(one_launch, reps=20, batch=20) for _ in range(2)]
+    two_ms.append(time_launches(per_image, reps=20, batch=20))
+    n_bytes, n_ops = fast_nms_work(left + right, thr, FAST_BORDER)
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / F32_OPS_PER_S * 1e3
+    row = {"levels": [list(l.shape) for l in left + right],
+           "thresholds": list(thr), "equal": equal,
+           "per_image_ms": min(two_ms), "per_image_readings_ms": two_ms,
+           "one_launch_ms": min(one_ms), "one_launch_readings_ms": one_ms,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "bytes": n_bytes, "operations": n_ops, "floor_ms": floor_ms}
+    say(f"  stereo frame (2 x 4 levels of 640x480, 2 thresholds): two launches "
+        f"{' / '.join(f'{t * 1e3:.2f}' for t in two_ms)} us, one launch of 8 "
+        f"levels {' / '.join(f'{t * 1e3:.2f}' for t in one_ms)} us; outputs "
+        f"torch.equal: {equal}; bound {row['bound_ms'] * 1e3:.3f} us "
+        f"({row['bound_by']})")
+    return row
+
+
+def _stereo_agreement(gpu, cpu, what: str) -> dict:
+    """GPU against CPU stereo features, held as phase 4 holds the RGB-D
+    front-end (keypoint fields torch.equal, descriptors on >= 99 % of valid
+    keypoints), plus the stereo depth as the CPU parity tests hold it against
+    the JAX package (has_point on >= 99 %, points rtol 1e-5 where both)."""
+    import torch
+
+    for name in ("xy", "level", "score", "valid"):
+        if not torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name)):
+            raise SystemExit(f"FAIL: {what}: stereo field {name} differs "
+                             "between GPU and CPU")
+    valid = cpu.valid
+    same = (gpu.desc.cpu() == cpu.desc).all(-1)[valid]
+    desc_frac = float(same.float().mean())
+    hp = float((gpu.has_point.cpu() == cpu.has_point).float().mean())
+    both = gpu.has_point.cpu() & cpu.has_point
+    pg, pc = gpu.points.cpu()[both], cpu.points[both]
+    rel = float(((pg - pc).abs() / pc.abs().clamp_min(1e-30)).max()) if len(pc) else 0.0
+    out = {"valid": int(valid.sum()), "desc_equal_frac": desc_frac,
+           "desc_torch_equal": bool(torch.equal(gpu.desc.cpu(), cpu.desc)),
+           "has_point_agree": hp, "has_point": int(cpu.has_point.sum()),
+           "points_max_rel": rel}
+    say(f"  {what}: " + json.dumps(out))
+    if desc_frac < 0.99 or hp < 0.99 or rel > 1e-5:
+        raise SystemExit(f"FAIL: {what}: stereo features differ between GPU and CPU")
+    return out
+
+
+def phase_stereo_check(dev) -> dict:
+    """frontend_stereo on a 640x480 rendered pair, on the card and on the CPU;
+    the second card call under set_sync_debug_mode("error"); launches per
+    call."""
+    import torch
+    from jetracer_orbslam2_torch.config import FrontendConfig
+    from jetracer_orbslam2_torch.models.frontend import extract_features
+    from jetracer_orbslam2_torch.models.stereo import (
+        extract_features_pair, frontend_stereo)
+
+    seq, _ = _stereo_pyramids(dev)
+    left, right = torch.round(seq.left[0]), torch.round(seq.right[0])
+    cfg = FrontendConfig(height=480, width=640,
+                         fast_min_threshold=SLAM_FAST_MIN_THRESHOLD)
+    args = (seq.intrinsics, STEREO_BASELINE, cfg)
+    frontend_stereo(left, right, *args)              # tables, first launches
+    torch.cuda.synchronize()
+    _reset_counters()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gpu = frontend_stereo(left, right, *args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    per_call = _read_counters()
+    cpu = frontend_stereo(left.cpu(), right.cpu(), seq.intrinsics.cpu(),
+                          STEREO_BASELINE, cfg, device="cpu")
+    out = _stereo_agreement(gpu, cpu, "frontend_stereo 640x480, GPU vs CPU")
+    # both pyramids as one K1 level list (one launch for every 8 levels)
+    # against one launch an image, on the card: at 4 levels (one launch) and
+    # at 5 (launches of 8 and 2)
+    out["pair_k1_launches"] = {}
+    for levels in (4, 5):
+        lcfg = dataclasses.replace(cfg, num_levels=levels)
+        _reset_counters()
+        pair = extract_features_pair(left, right, lcfg)
+        k1 = _read_counters()["fast_nms_pyramid"]
+        for img, got in zip((left, right), pair):
+            ref = extract_features(img, lcfg)
+            same = [torch.equal(a, b) for a, b in zip(got[0], ref[0])]
+            if not (all(same) and torch.equal(got[1], ref[1])
+                    and torch.equal(got[2], ref[2])):
+                raise SystemExit(f"FAIL: the stereo pair's extraction at "
+                                 f"{levels} levels differs from one launch "
+                                 "an image")
+        if k1 != -(-2 * levels // 8):
+            raise SystemExit(f"FAIL: the stereo pair at {levels} levels made "
+                             f"{k1} K1 launches")
+        out["pair_k1_launches"][levels] = k1
+    out["pair_equals_per_image"] = True
+    say("  extract_features_pair torch.equal to extract_features on each "
+        "image; K1 launches of the pair at 4 / 5 levels: "
+        f"{out['pair_k1_launches'][4]} / {out['pair_k1_launches'][5]}")
+    out["launches_per_call"] = per_call
+    say(f"  launches of one frontend_stereo call (under "
+        f"set_sync_debug_mode('error'), no host wait): {json.dumps(per_call)}")
+    want = {"fast_nms_pyramid": STEREO_K1_PER_FRAME, "extract_patches_fused": 2,
+            "patch_gather": 0, "fused_normal_schur": 0, "fused_backsub": 0}
+    if per_call != want:
+        raise SystemExit(f"FAIL: frontend_stereo launched {per_call}, expected {want}")
+    return out
+
+
+def phase_stereo_path(dev) -> dict:
+    """bench.py's stereo workload at full width through slam_scan: the arc and
+    the lap, each timed after a warm-up, with every kernel's launches."""
+    import torch
+    from jetracer_orbslam2_torch.config import (
+        FrontendConfig, StereoConfig, SystemConfig, TrackingConfig)
+    from jetracer_orbslam2_torch.io.synthetic import (
+        generate_stereo_lap_sequence, generate_stereo_sequence)
+
+    cfg = SystemConfig(
+        frontend=FrontendConfig(height=480, width=640,
+                                fast_min_threshold=SLAM_FAST_MIN_THRESHOLD),
+        tracking=TrackingConfig(max_depth=80.0),
+        stereo=StereoConfig(baseline=STEREO_BASELINE))
+    t0 = time.perf_counter()
+    seqs = {
+        "arc": generate_stereo_sequence(STEREO_FRAMES, (480, 640),
+                                        baseline=STEREO_BASELINE, device=dev),
+        "lap": generate_stereo_lap_sequence(STEREO_FRAMES, (480, 640),
+                                            lap_frames=STEREO_LAP,
+                                            baseline=STEREO_BASELINE, device=dev),
+    }
+    torch.cuda.synchronize()
+    say(f"  rendered 2 x {STEREO_FRAMES} stereo pairs of 640x480 on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    warm = seqs["arc"]
+    _scan_pair(warm.left[:30], warm.right[:30], warm.intrinsics,
+               warm.poses[:30], cfg)
+    report = {}
+    for name, seq in seqs.items():
+        _reset_counters()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        with counting_calls() as calls:
+            start.record()
+            final, out, poses, rmse = _scan_pair(seq.left, seq.right,
+                                                 seq.intrinsics, seq.poses, cfg)
+            stop.record()
+            stop.synchronize()
+        launches = _read_counters()
+        ms = start.elapsed_time(stop)
+        inserted = int(out.is_kf.sum())
+        row = {
+            "frames": STEREO_FRAMES, "shape": [480, 640], "levels": 4,
+            "keypoints": 1024, "baseline_m": STEREO_BASELINE,
+            "tracked_frac": float(out.tracked.float().mean()),
+            "loops": int(final.num_loops), "relocs": int(final.num_relocs),
+            "keyframes": int(final.m.num_kf), "keyframes_inserted": inserted,
+            "landmarks": int(final.m.num_lm), "ate_rmse_m": rmse,
+            "ate_limit_m": STEREO_ATE_M[name],
+            "ms_per_frame": ms / STEREO_FRAMES, "fps": STEREO_FRAMES / (ms / 1e3),
+            "launches": launches, "k4_route_calls": calls,
+        }
+        say(f"  stereo {name}: " + json.dumps(row))
+        if not rmse <= STEREO_ATE_M[name]:
+            raise SystemExit(f"FAIL: stereo {name} ATE {rmse:.3f} m > "
+                             f"{STEREO_ATE_M[name]} m")
+        if name == "lap" and row["tracked_frac"] < 0.95:
+            raise SystemExit("FAIL: the stereo lap lost tracking")
+        if (row["loops"], row["keyframes"]) != STEREO_OUTCOME[name]:
+            raise SystemExit(
+                f"FAIL: stereo {name} closed {row['loops']} loops with "
+                f"{row['keyframes']} keyframes; the reference gives "
+                f"{STEREO_OUTCOME[name]}")
+        want = {"fast_nms_pyramid": STEREO_K1_PER_FRAME * STEREO_FRAMES,
+                "extract_patches_fused": 2 * STEREO_FRAMES, "patch_gather": 0,
+                "fused_normal_schur": 10 * inserted,
+                "fused_backsub": 10 * inserted}
+        if launches != want or any(calls.values()):
+            raise SystemExit(f"FAIL: stereo {name} launches {launches} (calls "
+                             f"{calls}), expected {want}")
+        report[name] = row
+    return report
+
+
+def _align_agreement(gpu, cpu, raw, di, ci, T) -> dict:
+    """align_depth_to_color on the card against the CPU: >= 99.9 % of pixels
+    equal, and every other pixel next to a depth pixel whose colour-frame
+    position (recomputed in float64) lies within 1e-3 px of a rounding edge
+    (x.5), where an ulp of f32 may round either way."""
+    import numpy as np
+
+    g, c = gpu.cpu().numpy(), cpu.numpy()
+    diff = g != c
+    frac = 1.0 - float(diff.mean())
+    fx, fy, cx, cy = (float(v) for v in di)
+    h, w = raw.shape
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    z = raw.astype(np.float64)
+    pts = np.stack([(xx - cx) / fx * z, (yy - cy) / fy * z, z], -1)
+    T = np.asarray(T, np.float64).reshape(4, 4)
+    pc = pts @ T[:3, :3].T + T[:3, 3]
+    zc = np.where(np.abs(pc[..., 2]) < 1e-9, 1e-9, pc[..., 2])
+    u = pc[..., 0] / zc * float(ci[0]) + float(ci[2])
+    v = pc[..., 1] / zc * float(ci[1]) + float(ci[3])
+    edge = ((np.abs(u - np.floor(u) - 0.5) < 1e-3)
+            | (np.abs(v - np.floor(v) - 0.5) < 1e-3)) & (z > 0)
+    near = np.zeros_like(diff)
+    for uu, vv in zip(np.floor(u[edge]).astype(int), np.floor(v[edge]).astype(int)):
+        near[max(vv - 1, 0):vv + 3, max(uu - 1, 0):uu + 3] = True
+    unexplained = int((diff & ~near[:h, :w]).sum())
+    return {"pixels_equal_frac": frac, "pixels_differing": int(diff.sum()),
+            "differing_off_a_rounding_edge": unexplained}
+
+
+def phase_datasets() -> dict:
+    """Every fixture through run.main on the card, with the CPU tests' bars;
+    which PNG decoder served; align_depth_to_color on the card vs the CPU;
+    K1/K4 launches a frame."""
+    import contextlib
+    import io
+    import os
+    import torch
+    from jetracer_orbslam2_torch import run
+    from jetracer_orbslam2_torch.io import datasets, native_loader
+    from jetracer_orbslam2_torch.ops.align import align_depth_to_color
+
+    if not native_loader.available():
+        raise SystemExit("FAIL: the native PNG decoder did not build: "
+                         f"{native_loader.build_error()}")
+    fix = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                       "fixtures")
+    narrow = ["--levels", "3", "--max-keypoints", "256"]
+    # (name, fixture, extra argv, env, stereo, bars)
+    runs = [
+        ("tum_tiny", "tum_tiny", narrow, {}, False, {"ate": 0.05, "tracked": 0.9}),
+        ("tum_tiny (PIL)", "tum_tiny", narrow,
+         {"JETRACER_DISABLE_NATIVE": "1"}, False, {"ate": 0.05}),
+        ("tum_tiny_unaligned", "tum_tiny_unaligned",
+         ["--levels", "2", "--max-keypoints", "128"], {}, False,
+         {"ate": 0.05, "tracked": 0.9}),
+        ("euroc_tiny", "euroc_tiny/mav0", narrow, {}, True,
+         {"ate": 0.2, "tracked": 0.9, "roll": 1.0}),
+        ("euroc_tiny --chunked 4", "euroc_tiny/mav0",
+         narrow + ["--chunked", "4", "--fast-min-threshold", "7"], {}, True,
+         {"ate": 0.2}),
+        ("euroc_tiny_dist", "euroc_tiny_dist/mav0", narrow, {}, True, {"ate": 0.2}),
+        ("kitti_tiny", "kitti_tiny", narrow, {}, True,
+         {"ate": 0.06, "tracked": 0.9}),
+        ("kitti_tiny --chunked 4", "kitti_tiny", narrow + ["--chunked", "4"], {},
+         True, {"ate": 0.06, "tracked": 0.9}),
+    ]
+    out = {}
+    for name, sub, extra, env, stereo, bars in runs:
+        argv = ["--dataset", os.path.join(fix, sub), "--json",
+                "--log-level", "warning"] + extra
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        before = dict(datasets.DECODED)
+        _reset_counters()
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                code = run.main(argv)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        launches = _read_counters()
+        report = json.loads(buf.getvalue().strip().splitlines()[-1])
+        served = {k: datasets.DECODED[k] - before[k] for k in before}
+        frames = report["frames"]
+        report.update(decoder=served,
+                      k1_per_frame=launches["fast_nms_pyramid"] / frames,
+                      k4_per_frame=launches["extract_patches_fused"] / frames,
+                      ba_launches=launches["fused_normal_schur"])
+        say(f"  {name}: exit {code}: " + json.dumps(report))
+        per_frame = 2 if stereo else 1
+        bad = []
+        if code != 0 or report["device"] != "cuda:0":
+            bad.append("did not run on the card")
+        if report.get("stereo") is not stereo:
+            bad.append("stereo flag")
+        if not report["ate_rmse_m"] < bars["ate"]:
+            bad.append(f"ATE {report['ate_rmse_m']} >= {bars['ate']}")
+        if "tracked" in bars and not report["tracked_frac"] > bars["tracked"]:
+            bad.append(f"tracked {report['tracked_frac']}")
+        if "roll" in bars and not abs(report["attitude_rad"][0]) > bars["roll"]:
+            bad.append("the IMU attitude was not consumed")
+        want_decoder = "pil" if env else "native"
+        if served[want_decoder] <= 0 or sum(served.values()) != served[want_decoder]:
+            bad.append(f"decoder {served}, expected {want_decoder} only")
+        k1_want = (STEREO_K1_PER_FRAME if stereo else 1) * frames
+        if launches["fast_nms_pyramid"] != k1_want:
+            bad.append(f"K1 launches {launches['fast_nms_pyramid']} != {k1_want}")
+        if launches["extract_patches_fused"] != per_frame * frames:
+            bad.append(f"K4 launches {launches['extract_patches_fused']}")
+        if bad:
+            raise SystemExit(f"FAIL: dataset run {name}: {'; '.join(bad)}")
+        out[name] = report
+
+    ds = datasets.open_dataset(os.path.join(fix, "tum_tiny_unaligned"))
+    align = []
+    for i in (0, len(ds) - 1):
+        raw = ds.frame(i).depth
+        args = (raw, ds.depth_intrinsics, ds.intrinsics,
+                torch.tensor(ds.T_color_depth).reshape(4, 4), raw.shape)
+        gpu = align_depth_to_color(*args)
+        cpu = align_depth_to_color(*args, device="cpu")
+        row = _align_agreement(gpu, cpu, raw, ds.depth_intrinsics, ds.intrinsics,
+                               ds.T_color_depth)
+        row["frame"] = i
+        align.append(row)
+        say(f"  align_depth_to_color, frame {i}, card vs CPU: " + json.dumps(row))
+        if row["pixels_equal_frac"] < 0.999 or row["differing_off_a_rounding_edge"]:
+            raise SystemExit("FAIL: align_depth_to_color differs between the card "
+                             "and the CPU beyond the rounding edge")
+    out["align_depth_to_color"] = align
+    out["native_decoder"] = str(native_loader.library_path().name)
+    return out
+
+
 def print_build(name: str) -> None:
     from jetracer_orbslam2_torch.utils import cuda_build
 
@@ -1772,6 +2143,7 @@ def main(argv: list[str]) -> int:
         say(f"  launch floor: an empty kernel (one block of one thread) "
             f"{floor_ms * 1e3:.3f} us a launch through the same harness")
         times = phase_kernel_times(levels, floor_ms)
+        times["stereo"] = phase_k1_stereo_batch(dev, floor_ms)
 
         phase(7, "fused_normal_schur (K2) and fused_backsub (K3) vs their plain "
                  "versions; errors relative to each output's scale, against the "
@@ -1827,6 +2199,19 @@ def main(argv: list[str]) -> int:
                   "launches, median of 20; the levels are L2-warm, as the "
                   "pyramid leaves them)")
         patch_time = phase_patch_kernel_time(patch_pyramid, patch_kp, floor_ms)
+
+        phase(17, "stereo check: frontend_stereo on a 640x480 pair, card vs CPU")
+        stereo_check = phase_stereo_check(dev)
+
+        phase(18, f"stereo path: slam_scan over {STEREO_FRAMES} stereo pairs of "
+                  f"640x480 (arc, and a lap of {STEREO_LAP}), 4 levels, K=1024, "
+                  f"two-threshold FAST, baseline {STEREO_BASELINE} m")
+        stereo_report = phase_stereo_path(dev)
+        stereo_launches = {k: sum(r["launches"][k] for r in stereo_report.values())
+                           for k in _kernel_counters()}
+
+        phase(19, "datasets: run.main --dataset on every fixture, on the card")
+        datasets_report = phase_datasets()
     torch.cuda.synchronize()
 
     k1 = times["odometry"]
@@ -1835,7 +2220,8 @@ def main(argv: list[str]) -> int:
         "route": "cuda",
         "source": "jetracer_orbslam2_torch/csrc/fast_nms.cu",
         "replaces": "jetracer_orbslam2_tpu/ops/pallas_fast.py:190",
-        "launches": launches,
+        "launches": stereo_launches["fast_nms_pyramid"],
+        "odometry_launches": launches,
         "max_abs_err": max_err,
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
@@ -1845,12 +2231,17 @@ def main(argv: list[str]) -> int:
         "exact_match": all_equal,
         "numbers_are": "per launch = per frame: the 4 levels of 640x480 at one "
                        "threshold (the odometry path's configuration); launches "
-                       "are the odometry path's, one a frame; 'slam' is the same "
-                       "at the SLAM path's two thresholds, with its launches; "
+                       "are the stereo path's (one a frame: both pyramids in "
+                       "one launch), odometry_launches the odometry path's; "
+                       "'slam' is the time at the SLAM path's two thresholds, "
+                       "with its launches; 'stereo' a stereo frame's two "
+                       "pyramids by one launch each and by one launch, timed "
+                       "in the same run; "
                        "old_schedule_ms is the same work as one launch per level "
                        "and threshold, timed in the same run",
         "old_schedule_ms": k1["old_schedule_ms"],
         "slam": {**times["slam"], "launches": slam_launches["fast_nms_pyramid"]},
+        "stereo": times["stereo"],
         "odometry": k1,
         "shapes": times["shapes"],
     }]
@@ -1863,7 +2254,8 @@ def main(argv: list[str]) -> int:
             "route": "cuda",
             "source": "jetracer_orbslam2_torch/csrc/ba_fused.cu",
             "replaces": f"jetracer_orbslam2_tpu/ops/pallas_ba.py:{line}",
-            "launches": count,
+            "launches": stereo_launches[name],
+            "ba_path_launches": count,
             "max_abs_err": worst[key]["abs"],
             "max_abs_err_scale": worst[key]["scale"],
             "max_abs_err_where": worst[key]["where"],
@@ -1874,15 +2266,10 @@ def main(argv: list[str]) -> int:
             "library_ms": None,
             "floor_ms": at_path["floor_ms"],
             "numbers_are": "per launch at (P 8, L 4096), the BA path's shape; "
-                           "launches are the BA path's (local BA launched "
+                           "launches are the stereo path's, ba_path_launches "
+                           "the BA path's (local BA launched "
                            f"{local_report['launches']} more); floor_ms is an "
-                           "empty kernel's launch through the same harness"
-                           + ("; serial_ms is the kernel K3 replaced (one thread "
-                              "a landmark), timed in the same run"
-                              if key == "K3" else ""),
-            **({"serial_ms": at_path["serial_ms"],
-                "equals_serial": worst.get("K3_equals_serial")}
-               if key == "K3" else {}),
+                           "empty kernel's launch through the same harness",
             "shapes": ba_times[name],
         })
     kernels.append({
@@ -1890,7 +2277,8 @@ def main(argv: list[str]) -> int:
         "route": "cuda",
         "source": "jetracer_orbslam2_torch/csrc/patch_gather.cu",
         "replaces": "scripts/experiment_pallas_patches.py:52",
-        "launches": slam_launches["extract_patches_fused"],
+        "launches": stereo_launches["extract_patches_fused"],
+        "slam_path_launches": slam_launches["extract_patches_fused"],
         "max_abs_err": patch_max_err,
         "exact_match": patch_all_equal,
         "ms": patch_time["ms"],
@@ -1904,7 +2292,8 @@ def main(argv: list[str]) -> int:
         "floor_ms": patch_time["floor_ms"],
         "numbers_are": "per launch = per frame on frame 0's 640x480 pyramid (4 "
                        "levels), K 1024, P 37, read from the levels; launches "
-                       "are the SLAM path's (one a frame); pr4_route_ms is PR "
+                       "are the stereo path's (two a frame), slam_path_launches "
+                       "the SLAM path's (one a frame); pr4_route_ms is PR "
                        "4's route (pack_levels + patch_origins + the canvas "
                        "kernel, one graph) and canvas_kernel_ms its kernel "
                        "alone, timed in the same run, pr4_route_launches the "
@@ -1920,6 +2309,8 @@ def main(argv: list[str]) -> int:
     say(json.dumps({"slam_path": slam_report, "slam_lap": lap_report,
                     "map_lifecycle": lifecycle_report, "cli": cli_reports,
                     "card": card}))
+    say(json.dumps({"stereo_path": stereo_report, "stereo_check": stereo_check,
+                    "datasets": datasets_report, "card": card}))
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -10,11 +10,15 @@ Layout mirrors the JAX package so a reader finds the counterpart of a module
 by its path:
 
 - `ops/`     preprocess, FAST, NMS, patches, ORB, matching, geometry, align
-- `models/`  frontend, tracking, odometry, imu, slam (the host scheduler),
-             slam_scan (whole sequences), backend/ (map, BA, pose graph, loop)
-- `io/`      synthetic RGB-D sequences (arc and laps) with exact ground truth
+- `models/`  frontend, stereo, tracking, odometry, imu, slam (the host
+             scheduler), slam_scan (whole sequences), backend/ (map, BA,
+             pose graph, loop)
+- `io/`      synthetic RGB-D and stereo sequences (arc and laps) with exact
+             ground truth; TUM RGB-D, EuRoC and KITTI loaders; the native
+             PNG decoder (C++ from `native/`, built at first use)
 - `utils/`   device resolution, float32 precision settings
-- `run.py`   CLI entry (`python -m jetracer_orbslam2_torch.run`)
+- `run.py`   CLI entry (`python -m jetracer_orbslam2_torch.run`, on
+             `--synthetic N` frames or a `--dataset DIR`)
 
 Every entry point runs on `cuda:0` unless the caller passes `device="cpu"`;
 nothing here imports JAX or the JAX package.

@@ -48,9 +48,9 @@ class FrontendConfig:
     dist: Optional[Tuple[float, ...]] = None
     dist_model: str = "brown_conrady"
     # UNREGISTERED depth camera calibration (depth intrinsics, distortion,
-    # color<-depth extrinsic as 16 row-major floats).  The fields are kept
-    # for layout parity; the port's frontend does not yet re-render depth
-    # and raises NotImplementedError when depth_intrinsics is set.
+    # color<-depth extrinsic as 16 row-major floats).  When depth_intrinsics
+    # is set, the frontend re-renders each depth map into the color camera
+    # first (ops/align.align_depth_to_color).
     depth_intrinsics: Optional[Tuple[float, ...]] = None
     depth_dist: Optional[Tuple[float, ...]] = None
     T_color_depth: Optional[Tuple[float, ...]] = None

@@ -101,7 +101,6 @@ constexpr int BS_LM = 32;           // ba_backsub: landmarks a block (lanes)
 constexpr int BS_WARPS = 8;         //   x pose warps
 constexpr int BS_THREADS = 32 * BS_WARPS;
 constexpr int BS_STAGE = 12;        //   staged floats a slot: Jl (9) | u (3)
-constexpr int BS_SERIAL_THREADS = 128;  // the former one-thread-a-landmark kernel
 
 // Row pitches of the staged columns: even, so that a pose's six entries are
 // read as three float2; at P = 8 and 16 a warp's stores (32 landmarks, one
@@ -592,7 +591,7 @@ ba_reduce_kernel(const float* __restrict__ work, int P, int nblocks,
 // Each (p, l) computes its planes (slot_planes, as ba_assemble does) and
 // u[r] = sum_i Jp[r][i] dxp[p][i], and stages Jl[r][0..2] | u[r] (12 floats)
 // in shared memory.  Then warp 0 folds, one thread a landmark, in the order
-// of the one-thread-a-landmark kernel below: e_j = bl_j, then
+// of the plain version's sums: e_j = bl_j, then
 // e_j -= Jl[r][j] u[r] over p = 0..P-1 and r = 0..2, then Hll^-1 and free.
 // The serial part is 9 FMAs a pose.  Every load comes first: the fold
 // warp's bl, Hll^-1 and free, every warp's point and its pose's obs (poses
@@ -657,59 +656,6 @@ ba_backsub_kernel(const float* __restrict__ poses,
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
         const float v = h[3 * j + 0] * e0 + h[3 * j + 1] * e1 + h[3 * j + 2] * e2;
-        dxl[j * Ls + l] = v * fr;
-    }
-}
-
-// The one-thread-a-landmark back-substitution that ba_backsub_kernel
-// replaced: each thread walks every pose in turn.  Kept as the yardstick
-// the new kernel is timed and compared against (chip_smoke.py phases 7
-// and 11); no path of the port launches it.
-__global__ void __launch_bounds__(BS_SERIAL_THREADS)
-ba_backsub_serial_kernel(const float* __restrict__ poses,
-                         const float* __restrict__ points,
-                         const float* __restrict__ obs,
-                         const float* __restrict__ lm_free,
-                         const float* __restrict__ scal,
-                         const float* __restrict__ hinv,
-                         const float* __restrict__ bl,
-                         const float* __restrict__ dxp,
-                         int P, int L, float* __restrict__ dxl) {
-    __shared__ float s_pose[MAX_POSES * 12];
-    __shared__ float s_dxp[MAX_POSES * 6];
-    const int tid = threadIdx.x;
-    for (int i = tid; i < P * 12; i += BS_SERIAL_THREADS) s_pose[i] = poses[i];
-    for (int i = tid; i < P * 6; i += BS_SERIAL_THREADS) s_dxp[i] = dxp[i];
-    __syncthreads();
-    const int l = blockIdx.x * BS_SERIAL_THREADS + tid;
-    if (l >= L) return;
-    const size_t Ls = (size_t)L;
-    const float fx = scal[0], fy = scal[1], cx = scal[2], cy = scal[3];
-    const float huber = scal[5];
-    const float X0 = points[l], X1 = points[Ls + l], X2 = points[2 * Ls + l];
-    // resid[j] = bl[j] - sum_{p,r} Jl[r][j] (sum_i Jp[r][i] dxp[p][i])
-    float e0 = bl[l], e1 = bl[Ls + l], e2 = bl[2 * Ls + l];
-    Planes q;
-    for (int p = 0; p < P; ++p) {
-        slot_planes(obs, s_pose, P, L, p, l, true, X0, X1, X2,
-                    fx, fy, cx, cy, huber, q);
-        const float* d = s_dxp + 6 * p;
-#pragma unroll
-        for (int r = 0; r < 3; ++r) {
-            float u = 0.0f;
-#pragma unroll
-            for (int i = 0; i < 6; ++i) u += q.jp[r][i] * d[i];
-            e0 -= q.jl[r][0] * u;
-            e1 -= q.jl[r][1] * u;
-            e2 -= q.jl[r][2] * u;
-        }
-    }
-    const float fr = lm_free[l];
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-        const float v = hinv[(3 * j + 0) * Ls + l] * e0
-                      + hinv[(3 * j + 1) * Ls + l] * e1
-                      + hinv[(3 * j + 2) * Ls + l] * e2;
         dxl[j * Ls + l] = v * fr;
     }
 }
@@ -789,21 +735,6 @@ extern "C" int ba_backsub_launch(
     const int nblocks = (L + BS_LM - 1) / BS_LM;
     ba_backsub_kernel<<<nblocks, BS_THREADS, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-        poses, points, obs, lm_free, scal, hinv, bl, dxp, P, L, dxl);
-    return (int)cudaGetLastError();
-}
-
-// The former back-substitution (one thread a landmark), same arguments and
-// output; for comparison only.
-extern "C" int ba_backsub_serial_launch(
-    const float* poses, const float* points, const float* obs,
-    const float* lm_free, const float* scal, const float* hinv,
-    const float* bl, const float* dxp, int P, int L, float* dxl,
-    void* stream) {
-    if (P < 1 || P > MAX_POSES || L < 1) return (int)cudaErrorInvalidValue;
-    const int nblocks = (L + BS_SERIAL_THREADS - 1) / BS_SERIAL_THREADS;
-    ba_backsub_serial_kernel<<<nblocks, BS_SERIAL_THREADS, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
         poses, points, obs, lm_free, scal, hinv, bl, dxp, P, L, dxl);
     return (int)cudaGetLastError();
 }

@@ -1,1 +1,3 @@
-"""Frame sources of the port.  Only the synthetic generator is ported so far."""
+"""Frame sources of the port: the synthetic generators (`synthetic`), the
+TUM RGB-D / EuRoC / KITTI loaders (`datasets`) and the native PNG decoder
+(`native_loader`)."""

@@ -1,15 +1,14 @@
 """Synthetic RGB-D sequence generator with exact ground truth.
 
-Counterpart of `jetracer_orbslam2_tpu/io/synthetic.py` (the forward-arc and lap
-RGB-D generators and the IMU synthesizer; the stereo generators are not ported
-yet).  The scene
+Counterpart of `jetracer_orbslam2_tpu/io/synthetic.py`: the forward-arc and lap
+generators, RGB-D and stereo, and the IMU synthesizer.  The scene
 is the inside of a textured box "room", ray-cast per pixel: photometrically
 consistent across views, exact depth, exact poses.
 
 Textures come from a numpy generator seeded by `seed` (the JAX package draws
 them with `jax.random`, whose stream cannot be reproduced here);
-`render_frame` takes the textures as an argument, so a test can hand both
-renderers the same ones.
+`render_frame` and the stereo generators take the textures as an argument, so
+a test can hand both renderers the same ones.
 """
 
 from __future__ import annotations
@@ -23,6 +22,15 @@ from jetracer_orbslam2_torch.ops import geometry as geo
 from jetracer_orbslam2_torch.utils.device import resolve_device
 
 Tensor = torch.Tensor
+
+
+class SyntheticStereoSequence(NamedTuple):
+    left: Tensor     # (N, H, W) float32 in [0, 255]
+    right: Tensor    # (N, H, W)
+    depth: Tensor    # (N, H, W) left-camera ground-truth depth
+    poses: Tensor    # (N, 4, 4) T_wc of the LEFT camera
+    intrinsics: Tensor  # (4,) fx fy cx cy, both cameras
+    baseline: float
 
 
 class SyntheticSequence(NamedTuple):
@@ -190,25 +198,110 @@ def lap_trajectory(
     return geo.pose_from_rt(R, t)
 
 
-def _render_sequence(poses: Tensor, shape: tuple, seed: int, dist=None,
-                     dist_model: str = "brown_conrady") -> SyntheticSequence:
-    """Render one frame per pose on the poses' device, straight into the
+def _intrinsics(shape: tuple, dev) -> Tensor:
+    h, w = shape
+    return torch.tensor([0.9 * w, 0.9 * w, (w - 1) / 2.0, (h - 1) / 2.0],
+                        dtype=torch.float32, device=dev)
+
+
+def _render_stack(poses: Tensor, intr: Tensor, textures: Tensor, shape: tuple,
+                  dist=None, dist_model: str = "brown_conrady",
+                  with_depth: bool = True):
+    """Render one frame per pose on the poses' device, straight into
     preallocated (N, H, W) stacks: a long sequence (1,200 frames of 640x480
     are 2.9 GB of gray + depth) never holds more than one frame's
-    temporaries beside them."""
+    temporaries beside them.  Returns (gray, depth or None)."""
     dev = poses.device
-    h, w = shape
     n = poses.shape[0]
-    intr = torch.tensor(
-        [0.9 * w, 0.9 * w, (w - 1) / 2.0, (h - 1) / 2.0],
-        dtype=torch.float32, device=dev)
-    textures = torch.from_numpy(make_textures(seed)).to(dev)
-    gray = torch.empty((n, h, w), dtype=torch.float32, device=dev)
-    depth = torch.empty((n, h, w), dtype=torch.float32, device=dev)
+    gray = torch.empty((n, *shape), dtype=torch.float32, device=dev)
+    depth = (torch.empty((n, *shape), dtype=torch.float32, device=dev)
+             if with_depth else None)
     for i in range(n):
-        gray[i], depth[i] = render_frame(poses[i], intr, textures, shape,
-                                         dist=dist, dist_model=dist_model)
+        g, d = render_frame(poses[i], intr, textures, shape, dist=dist,
+                            dist_model=dist_model)
+        gray[i] = g
+        if with_depth:
+            depth[i] = d
+    return gray, depth
+
+
+def _render_sequence(poses: Tensor, shape: tuple, seed: int, dist=None,
+                     dist_model: str = "brown_conrady") -> SyntheticSequence:
+    intr = _intrinsics(shape, poses.device)
+    textures = torch.from_numpy(make_textures(seed)).to(poses.device)
+    gray, depth = _render_stack(poses, intr, textures, shape, dist, dist_model)
     return SyntheticSequence(gray=gray, depth=depth, poses=poses, intrinsics=intr)
+
+
+def _render_stereo(poses: Tensor, shape: tuple, seed: int, textures,
+                   baseline: float, dist_l=None, dist_r=None,
+                   dist_model: str = "brown_conrady",
+                   right_rotation=None) -> SyntheticStereoSequence:
+    """Stereo pairs along `poses`: the right camera is the left one shifted by
+    `baseline` along its +x axis, then rotated by `right_rotation`
+    (axis-angle, rad) when given.  `textures` (numpy, (NUM_PLANES, S, S))
+    replaces the ones drawn from `seed`."""
+    dev = poses.device
+    f32 = torch.float32
+    intr = _intrinsics(shape, dev)
+    tex = make_textures(seed) if textures is None else np.array(textures, np.float32)
+    tex = torch.from_numpy(tex).to(dev)
+    shift = torch.eye(4, dtype=f32, device=dev)
+    shift[0, 3] = baseline
+    if right_rotation is not None:
+        Rr = geo.so3_exp(torch.tensor(right_rotation, dtype=f32, device=dev))
+        shift = shift @ geo.pose_from_rt(Rr, torch.zeros(3, dtype=f32, device=dev))
+    left, depth = _render_stack(poses, intr, tex, shape, dist_l, dist_model)
+    right, _ = _render_stack(poses @ shift, intr, tex, shape, dist_r,
+                             dist_model, with_depth=False)
+    return SyntheticStereoSequence(left=left, right=right, depth=depth,
+                                   poses=poses, intrinsics=intr,
+                                   baseline=baseline)
+
+
+@torch.no_grad()
+def generate_stereo_sequence(
+    n_frames: int = 10,
+    shape: tuple = (480, 640),
+    seed: int = 0,
+    step: float = 0.02,
+    yaw_rate: float = 0.004,
+    baseline: float = 0.11,
+    dist_l: tuple | None = None,
+    dist_r: tuple | None = None,
+    dist_model: str = "brown_conrady",
+    right_rotation: tuple | None = None,
+    textures=None,
+    device=None,
+) -> SyntheticStereoSequence:
+    """Stereo pairs along `smooth_trajectory` (EuRoC/KITTI geometry), on
+    `cuda:0` unless `device` says otherwise.  `dist_l` / `dist_r` render
+    distorted lenses and `right_rotation` tilts the right camera: together a
+    geometrically exact rig that is NOT pre-rectified."""
+    dev = resolve_device(device)
+    poses = smooth_trajectory(n_frames, step, yaw_rate, device=dev)
+    return _render_stereo(poses, shape, seed, textures, baseline, dist_l,
+                          dist_r, dist_model, right_rotation)
+
+
+@torch.no_grad()
+def generate_stereo_lap_sequence(
+    n_frames: int = 180,
+    shape: tuple = (240, 320),
+    seed: int = 0,
+    radius: float = 1.2,
+    lap_frames: int = 160,
+    baseline: float = 0.11,
+    textures=None,
+    device=None,
+) -> SyntheticStereoSequence:
+    """A lap-plus-overshoot stereo sequence (see `lap_trajectory`): the
+    loop-closure workload in the EuRoC-rig geometry, on `cuda:0` unless
+    `device` says otherwise."""
+    dev = resolve_device(device)
+    poses = lap_trajectory(n_frames, radius=radius, lap_frames=lap_frames,
+                           device=dev)
+    return _render_stereo(poses, shape, seed, textures, baseline)
 
 
 @torch.no_grad()

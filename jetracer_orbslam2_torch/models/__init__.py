@@ -1,1 +1,2 @@
-"""Per-frame models of the port: ORB front-end, RGB-D tracking, odometry."""
+"""Per-frame models of the port: ORB front-end (RGB-D and stereo), tracking,
+odometry, the IMU prior and the SLAM system."""

@@ -4,7 +4,8 @@ Counterpart of `jetracer_orbslam2_tpu/models/frontend.py`: gray -> blur ->
 pyramid -> FAST+NMS (the hand-written kernel, once per frame for every level
 and both thresholds) -> grid NMS -> top-K -> patches (the hand-written gather
 kernel, once per frame, straight from the pyramid levels) -> orientation
--> BRIEF-256 -> backprojection.
+-> BRIEF-256 -> (depth-to-colour alignment for an unregistered depth camera)
+-> backprojection.
 Eager PyTorch on one stream; nothing here reads a value back to the host.
 """
 
@@ -43,28 +44,39 @@ class Features(NamedTuple):
     has_point: Tensor  # (K,) bool valid AND has usable depth
 
 
-def extract_features(
-    gray: Tensor,
-    cfg: FrontendConfig,
-) -> tuple[Keypoints, Tensor, Tensor]:
-    """Detect + describe on a grayscale image.
-
-    Returns (keypoints, angles, descriptors).
-    """
+def pyramid_levels(gray: Tensor, cfg: FrontendConfig) -> list[Tensor]:
+    """3x3 blur, then the half-sampled pyramid (contiguous levels)."""
     blurred = preprocess.gaussian_blur_3x3(gray)
-    levels = preprocess.build_pyramid(blurred, cfg.num_levels)
+    return [img.contiguous()
+            for img in preprocess.build_pyramid(blurred, cfg.num_levels)]
 
-    # two-threshold adaptive detection (ORB-SLAM2 iniThFAST / minThFAST):
-    # cells empty at the primary epsilon take the low-epsilon winner, so
-    # texture-poor views keep features.  Every level at both thresholds comes
-    # from one kernel launch.
+
+def fast_responses(levels: list[Tensor], cfg: FrontendConfig):
+    """FAST + 3x3 NMS of every level in `levels` at the configuration's
+    thresholds: out[threshold][level], in one kernel launch for every
+    `fused_fast.MAX_LEVELS` levels (one launch for a 4-level pyramid, and for
+    both pyramids of a stereo pair).
+
+    Two-threshold adaptive detection (ORB-SLAM2 iniThFAST / minThFAST):
+    cells empty at the primary epsilon take the low-epsilon winner, so
+    texture-poor views keep features."""
     thresholds = [cfg.fast_threshold]
     if cfg.fast_min_threshold > 0.0:
         thresholds.append(cfg.fast_min_threshold)
-    levels = [img.contiguous() for img in levels]
-    resp = fused_fast.fast_nms_pyramid(
-        levels, thresholds, cfg.fast_arc_length, cfg.fast_border)
+    out = [[] for _ in thresholds]
+    for at in range(0, len(levels), fused_fast.MAX_LEVELS):
+        part = fused_fast.fast_nms_pyramid(
+            levels[at:at + fused_fast.MAX_LEVELS], thresholds,
+            cfg.fast_arc_length, cfg.fast_border)
+        for row, got in zip(out, part):
+            row.extend(got)
+    return out
 
+
+def describe_levels(levels: list[Tensor], resp, cfg: FrontendConfig
+                    ) -> tuple[Keypoints, Tensor, Tensor]:
+    """Grid NMS, top-K, patches, orientation and BRIEF of one image, from its
+    pyramid and its FAST responses.  Returns (keypoints, angles, descriptors)."""
     winners = []
     for i, primary in enumerate(resp[0]):
         hi = nms.grid_nms(primary, cfg.cell_size, suppress=False)
@@ -83,6 +95,28 @@ def extract_features(
     angles = orb.orientation(patch)
     desc = orb.describe(patch, angles, cfg.descriptor_bits, cfg.num_angle_bins)
     return kp, angles, desc
+
+
+def extract_features(
+    gray: Tensor,
+    cfg: FrontendConfig,
+) -> tuple[Keypoints, Tensor, Tensor]:
+    """Detect + describe on a grayscale image: one FAST+NMS launch for every
+    level and both thresholds, one patch-gather launch.
+
+    Returns (keypoints, angles, descriptors).
+    """
+    levels = pyramid_levels(gray, cfg)
+    return describe_levels(levels, fast_responses(levels, cfg), cfg)
+
+
+def calib_table(name: str, values, dev):
+    """A calibration tuple (or array) as a cached f32 tensor on `dev`; None
+    stays None."""
+    if values is None:
+        return None
+    arr = np.asarray(values, np.float32)
+    return const_table((name, tuple(arr.ravel().tolist())), lambda: arr, dev)
 
 
 @torch.no_grad()
@@ -117,10 +151,6 @@ def frontend_gray_depth(
 
     Runs on `cuda:0` (raising without one) unless `device` says otherwise;
     inputs may be numpy arrays or tensors on any device."""
-    if cfg.depth_intrinsics is not None:
-        raise NotImplementedError(
-            "unregistered depth (FrontendConfig.depth_intrinsics) needs "
-            "align_depth_to_color, which is not ported yet")
     set_exact_f32()
     dev = resolve_device(device)
     gray = as_f32(gray, dev)
@@ -130,9 +160,17 @@ def frontend_gray_depth(
     # camera distortion (cfg.dist): depth is registered to the RAW image,
     # so sampling happens at raw coords; deprojection undistorts the ray
     # and the published keypoint coords are ideal-pinhole.
-    dist = (None if cfg.dist is None
-            else const_table(("dist", tuple(cfg.dist)),
-                             lambda: np.asarray(cfg.dist, np.float32), dev))
+    dist = calib_table("dist", cfg.dist, dev)
+    if cfg.depth_intrinsics is not None:
+        # UNREGISTERED depth camera: re-render the depth map into the colour
+        # frame first
+        depth = align.align_depth_to_color(
+            depth, calib_table("depth_intrinsics", cfg.depth_intrinsics, dev),
+            intrinsics,
+            calib_table("T_color_depth", cfg.T_color_depth, dev).reshape(4, 4),
+            tuple(gray.shape),
+            depth_dist=calib_table("depth_dist", cfg.depth_dist, dev),
+            color_dist=dist, device=dev)
     pts, has_depth = align.backproject_keypoints(
         kp.xy, depth, intrinsics, dist=dist, model=cfg.dist_model,
         min_depth=min_depth, max_depth=max_depth

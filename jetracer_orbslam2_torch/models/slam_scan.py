@@ -32,6 +32,7 @@ from jetracer_orbslam2_torch.models.backend import map as map_mod
 from jetracer_orbslam2_torch.models.backend.map import MapState
 from jetracer_orbslam2_torch.models.frontend import Features, frontend_gray_depth
 from jetracer_orbslam2_torch.models.odometry import make_generator
+from jetracer_orbslam2_torch.models.stereo import frontend_stereo
 from jetracer_orbslam2_torch.ops import geometry as geo
 from jetracer_orbslam2_torch.utils.device import as_f32, resolve_device
 from jetracer_orbslam2_torch.utils.precision import set_exact_f32
@@ -68,11 +69,19 @@ class ScanOutput(NamedTuple):
 
 
 def _features(gray, depth, intrinsics, cfg: SystemConfig, dev) -> Features:
-    """Per-frame feature extraction, RGB-D: (gray, depth) -> Features."""
-    if cfg.stereo is not None:
-        raise NotImplementedError(
-            "the stereo front-end (SystemConfig.stereo) is not ported yet")
+    """Per-frame feature extraction.  RGB-D: (gray, depth) -> Features.
+    Stereo (cfg.stereo set): the second channel IS the right image, and depth
+    comes from the stereo front-end's epipolar matching."""
     t = cfg.tracking
+    if cfg.stereo is not None:
+        s = cfg.stereo
+        return frontend_stereo(
+            gray, depth, intrinsics, s.baseline, cfg.frontend,
+            max_disparity=s.max_disparity, epipolar_tol=s.epipolar_tol,
+            max_hamming=s.max_hamming,
+            min_depth=t.min_depth, max_depth=t.max_depth,
+            dist_r=s.dist_r, rect_l=s.rect_l, rect_r=s.rect_r,
+            intrinsics_r=s.intrinsics_r, device=dev)
     return frontend_gray_depth(
         gray, depth, intrinsics, cfg.frontend,
         min_depth=t.min_depth, max_depth=t.max_depth, device=dev)
@@ -191,7 +200,8 @@ def slam_scan(
     live=None,                   # (N,) host bools; False = padding
 ) -> tuple[ScanState, ScanOutput]:
     """Run the FULL SLAM system over an (N, H, W) frame stack on the state's
-    device.
+    device.  `depths` holds the depth maps, or the right images when
+    `cfg.stereo` is set.
 
     imu_valid and live are read on the host (a tensor is fetched once, before
     the loop).  Frames with live=False are inert padding: no tracking, no
@@ -266,8 +276,9 @@ class ChunkedSlam:
         self.imu_state = imu_mod.init_state()
 
     def process_frame(self, gray, depth, imu_packet=None) -> Optional[ScanOutput]:
-        """Feed one frame; returns the chunk's ScanOutput (numpy fields)
-        every `chunk_size` frames, None otherwise.
+        """Feed one frame (`depth` is the right image when `cfg.stereo` is
+        set); returns the chunk's ScanOutput (numpy fields) every
+        `chunk_size` frames, None otherwise.
 
         imu_packet: optional fixed-size per-frame IMU packet (gyro, gyro_ts,
         accel, gyro_valid, accel_valid).  The gyro integral between frames

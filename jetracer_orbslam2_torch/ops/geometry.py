@@ -233,6 +233,25 @@ def undistort_pixels(xy: Tensor, intrinsics: Tensor, dist: Tensor | None,
     return torch.stack([xyn[..., 0] * fx + cx, xyn[..., 1] * fy + cy], -1)
 
 
+def distort_pixels(xy: Tensor, intrinsics: Tensor, dist: Tensor | None,
+                   model: str = "brown_conrady",
+                   rect: Tensor | None = None) -> Tensor:
+    """Ideal-pinhole pixel coords (..., 2) -> RAW pixel coords (the inverse
+    of `undistort_pixels`, same `rect` convention)."""
+    fx, fy, cx, cy = intrinsics[0], intrinsics[1], intrinsics[2], intrinsics[3]
+    xn = (xy[..., 0] - cx) / fx
+    yn = (xy[..., 1] - cy) / fy
+    xyn = torch.stack([xn, yn], -1)
+    if rect is not None:
+        ray = torch.stack(
+            [xyn[..., 0], xyn[..., 1], torch.ones_like(xyn[..., 0])], -1)
+        ray = ray @ rect            # rect^-1 = rect^T applied to rays
+        xyn = ray[..., :2] / _safe_z(ray[..., 2])[..., None]
+    if dist is not None:
+        xyn = _DISTORT[model](xyn, dist)
+    return torch.stack([xyn[..., 0] * fx + cx, xyn[..., 1] * fy + cy], -1)
+
+
 def project(points: Tensor, intrinsics: Tensor, dist: Tensor | None = None,
             model: str = "brown_conrady") -> Tensor:
     """Camera-frame 3D (..., 3) -> pixel coords (..., 2).

@@ -1,17 +1,21 @@
-"""CLI entry of the port: run SLAM or odometry on a synthetic sequence.
+"""CLI entry of the port: run SLAM or odometry on a dataset or a synthetic
+sequence.
 
+    python -m jetracer_orbslam2_torch.run --dataset tests/fixtures/tum_tiny
+    python -m jetracer_orbslam2_torch.run --dataset tests/fixtures/euroc_tiny/mav0 --chunked 4
     python -m jetracer_orbslam2_torch.run --synthetic 100
-    python -m jetracer_orbslam2_torch.run --synthetic 100 --chunked 8
     python -m jetracer_orbslam2_torch.run --synthetic 100 --mode odometry
     python -m jetracer_orbslam2_torch.run --synthetic 8 --device cpu
 
-Counterpart of `jetracer_orbslam2_tpu/run.py` for the part of the system that
-is ported: on `--synthetic N` frames, `--mode slam` (the default: the full
-system through the host loop `Slam`, or through `ChunkedSlam` with
-`--chunked C`) and `--mode odometry` (whole-sequence or `--chunked C`).
-`--dataset`, `--mesh`, `--telemetry`, `--checkpoint` and `--resume` are not
-ported yet and exit with code 2.  Runs on `cuda:0` unless `--device cpu` is
-given.
+Counterpart of `jetracer_orbslam2_tpu/run.py`.  The source is `--dataset DIR`
+(TUM RGB-D, EuRoC `mav0/` or KITTI odometry, sniffed by `open_dataset`) or
+`--synthetic N` frames.  `--mode slam` (the default) runs the full system
+through the host loop `Slam`, or through `ChunkedSlam` with `--chunked C`;
+a stereo dataset (baseline > 0) runs the stereo front-end, and its IMU
+packets feed the attitude filter.  `--mode odometry` (whole-sequence or
+`--chunked C`) needs depth frames.  `--mesh`, `--telemetry`, `--checkpoint`
+and `--resume` are not ported yet and exit with code 2.  Runs on `cuda:0`
+unless `--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -24,19 +28,26 @@ import time
 
 log = logging.getLogger("jetracer_orbslam2_torch")
 
+_NO_CAL = {"dist": None, "dist_model": "brown_conrady", "dist_r": None,
+           "rect_l": None, "rect_r": None, "intrinsics_r": None,
+           "depth_intrinsics": None, "depth_dist": None,
+           "T_color_depth": None}
+
 
 def build_argparser():
     p = argparse.ArgumentParser(description="PyTorch/CUDA SLAM runner")
-    p.add_argument("--dataset", help="dataset directory (not ported yet)")
+    p.add_argument("--dataset", help="TUM / EuRoC mav0 / KITTI sequence dir")
     p.add_argument("--synthetic", type=int, default=0,
-                   help="run on N synthetic frames")
+                   help="run on N synthetic frames instead of a dataset")
     p.add_argument("--mode", choices=("odometry", "slam"), default="slam",
                    help="slam = full system (map/BA/loops); odometry = "
                         "whole-sequence on-device frame loop (RGB-D)")
     p.add_argument("--chunked", type=int, default=0, metavar="C",
                    help="processing over C-frame chunks: with --mode slam "
-                        "the full system through ChunkedSlam, with --mode "
-                        "odometry constant-memory streaming")
+                        "the full system through ChunkedSlam (RGB-D or "
+                        "stereo), with --mode odometry constant-memory "
+                        "streaming")
+    p.add_argument("--max-frames", type=int, default=0)
     for flag, meta in (("--mesh", "N"), ("--telemetry", "PORT"),
                        ("--checkpoint", "DIR"), ("--resume", "DIR")):
         p.add_argument(flag, metavar=meta, help="not ported yet")
@@ -57,19 +68,48 @@ def build_argparser():
 
 
 def _open_source(args, device):
-    """Resolve the frame source.  Returns (frames() iterator of (gray,
-    depth) device tensors, n, (h, w), intrinsics, gt poses as numpy)."""
-    from jetracer_orbslam2_torch.io.synthetic import generate_sequence
+    """Resolve the frame source.  Returns (frames() iterator of (gray, depth,
+    right, imu_packet), n, (h, w), intrinsics, baseline, gt poses as numpy or
+    None, cal), where gray / depth / right are tensors on `device` (None where
+    the source has none), imu_packet a tuple of numpy arrays or None, and cal
+    the camera calibration the loader found (the keys of `_NO_CAL`)."""
+    import numpy as np
+    import torch
 
-    n = args.synthetic
-    seq = generate_sequence(n_frames=n, shape=(480, 640), device=device)
-    gt = seq.poses.cpu().numpy()
+    if args.synthetic:
+        from jetracer_orbslam2_torch.io.synthetic import generate_sequence
+
+        n = args.synthetic
+        seq = generate_sequence(n_frames=n, shape=(480, 640), device=device)
+        gt = seq.poses.cpu().numpy()
+
+        def frames():
+            for i in range(n):
+                yield seq.gray[i], seq.depth[i], None, None
+
+        return frames, n, (480, 640), seq.intrinsics, 0.0, gt, dict(_NO_CAL)
+
+    from jetracer_orbslam2_torch.io.datasets import open_dataset
+
+    ds = open_dataset(args.dataset)
+    n = len(ds) if not args.max_frames else min(len(ds), args.max_frames)
+    gt = ds.groundtruth[:n] if ds.groundtruth is not None else None
+    # per-frame IMU packets when the dataset ships an IMU (EuRoC imu0)
+    imu_pk = getattr(ds, "imu_packets", lambda: None)()
+    cal = {k: getattr(ds, k, v) for k, v in _NO_CAL.items()}
+
+    def to_dev(a):
+        return None if a is None else torch.from_numpy(a).to(device)
 
     def frames():
         for i in range(n):
-            yield seq.gray[i], seq.depth[i]
+            fr = ds.frame(i)
+            pk = None if imu_pk is None else tuple(p[i] for p in imu_pk)
+            yield to_dev(fr.gray), to_dev(fr.depth), to_dev(fr.right), pk
 
-    return frames, n, (480, 640), seq.intrinsics, gt
+    intr = torch.from_numpy(np.asarray(ds.intrinsics, np.float32)).to(device)
+    return (frames, n, ds.frame(0).gray.shape, intr, float(ds.baseline), gt,
+            cal)
 
 
 def _sync(device) -> None:
@@ -79,20 +119,42 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _run_odometry(args, frames, n, hw, intr, device):
-    """Whole-sequence on-device odometry (or constant-memory chunks)."""
+def _frontend_cfg(args, hw, cal):
+    from jetracer_orbslam2_torch.config import FrontendConfig
+
+    h, w = hw
+    return FrontendConfig(
+        height=h, width=w, num_levels=args.levels,
+        max_keypoints=args.max_keypoints,
+        fast_min_threshold=args.fast_min_threshold,
+        dist=cal["dist"], dist_model=cal["dist_model"],
+        depth_intrinsics=cal["depth_intrinsics"],
+        depth_dist=cal["depth_dist"], T_color_depth=cal["T_color_depth"])
+
+
+def _tup(v):
+    return None if v is None else tuple(float(x) for x in v)
+
+
+_NEEDS_DEPTH = ("odometry mode needs depth frames (RGB-D dataset or "
+                "--synthetic); use --mode slam for stereo datasets")
+
+
+def _run_odometry(args, frames, n, hw, intr, baseline, cal, device):
+    """Whole-sequence on-device odometry (or constant-memory chunks).
+    Returns None when the source has no depth."""
     import numpy as np
     import torch
 
-    from jetracer_orbslam2_torch.config import FrontendConfig, TrackingConfig
+    from jetracer_orbslam2_torch.config import TrackingConfig
     from jetracer_orbslam2_torch.models.odometry import (
         ChunkedOdometry, init_state, odometry_scan)
 
-    h, w = hw
-    fcfg = FrontendConfig(height=h, width=w, num_levels=args.levels,
-                          max_keypoints=args.max_keypoints,
-                          fast_min_threshold=args.fast_min_threshold)
+    fcfg = _frontend_cfg(args, hw, cal)
     tcfg = TrackingConfig()
+    if baseline > 0.0:
+        log.error(_NEEDS_DEPTH)
+        return None
 
     if args.chunked:
         ch = ChunkedOdometry(intr, fcfg, tcfg, chunk_size=args.chunked,
@@ -100,7 +162,10 @@ def _run_odometry(args, frames, n, hw, intr, device):
         _sync(device)
         t0 = time.perf_counter()
         count = 0
-        for g, d in frames():
+        for g, d, _, _ in frames():
+            if d is None:
+                log.error(_NEEDS_DEPTH)
+                return None
             ch.process_frame(g, d)
             count += 1
         ch.flush()
@@ -113,7 +178,13 @@ def _run_odometry(args, frames, n, hw, intr, device):
             "tracked_frac": float(np.mean(ok)),
         }, poses
 
-    gray, depth = zip(*frames())
+    gray, depth = [], []
+    for g, d, _, _ in frames():
+        if d is None:
+            log.error(_NEEDS_DEPTH)
+            return None
+        gray.append(g)
+        depth.append(d)
     gray = torch.stack(gray)
     depth = torch.stack(depth)
 
@@ -134,34 +205,50 @@ def _run_odometry(args, frames, n, hw, intr, device):
     }, poses
 
 
-def _run_slam(args, frames, n, hw, intr, device):
+def _run_slam(args, frames, n, hw, intr, baseline, cal, device):
     """The full system: the host loop `Slam`, or `ChunkedSlam` over
-    `--chunked C` frames at a time."""
+    `--chunked C` frames at a time; stereo when the source has a baseline.
+    Returns None when a frame has neither depth nor a right image."""
     import numpy as np
 
-    from jetracer_orbslam2_torch.config import FrontendConfig, SystemConfig
+    from jetracer_orbslam2_torch.config import (
+        StereoConfig, SystemConfig, TrackingConfig)
     from jetracer_orbslam2_torch.models.slam import Slam
     from jetracer_orbslam2_torch.models.slam_scan import ChunkedSlam
+    from jetracer_orbslam2_torch.models.stereo import frontend_stereo
 
-    h, w = hw
-    cfg = SystemConfig(frontend=FrontendConfig(
-        height=h, width=w, num_levels=args.levels,
-        max_keypoints=args.max_keypoints,
-        fast_min_threshold=args.fast_min_threshold))
+    fcfg = _frontend_cfg(args, hw, cal)
+    is_stereo = baseline > 0.0
 
     if args.chunked:
+        stereo_cfg, tcfg = None, TrackingConfig()
+        if is_stereo:
+            # each chunk's frames are (left, right) pairs, and the stereo
+            # front-end runs inside the scan step (models/slam_scan._features)
+            stereo_cfg = StereoConfig(
+                baseline=float(baseline),
+                dist_r=_tup(cal["dist_r"]), rect_l=_tup(cal["rect_l"]),
+                rect_r=_tup(cal["rect_r"]),
+                intrinsics_r=_tup(cal["intrinsics_r"]))
+            tcfg = TrackingConfig(max_depth=80.0)
+        cfg = SystemConfig(frontend=fcfg, tracking=tcfg, stereo=stereo_cfg)
         ch = ChunkedSlam(cfg, intr, chunk_size=args.chunked, device=device)
         _sync(device)
         t0 = time.perf_counter()
         count = 0
-        for g, d in frames():
-            ch.process_frame(g, d)
+        for g, d, right, pk in frames():
+            second = right if is_stereo else d
+            if second is None:
+                log.error("--chunked needs RGB-D or stereo frames")
+                return None
+            ch.process_frame(g, second, imu_packet=pk)
             count += 1
         ch.flush()
         poses = ch.result()
         wall = time.perf_counter() - t0
         return {
             "mode": f"slam-chunked{args.chunked}",
+            "stereo": is_stereo,
             "frames": count,
             "fps": round(count / wall, 2),
             "tracked_frac": float(np.mean(ch.tracked())),
@@ -171,12 +258,26 @@ def _run_slam(args, frames, n, hw, intr, device):
             "relocs": int(ch.state.num_relocs),
         }, poses
 
+    cfg = SystemConfig(frontend=fcfg)
     slam = Slam(cfg, intr, device=device)
+    t_max = cfg.tracking.max_depth
     _sync(device)
     t0 = time.perf_counter()
     count = 0
-    for g, d in frames():
-        slam.process_frame(g, d)
+    for g, d, right, pk in frames():
+        if is_stereo:
+            feats = frontend_stereo(
+                g, right, intr, float(baseline), cfg.frontend,
+                max_depth=t_max if t_max > 8 else 80.0,
+                dist_r=cal["dist_r"], rect_l=cal["rect_l"],
+                rect_r=cal["rect_r"], intrinsics_r=cal["intrinsics_r"],
+                device=device)
+        elif d is None:
+            log.error("slam mode needs depth or stereo frames")
+            return None
+        else:
+            feats = slam.features(g, d)
+        slam.process_features(feats, imu_packet=pk)
         count += 1
         if count % 50 == 0:
             log.info("[%d/%d] loops=%d", count, n, slam.num_loops)
@@ -184,6 +285,7 @@ def _run_slam(args, frames, n, hw, intr, device):
     wall = time.perf_counter() - t0
     return {
         "mode": "slam",
+        "stereo": is_stereo,
         "frames": count,
         "fps": round(count / wall, 2),
         "tracked_frac": float(np.mean(out.tracked)),
@@ -191,6 +293,7 @@ def _run_slam(args, frames, n, hw, intr, device):
         "landmarks": out.num_landmarks,
         "loops": out.num_loops,
         "relocs": out.num_relocs,
+        "attitude_rad": [round(float(x), 4) for x in slam.attitude],
     }, out.poses
 
 
@@ -219,13 +322,13 @@ def main(argv=None) -> int:
         format="%(asctime)s %(name)s %(levelname)s %(message)s",
         stream=sys.stderr)
 
-    for flag in ("dataset", "mesh", "telemetry", "checkpoint", "resume"):
+    for flag in ("mesh", "telemetry", "checkpoint", "resume"):
         if getattr(args, flag):
-            print(f"--{flag} is not ported yet in jetracer_orbslam2_torch; "
-                  "use --synthetic N", file=sys.stderr)
+            print(f"--{flag} is not ported yet in jetracer_orbslam2_torch",
+                  file=sys.stderr)
             return 2
-    if not args.synthetic:
-        print("need --synthetic N", file=sys.stderr)
+    if not args.synthetic and not args.dataset:
+        print("need --dataset or --synthetic", file=sys.stderr)
         return 2
 
     from jetracer_orbslam2_torch.utils.device import resolve_device
@@ -235,11 +338,14 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     log.info("running on %s", device)
 
-    frames, n, hw, intr, gt = _open_source(args, device)
+    frames, n, hw, intr, baseline, gt, cal = _open_source(args, device)
     run = _run_odometry if args.mode == "odometry" else _run_slam
-    report, poses = run(args, frames, n, hw, intr, device)
+    res = run(args, frames, n, hw, intr, baseline, cal, device)
+    if res is None:
+        return 2
+    report, poses = res
     report["device"] = str(device)
-    _accuracy(report, poses, gt, min(n, len(poses)))
+    _accuracy(report, poses, gt, min(report["frames"], len(poses)))
     print(json.dumps(report))
     return 0
 

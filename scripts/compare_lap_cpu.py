@@ -3,6 +3,7 @@
 the CPU, on the same frames.
 
     JAX_PLATFORMS=cpu python3 scripts/compare_lap_cpu.py [--seeds 0 1 2]
+        [--frontend jax|port]
 
 Renders the lap of the JAX package's SLAM gate (126 frames of 240x180, one lap
 of 110, 3 levels, 512 keypoints, match window 16 px, depth noise 2 % z^2 from
@@ -13,8 +14,10 @@ can close).  Prints one JSON line per run: keyframes, loops, tracked fraction,
 ATE and the mean gap between the revisit (frames 110..125) and the frames it
 revisits (0..15).  The two packages draw different RANSAC samples, so the port
 is run once per `--seeds` value; the spread says how much of the lap's ATE is
-the draw, and the gate-shut runs say what the closure did to it.  Needs JAX and
-torch; no GPU.
+the draw, and the gate-shut runs say what the closure did to it.  With
+`--frontend port` the port's `Slam` extracts its own features from the same
+frames (its own front-end, as on the card) instead of taking the JAX
+package's.  Needs JAX and torch; no GPU.
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2],
                     help="seeds of the port's RANSAC generator, one run each")
+    ap.add_argument("--frontend", choices=("jax", "port"), default="jax",
+                    help="whose front-end feeds the port's Slam")
     args = ap.parse_args(argv)
 
     import jax.numpy as jnp
@@ -82,13 +87,18 @@ def main(argv=None) -> int:
 
     feats_np = [{name: np.asarray(getattr(f, name)) for name in f._fields}
                 for f in feats]
+    gray, noisy_np = np.asarray(seq.gray), np.asarray(noisy)
     for seed in args.seeds:
         for gate, tc in (("as configured", tcfg),
                          ("shut", tcfg.replace(loop=LoopClosureConfig(min_sim=2.0)))):
             slam = Slam(tc, np.asarray(seq.intrinsics), seed=seed, device="cpu")
-            for f in feats_np:
-                slam.process_features(convert.features_from_numpy(f, "cpu"))
-            report("jetracer_orbslam2_torch", slam.result(), seed=seed, loop_gate=gate)
+            for i, f in enumerate(feats_np):
+                if args.frontend == "port":
+                    slam.process_frame(gray[i], noisy_np[i])
+                else:
+                    slam.process_features(convert.features_from_numpy(f, "cpu"))
+            report("jetracer_orbslam2_torch", slam.result(), seed=seed,
+                   loop_gate=gate, frontend=args.frontend)
     return 0
 
 

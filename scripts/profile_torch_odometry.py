@@ -5,6 +5,7 @@ adjustment, or its SLAM loop, on the GPU.
     python3 scripts/profile_torch_odometry.py [--frames 120] [--trace out.json]
     python3 scripts/profile_torch_odometry.py --ba [--landmarks 4096]
     python3 scripts/profile_torch_odometry.py --slam
+    python3 scripts/profile_torch_odometry.py --stereo
 
 Renders a 640x480 synthetic sequence on the card, warms the loop up, then
 runs `odometry_scan` over `--frames` frames under `torch.profiler` with the
@@ -28,6 +29,10 @@ frames of 240x180, 3 levels, 512 keypoints, depth noise 2 % z^2): the host
 waits and the ATen ops of one plain frame and of one keyframe frame, their
 wall time, then the wall time of an untraced pass over the lap and the
 device-busy and idle share of a device-traced one.
+With `--stereo` it does the same for the stereo SLAM loop on the arc of
+`chip_smoke.py` phase 18 (120 stereo pairs of 640x480, 4 levels, 1,024
+keypoints, two FAST thresholds), after the host waits and ATen ops of one
+`frontend_stereo` call.
 Needs a CUDA device; imports torch and the port only.
 """
 
@@ -196,37 +201,63 @@ def profile_ba(landmarks: int, rows: int) -> None:
               flush=True)
 
 
-def profile_slam(rows: int) -> None:
-    """`slam_scan` on the gated lap: waits, ops and wall time of one plain
-    frame and of one keyframe frame; wall, device-busy and idle share of the
-    whole lap."""
+def profile_slam(rows: int, stereo: bool = False) -> None:
+    """`slam_scan` on the gated lap (or, `stereo`, on the stereo arc of
+    chip_smoke.py phase 18): waits, ops and wall time of one plain frame and
+    of one keyframe frame; wall, device-busy and idle share of the whole
+    sequence."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from jetracer_orbslam2_torch.config import (
-        FrontendConfig, SystemConfig, TrackingConfig)
-    from jetracer_orbslam2_torch.io.synthetic import generate_lap_sequence
+        FrontendConfig, StereoConfig, SystemConfig, TrackingConfig)
+    from jetracer_orbslam2_torch.io.synthetic import (
+        generate_lap_sequence, generate_stereo_sequence)
     from jetracer_orbslam2_torch.models import slam as slam_mod
     from jetracer_orbslam2_torch.models import slam_scan as ss
 
-    h, w, n, lap = 180, 240, 126, 110
-    cfg = SystemConfig(
-        frontend=FrontendConfig(height=h, width=w, num_levels=3, max_keypoints=512),
-        tracking=TrackingConfig(match_window=16.0))
-    seq = generate_lap_sequence(n, (h, w), lap_frames=lap)
-    dev = seq.gray.device
-    rnd = torch.from_numpy(np.random.RandomState(0).randn(
-        *seq.depth.shape).astype(np.float32)).to(dev)
-    depth = seq.depth * (1.0 + 0.02 * seq.depth * rnd)
+    if stereo:
+        h, w, n = 480, 640, 120
+        cfg = SystemConfig(
+            frontend=FrontendConfig(height=h, width=w, fast_min_threshold=7.0),
+            tracking=TrackingConfig(max_depth=80.0),
+            stereo=StereoConfig(baseline=0.11))
+        seq = generate_stereo_sequence(n, (h, w), baseline=0.11)
+        firsts, depth = seq.left, seq.right
+    else:
+        h, w, n, lap = 180, 240, 126, 110
+        cfg = SystemConfig(
+            frontend=FrontendConfig(height=h, width=w, num_levels=3,
+                                    max_keypoints=512),
+            tracking=TrackingConfig(match_window=16.0))
+        seq = generate_lap_sequence(n, (h, w), lap_frames=lap)
+        rnd = torch.from_numpy(np.random.RandomState(0).randn(
+            *seq.depth.shape).astype(np.float32)).to(seq.gray.device)
+        firsts, depth = seq.gray, seq.depth * (1.0 + 0.02 * seq.depth * rnd)
     intr = seq.intrinsics
     no_imu = (None, False)
+    loop_name = "stereo SLAM loop" if stereo else "SLAM loop"
+
+    if stereo:
+        from jetracer_orbslam2_torch.models.stereo import frontend_stereo
+
+        def front():
+            out = frontend_stereo(firsts[5], depth[5], intr, 0.11, cfg.frontend,
+                                  min_depth=cfg.tracking.min_depth,
+                                  max_depth=80.0)
+            torch.cuda.synchronize()
+            return out
+
+        front()
+        report_syncs(front, "one frontend_stereo call")
+        report_op_counts(front, rows, "one frontend_stereo call")
 
     def lap_pass():
-        state = ss.init_scan_state(seq.gray[0], depth[0], intr, cfg)
+        state = ss.init_scan_state(firsts[0], depth[0], intr, cfg)
         t0 = time.perf_counter()
-        final, out = ss.slam_scan(state, seq.gray[1:], depth[1:], intr, cfg)
+        final, out = ss.slam_scan(state, firsts[1:], depth[1:], intr, cfg)
         torch.cuda.synchronize()
         return final, out, time.perf_counter() - t0
 
@@ -244,12 +275,12 @@ def profile_slam(rows: int) -> None:
         return out
 
     slam_mod.local_ba = watched_local_ba
-    state = ss.init_scan_state(seq.gray[0], depth[0], intr, cfg)
+    state = ss.init_scan_state(firsts[0], depth[0], intr, cfg)
     examples = {}
     try:
         for i in range(1, n):
             gen = state.generator.get_state()
-            new_state, row = ss._step(state, seq.gray[i], depth[i], no_imu, intr,
+            new_state, row = ss._step(state, firsts[i], depth[i], no_imu, intr,
                                       cfg)
             kind = "keyframe frame" if row[-1] else "plain frame"
             if i > 20 and kind not in examples:
@@ -264,7 +295,7 @@ def profile_slam(rows: int) -> None:
     for kind, (st, i, gen) in examples.items():
         def one():
             st.generator.set_state(gen)
-            out = ss._step(st, seq.gray[i], depth[i], no_imu, intr, cfg)
+            out = ss._step(st, firsts[i], depth[i], no_imu, intr, cfg)
             torch.cuda.synchronize()
             return out
 
@@ -273,7 +304,7 @@ def profile_slam(rows: int) -> None:
             one()
             return time.perf_counter() - t0
 
-        what = f"one {kind} of the SLAM loop (frame {i})"
+        what = f"one {kind} of the {loop_name} (frame {i})"
         report_syncs(one, what)
         report_op_counts(one, rows, what)
         print(f"{what}: {min(timed() for _ in range(5)) * 1e3:.2f} ms wall "
@@ -286,7 +317,7 @@ def profile_slam(rows: int) -> None:
     dev_s = sum(e.self_device_time_total for e in on_device) / 1e6
     launches = sum(e.count for e in on_device)
     frames = n - 1
-    print(f"SLAM loop, {frames} frames of {w}x{h} ({int(out.is_kf.sum())} "
+    print(f"{loop_name}, {frames} frames of {w}x{h} ({int(out.is_kf.sum())} "
           f"keyframes, {int(final.num_loops)} loops): device-traced pass wall "
           f"{wall / frames * 1e3:.3f} ms/frame, device busy "
           f"{dev_s / frames * 1e3:.3f} ms/frame = {dev_s / wall:.1%} of that pass "
@@ -302,6 +333,9 @@ def main(argv=None) -> int:
     ap.add_argument("--slam", action="store_true",
                     help="profile the SLAM loop on the gated lap instead of "
                          "the odometry frame loop")
+    ap.add_argument("--stereo", action="store_true",
+                    help="profile the stereo SLAM loop on chip_smoke.py phase "
+                         "18's arc (120 pairs of 640x480) instead")
     ap.add_argument("--ba", action="store_true",
                     help="profile bundle_adjust (both routes) instead of the "
                          "odometry frame loop")
@@ -333,12 +367,12 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     print(card.stdout.strip().splitlines()[0], flush=True)
-    if args.ba or args.slam:
+    if args.ba or args.slam or args.stereo:
         with torch.no_grad():
             if args.ba:
                 profile_ba(args.landmarks, args.rows)
             else:
-                profile_slam(args.rows)
+                profile_slam(args.rows, stereo=args.stereo)
         return 0
     n, warm, m = args.frames, 8, args.table_frames
     seq = generate_sequence(1 + warm + n, (480, 640), device=dev)

@@ -105,11 +105,21 @@ def test_frontend_rgbd_and_unported_depth_alignment(sequence):
     a = frontend_rgbd(t(rgb), t(s["depth"][0]), t(s["intr"]), FrontendConfig(**_CFG),
                       device="cpu")
     assert int(a.valid.sum()) > 40 and a.desc.dtype == torch.int32
-    with pytest.raises(NotImplementedError):
-        frontend_gray_depth(
-            t(g), t(s["depth"][0]), t(s["intr"]),
-            FrontendConfig(**_CFG, depth_intrinsics=(100.0, 100.0, 80.0, 60.0)),
-            device="cpu")
+    # an unregistered depth camera: the depth map is re-rendered into the
+    # colour frame first, in both packages
+    calib = dict(depth_intrinsics=(152.0, 152.0, 80.5, 59.0),
+                 T_color_depth=(1.0, 0.0, 0.0, 0.02, 0.0, 1.0, 0.0, 0.0,
+                                0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 1.0))
+    ref = jax_features_to_numpy(j_frontend(
+        jnp.asarray(g), jnp.asarray(s["depth"][0]), jnp.asarray(s["intr"]),
+        JFrontendConfig(**_CFG, **calib)))
+    got = features_to_numpy(frontend_gray_depth(
+        t(g), t(s["depth"][0]), t(s["intr"]), FrontendConfig(**_CFG, **calib),
+        device="cpu"))
+    for name in ("xy", "level", "score", "valid", "has_point"):
+        np.testing.assert_array_equal(got[name], ref[name], err_msg=name)
+    close(got["points"], ref["points"], rtol=0, atol=1e-5)
+    assert ref["has_point"].sum() > 40
 
 
 def _rot_deg(Ra, Rb):

@@ -37,7 +37,8 @@ def test_port_sources_name_no_jax_import():
                 "models/backend/pose_graph.py", "models/slam.py",
                 "ops/fused_ba.py", "parallel/bench_ba.py", "convert.py",
                 "models/backend/loop.py", "models/imu.py", "models/slam_scan.py",
-                "ops/fused_patches.py"):
+                "ops/fused_patches.py", "models/stereo.py", "io/datasets.py",
+                "io/native_loader.py"):
         assert f"jetracer_orbslam2_torch/{new}" in names
     for path in files:
         assert not _FORBIDDEN.search(path.read_text()), path
@@ -63,6 +64,8 @@ count = 0
 for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(info.name)
     count += 1
+for name in ("models.stereo", "io.datasets", "io.native_loader"):
+    assert "jetracer_orbslam2_torch." + name in sys.modules, name
 import chip_smoke
 leaked = [m for m in sys.modules
           if m.split(".")[0] in ("jaxlib", "jetracer_orbslam2_tpu")
@@ -208,9 +211,7 @@ def test_set_exact_f32():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--dataset", "/nonexistent"],
-    ["--mode", "slam"],                          # no --synthetic
-    ["--dataset", "/nonexistent", "--mode", "odometry"],
+    ["--mode", "slam"],                          # no source
     ["--mode", "odometry"],
     ["--synthetic", "4", "--mesh", "4"],
     ["--synthetic", "4", "--telemetry", "9002"],
@@ -221,7 +222,53 @@ def test_cli_refuses_what_is_not_ported(argv, capsys):
     assert trun.main(argv + ["--device", "cpu"]) == 2
     captured = capsys.readouterr()
     assert captured.out == ""
-    assert "not ported" in captured.err or "need --synthetic" in captured.err
+    assert ("not ported" in captured.err
+            or "need --dataset or --synthetic" in captured.err)
+
+
+@pytest.mark.parametrize("mode", ["slam", "odometry"])
+def test_cli_unknown_dataset_layout_raises(mode):
+    """A directory that is no TUM, EuRoC or KITTI sequence: the JAX package's
+    ValueError from `open_dataset`, in both modes."""
+    with pytest.raises(ValueError,
+                       match="unrecognized dataset layout at /nonexistent"):
+        trun.main(["--dataset", "/nonexistent", "--mode", mode,
+                   "--device", "cpu"])
+
+
+def test_stereo_and_dataset_entry_points_default_to_the_card():
+    """The stereo and dataset slice's entry points run on cuda:0 unless asked
+    for the CPU, wherever their inputs lie."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour of a machine without a CUDA device")
+    import numpy as np
+    from jetracer_orbslam2_torch.config import FrontendConfig
+    from jetracer_orbslam2_torch.io import synthetic
+    from jetracer_orbslam2_torch.models.stereo import frontend_stereo
+    from jetracer_orbslam2_torch.ops.align import align_depth_to_color
+
+    g = torch.zeros(48, 64)
+    intr = torch.tensor([50.0, 50.0, 32.0, 24.0])
+    f = FrontendConfig(height=48, width=64, num_levels=1, max_keypoints=16)
+    calls = {
+        "frontend_stereo": lambda **kw: frontend_stereo(g, g, intr, 0.1, f, **kw),
+        "generate_stereo_sequence": lambda **kw:
+            synthetic.generate_stereo_sequence(2, (48, 64), **kw),
+        "generate_stereo_lap_sequence": lambda **kw:
+            synthetic.generate_stereo_lap_sequence(2, (48, 64), lap_frames=8,
+                                                   **kw),
+        "align_depth_to_color": lambda **kw: align_depth_to_color(
+            g, intr, intr, torch.eye(4), (48, 64), **kw),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+        call(device="cpu")
+    fixture = str(ROOT / "tests" / "fixtures" / "kitti_tiny")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        trun.main(["--dataset", fixture, "--max-frames", "2"])
+    assert np.isfinite(align_depth_to_color(
+        g, intr, intr, torch.eye(4), (48, 64), device="cpu").numpy()).all()
 
 
 @pytest.mark.parametrize("extra,mode", [

@@ -144,9 +144,14 @@ def test_empty_scan_stereo_and_mesh(arc):
     assert ss.compose_trajectory(final, out).shape == (0, 4, 4)
     with pytest.raises(NotImplementedError, match="not ported"):
         ss.slam_scan(st, gray[1:2], depth[1:2], intr, CFG, mesh=object())
-    with pytest.raises(NotImplementedError, match="stereo"):
-        ss.init_scan_state(gray[0], depth[0], intr,
-                           CFG.replace(stereo=StereoConfig()), device="cpu")
+    # stereo: the second channel is the right image (here the next frame
+    # of the arc, which is what a camera 2 cm ahead sees); one frame runs
+    scfg = CFG.replace(stereo=StereoConfig(baseline=0.11),
+                       tracking=TrackingConfig(max_depth=80.0))
+    sst = ss.init_scan_state(gray[0], gray[1], intr, scfg, device="cpu")
+    sfinal, sout = ss.slam_scan(sst, gray[1:2], gray[2:3], intr, scfg)
+    assert int(sfinal.frame_idx) == 2 and sout.T_rel.shape == (1, 4, 4)
+    assert torch.isfinite(sout.T_w_emit).all()
     assert ss.ChunkedSlam(CFG, intr, device="cpu").result().shape == (0, 4, 4)
 
 
