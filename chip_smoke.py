@@ -12,8 +12,10 @@ its full capacity (256 keyframe slots, 16,384 landmarks, 65,536
 observations), the pose graph, and the full SLAM system (`slam_scan`, `Slam`,
 the CLI's default mode) with loop closure: a 126-frame lap at 240x180 and
 1,200 frames of 640x480 over three laps; the stereo SLAM system over 120
-stereo pairs of 640x480 (an arc and a lap); and the CLI on the committed TUM,
-EuRoC and KITTI fixtures.  It builds the hand-written CUDA
+stereo pairs of 640x480 (an arc and a lap); the CLI on the committed TUM,
+EuRoC and KITTI fixtures; and the CLI's host loop behind the runtime
+(frame pipeline, watchdog, WebSocket telemetry, checkpoint and resume) on a
+640x480 TUM-layout sequence.  It builds the hand-written CUDA
 kernels from the sources in this checkout, holds each against its plain
 PyTorch version, shows that each path launched its kernels, and times them.
 
@@ -87,10 +89,23 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
                   not, EuRoC rectified and distorted, KITTI; whole and
                   --chunked 4) on the card with the CPU tests' bars; which
                   PNG decoder served; align_depth_to_color card vs CPU
+  20 runtime      the CLI's --mode slam host loop (640x480, 4 levels,
+                  K=1024) on a 120-frame TUM-layout sequence written here:
+                  A the loop without its runtime (this script drives Slam),
+                  B run.main --dataset (FramePipeline + Watchdog), C B +
+                  --telemetry with a client + --checkpoint, D --resume from
+                  C's map (30 frames), then B and A again; A, B, C agree to
+                  the pose (torch.equal), ATE < 10 cm, K1/K4 once a frame,
+                  K2 = K3 = 10 x keyframe updates, no watchdog stall, every
+                  frame pinned, host waits a frame equal in A and B and at
+                  most one more a frame in C's publish, every telemetry
+                  document the viewer's fields at 640x480, the checkpoint's
+                  keyframes; overlay_keypoints card vs CPU; ms a frame,
+                  decode, JPEG time and bytes a frame recorded
 Kernel times are CUDA events around a replayed CUDA graph of launches.  Then
-the paths' reports (the stereo path's and the datasets' on one line), one
-JSON line `{"kernels": [...]}` (launches: the stereo path's), and as the last line
-`{"ok": true, "device": {...}}`.
+the paths' reports (the stereo path's and the datasets' on one line, the
+runtime's on one), one JSON line `{"kernels": [...]}` (launches: the runtime
+path's, phase 20 run C), and as the last line `{"ok": true, "device": {...}}`.
 
 Imports torch and the port only: no JAX, nothing of the JAX package.
 """
@@ -113,7 +128,7 @@ F32_OPS_PER_S = 67e12
 FAST_THRESHOLD, FAST_ARC, FAST_BORDER = 13.0, 12, 19
 SLAM_FAST_MIN_THRESHOLD = 7.0   # the SLAM path's second FAST threshold
 N_FRAMES = 120
-N_PHASES = 19
+N_PHASES = 20
 PATCH = 37
 
 # SLAM path at full width (the JAX package's long-sequence benchmark): frames,
@@ -139,6 +154,10 @@ STEREO_ATE_M = {"arc": 0.15, "lap": 0.21}
 # loop closes on the lap in either package (bench.py's comment reports one
 # on the TPU; ROADMAP.md queue 3).
 STEREO_OUTCOME = {"arc": (0, 4), "lap": (0, 12)}
+
+# runtime phase: frames of the 640x480 TUM-layout sequence written on the card,
+# and frames of the run resumed from its map
+RUNTIME_FRAMES, RUNTIME_RESUME_FRAMES = 120, 30
 
 # BA path: the standalone problem size, and the keyframes of the local-BA map
 BA_POSES, BA_LANDMARKS, BA_OBS_PER_LM, BA_ITERS = 8, 4096, 6, 10
@@ -373,10 +392,10 @@ def open_source(n_frames: int, dev):
     t0 = time.perf_counter()
     source = run._open_source(args, dev)
     torch.cuda.synchronize()
-    frames, n, hw = source[:3]
+    n, hw = source.n, source.hw
     say(f"  rendered {n} frames of {hw[1]}x{hw[0]} on the card in "
         f"{time.perf_counter() - t0:.2f} s")
-    gray0 = next(iter(frames()))[0]
+    gray0 = next(iter(source.frames()))[0]
     levels = preprocess.build_pyramid(
         preprocess.gaussian_blur_3x3(gray0), args.levels)
     return argv, args, source, levels
@@ -414,13 +433,12 @@ def phase_main_path(argv, args, source, dev):
     from jetracer_orbslam2_torch import run
     from jetracer_orbslam2_torch.ops import fused_fast, fused_patches
 
-    frames, n, hw, intr, baseline, gt, cal = source
+    n, gt = source.n, source.gt
     fused_fast.fast_nms_pyramid.launches = 0
     fused_patches.extract_patches_fused.launches = 0
     fused_patches.patch_gather.launches = 0
     with counting_calls() as calls:
-        report, poses = run._run_odometry(args, frames, n, hw, intr, baseline,
-                                          cal, dev)
+        report, poses = run._run_odometry(args, source, dev)
     launches = fused_fast.fast_nms_pyramid.launches
     if fused_patches.extract_patches_fused.launches != n:
         raise SystemExit(f"FAIL: extract_patches_fused launches "
@@ -445,8 +463,7 @@ def phase_main_path(argv, args, source, dev):
 
     # constant-memory streaming on the same frames: the same poses
     chunk_args = run.build_argparser().parse_args(argv + ["--chunked", "32"])
-    c_report, c_poses = run._run_odometry(chunk_args, frames, n, hw, intr,
-                                          baseline, cal, dev)
+    c_report, c_poses = run._run_odometry(chunk_args, source, dev)
     say("  main path (--chunked 32): " + json.dumps(c_report))
     if not np.array_equal(c_poses, poses):
         raise SystemExit("FAIL: --chunked 32 poses differ from the whole scan "
@@ -457,8 +474,7 @@ def phase_main_path(argv, args, source, dev):
     stop = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    w_report, w_poses = run._run_odometry(args, frames, n, hw, intr, baseline,
-                                          cal, dev)
+    w_report, w_poses = run._run_odometry(args, source, dev)
     stop.record()
     stop.synchronize()
     ms = start.elapsed_time(stop)
@@ -919,14 +935,14 @@ def phase_local_ba(args, source, poses, dev) -> dict:
     from jetracer_orbslam2_torch.models.frontend import frontend_gray_depth
     from jetracer_orbslam2_torch.ops import geometry as geo
 
-    frames, n, hw, intr = source[:4]
+    hw, intr = source.hw, source.intr
     fcfg = FrontendConfig(height=hw[0], width=hw[1], num_levels=args.levels,
                           max_keypoints=args.max_keypoints,
                           fast_min_threshold=args.fast_min_threshold)
     cfg = SystemConfig(frontend=fcfg)
     W = cfg.map.window_size
     m = map_mod.init_map(cfg.map, fcfg.max_keypoints)
-    frame_list = list(frames())
+    frame_list = list(source.frames())
     t0 = time.perf_counter()
     for k in range(KF_COUNT):
         i = k * KF_EVERY
@@ -2069,6 +2085,542 @@ def phase_datasets() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# runtime: the --mode slam host loop through FramePipeline, telemetry and
+# checkpoint/resume
+# ---------------------------------------------------------------------------
+
+def _write_tum_sequence(root: str, n_frames: int, dev) -> None:
+    """`n_frames` of 640x480 from the port's `generate_sequence`, written in
+    the TUM layout that scripts/make_tum_fixture.py writes: 8-bit RGB PNGs
+    (the grey image in three channels), 16-bit depth PNGs at 1/5000 m,
+    rgb.txt / depth.txt / groundtruth.txt (TUM quaternion order) and
+    intrinsics.txt."""
+    import concurrent.futures
+    import os
+    import numpy as np
+    from PIL import Image
+    from jetracer_orbslam2_torch.io.synthetic import generate_sequence
+
+    seq = generate_sequence(n_frames=n_frames, shape=(480, 640), device=dev)
+    gray = seq.gray.clamp(0, 255).cpu().numpy().astype(np.uint8)
+    depth = (seq.depth * 5000.0).clamp(0, 65535).cpu().numpy().astype(np.uint16)
+    poses = seq.poses.cpu().numpy()
+    for sub in ("rgb", "depth"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    t0 = 1_305_031_100.0
+    names = [f"{t0 + i / 30.0:.6f}.png" for i in range(n_frames)]
+
+    def write(i):
+        Image.fromarray(np.repeat(gray[i][..., None], 3, -1), mode="RGB").save(
+            os.path.join(root, "rgb", names[i]))
+        Image.fromarray(depth[i]).save(os.path.join(root, "depth", names[i]))
+
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, range(n_frames)))     # zlib releases the GIL
+    gt_lines = []
+    for i, T in enumerate(poses):
+        R = T[:3, :3]
+        qw = np.sqrt(max(0.0, 1.0 + R[0, 0] + R[1, 1] + R[2, 2])) / 2.0
+        qx = (R[2, 1] - R[1, 2]) / (4 * qw)
+        qy = (R[0, 2] - R[2, 0]) / (4 * qw)
+        qz = (R[1, 0] - R[0, 1]) / (4 * qw)
+        tx, ty, tz = T[:3, 3]
+        gt_lines.append(f"{names[i][:-4]} {tx:.6f} {ty:.6f} {tz:.6f} "
+                        f"{qx:.6f} {qy:.6f} {qz:.6f} {qw:.6f}")
+    for fname, lines in (
+            ("rgb.txt", [f"{nm[:-4]} rgb/{nm}" for nm in names]),
+            ("depth.txt", [f"{nm[:-4]} depth/{nm}" for nm in names]),
+            ("groundtruth.txt", gt_lines)):
+        with open(os.path.join(root, fname), "w") as f:
+            f.write("# synthetic TUM-layout sequence 640x480\n# timestamp data\n")
+            f.write("\n".join(lines) + "\n")
+    with open(os.path.join(root, "intrinsics.txt"), "w") as f:
+        f.write(" ".join(f"{v:.4f}" for v in seq.intrinsics.cpu().numpy()) + "\n")
+
+
+def _recv_exact(sock, k: int) -> bytes:
+    out = b""
+    while len(out) < k:
+        chunk = sock.recv(k - len(out))
+        if not chunk:
+            raise ConnectionError("server closed the connection")
+        out += chunk
+    return out
+
+
+class _TelemetryClient:
+    """A WebSocket client as viewer/index.html is one: connects as soon as
+    the server listens, then BSON-decodes every binary frame until the
+    server closes the connection."""
+
+    def __init__(self, port: int):
+        import threading
+
+        self.port, self.docs, self.error = port, [], None
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _connect(self):
+        import socket
+        from jetracer_orbslam2_torch.runtime.telemetry import _accept_key
+
+        s = socket.create_connection(("127.0.0.1", self.port), timeout=3)
+        key = "dGhlIHNhbXBsZSBub25jZQ=="
+        s.sendall((f"GET / HTTP/1.1\r\nHost: 127.0.0.1:{self.port}\r\n"
+                   "Upgrade: websocket\r\nConnection: Upgrade\r\n"
+                   f"Sec-WebSocket-Key: {key}\r\n"
+                   "Sec-WebSocket-Version: 13\r\n\r\n").encode())
+        resp = b""
+        while b"\r\n\r\n" not in resp:
+            chunk = s.recv(4096)
+            if not chunk:
+                raise ConnectionError("no handshake")
+            resp += chunk
+        if b"101" not in resp.split(b"\r\n", 1)[0] or _accept_key(key).encode() not in resp:
+            raise ConnectionError(f"bad handshake {resp[:80]!r}")
+        return s
+
+    def _run(self):
+        import struct
+        from jetracer_orbslam2_torch.runtime import bson
+
+        deadline = time.time() + 120
+        sock = None
+        while sock is None:
+            try:
+                sock = self._connect()
+            except OSError:
+                if time.time() > deadline:
+                    self.error = "no server within 120 s"
+                    return
+                time.sleep(0.005)
+        sock.settimeout(300)
+        try:
+            while True:
+                hdr = _recv_exact(sock, 2)
+                k = hdr[1] & 0x7F
+                if k == 126:
+                    (k,) = struct.unpack(">H", _recv_exact(sock, 2))
+                elif k == 127:
+                    (k,) = struct.unpack(">Q", _recv_exact(sock, 8))
+                self.docs.append(bson.decode(_recv_exact(sock, k)))
+        except (ConnectionError, OSError):
+            pass
+        finally:
+            sock.close()
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+class _RuntimeProbe:
+    """Patches, for one run, what phase 20 reads off the host loop: host
+    waits (sync-debug "warn") inside a frame's calls (the copy to the card,
+    `Slam.features`, `Slam.process_features`, the telemetry publish) and on
+    worker threads; frames whose host tensors came pinned; keyframe updates;
+    the last `Slam.result()`; decode time of each `TumRGBD.frame` (worker
+    threads); JPEG time and bytes; telemetry bytes; and, when a client is
+    expected, a wait inside `WebSocketServer.start` (before the timed loop)
+    until it has connected."""
+
+    def __init__(self, wait_for_client: bool = False):
+        self.wait_for_client = wait_for_client
+        self.waits = {"frame": 0, "publish": 0, "other_main": 0, "worker": 0}
+        self.depth = 0
+        self.publishing = 0
+        self.frames_copied = self.frames_pinned = 0
+        self.keyframe_updates = 0
+        self.result = None
+        self.decode_s, self.jpeg_s, self.jpeg_bytes, self.sent_bytes = [], [], [], []
+
+    def __enter__(self):
+        import threading
+        import warnings
+        import torch
+        from jetracer_orbslam2_torch import run
+        from jetracer_orbslam2_torch.io import datasets
+        from jetracer_orbslam2_torch.models import slam as slam_mod
+        from jetracer_orbslam2_torch.runtime import telemetry
+
+        probe, main = self, threading.main_thread()
+        self._saved = []
+
+        def patch(owner, name, make):
+            fn = getattr(owner, name)
+            self._saved.append((owner, name, fn))
+            setattr(owner, name, make(fn))
+
+        def frame_work(fn):
+            def wrapped(*a, **kw):
+                probe.depth += 1
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    probe.depth -= 1
+            return wrapped
+
+        def to_device(fn):
+            def wrapped(frame, device):
+                host = [x for x in frame[:3]
+                        if isinstance(x, torch.Tensor) and x.device.type == "cpu"]
+                probe.frames_copied += 1
+                probe.frames_pinned += all(x.is_pinned() for x in host)
+                return frame_work(fn)(frame, device)
+            return wrapped
+
+        def publish(fn):
+            def wrapped(*a, **kw):
+                probe.publishing += 1
+                try:
+                    return frame_work(fn)(*a, **kw)
+                finally:
+                    probe.publishing -= 1
+            return wrapped
+
+        def counted(fn):
+            def wrapped(*a, **kw):
+                probe.keyframe_updates += 1
+                return fn(*a, **kw)
+            return wrapped
+
+        def captured(fn):
+            def wrapped(*a, **kw):
+                probe.result = fn(*a, **kw)
+                return probe.result
+            return wrapped
+
+        def timed(into, sizes=None):
+            def make(fn):
+                def wrapped(*a, **kw):
+                    t0 = time.perf_counter()
+                    out = fn(*a, **kw)
+                    into.append(time.perf_counter() - t0)
+                    if sizes is not None:
+                        sizes.append(len(out))
+                    return out
+                return wrapped
+            return make
+
+        def broadcast(fn):
+            def wrapped(srv, payload):
+                probe.sent_bytes.append(len(payload))
+                return fn(srv, payload)
+            return wrapped
+
+        def start(fn):
+            def wrapped(srv):
+                out = fn(srv)
+                deadline = time.time() + 60
+                while srv.num_clients == 0 and time.time() < deadline:
+                    time.sleep(0.005)
+                if srv.num_clients == 0:
+                    raise SystemExit("FAIL: the telemetry client did not connect")
+                return out
+            return wrapped
+
+        patch(run, "to_device", to_device)
+        patch(slam_mod.Slam, "features", frame_work)
+        patch(slam_mod.Slam, "process_features", frame_work)
+        patch(slam_mod.Slam, "result", captured)
+        patch(slam_mod, "keyframe_update", counted)
+        patch(datasets.TumRGBD, "frame", timed(self.decode_s))
+        patch(telemetry.TelemetryPublisher, "publish", publish)
+        patch(telemetry.TelemetryPublisher, "_jpeg", timed(self.jpeg_s, self.jpeg_bytes))
+        patch(telemetry.WebSocketServer, "broadcast", broadcast)
+        if self.wait_for_client:
+            patch(telemetry.WebSocketServer, "start", start)
+
+        def note(message, category, filename, lineno, file=None, line=None):
+            if "called a synchronizing" not in str(message):
+                return
+            if threading.current_thread() is not main:
+                probe.waits["worker"] += 1
+            elif probe.publishing:
+                probe.waits["publish"] += 1
+            elif probe.depth:
+                probe.waits["frame"] += 1
+            else:
+                probe.waits["other_main"] += 1
+
+        self._showwarning = warnings.showwarning
+        self._filters = warnings.filters[:]
+        warnings.showwarning = note
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        import warnings
+        import torch
+
+        torch.cuda.set_sync_debug_mode("default")
+        warnings.showwarning = self._showwarning
+        warnings.filters[:] = self._filters
+        for owner, name, fn in reversed(self._saved):
+            setattr(owner, name, fn)
+        return False
+
+
+def _drive_without_pipeline(root: str, dev) -> dict:
+    """Run A: the CLI's host loop without its runtime.  The phase drives
+    `Slam` over `open_dataset(root)` itself: each frame is loaded (decoded
+    and pinned) on this thread, goes to the card as the CLI sends it, then
+    through `features` and `process_features`."""
+    import numpy as np
+    import torch
+    from jetracer_orbslam2_torch import run
+    from jetracer_orbslam2_torch.config import SystemConfig
+    from jetracer_orbslam2_torch.models.slam import Slam
+
+    args = run.build_argparser().parse_args(["--dataset", root])
+    src = run._open_source(args, dev)
+    slam = Slam(SystemConfig(frontend=run._frontend_cfg(args, src.hw, src.cal)),
+                src.intr, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(src.n):
+        g, d, _, pk = run.to_device(src.load(i), dev)
+        slam.process_features(slam.features(g, d), imu_packet=pk)
+    out = slam.result()
+    wall = time.perf_counter() - t0
+    report = {"mode": "slam", "frames": src.n, "fps": src.n / wall,
+              "tracked_frac": float(np.mean(out.tracked)),
+              "keyframes": out.num_keyframes, "landmarks": out.num_landmarks,
+              "loops": out.num_loops, "relocs": out.num_relocs,
+              "device": str(dev)}
+    run._accuracy(report, out.poses, src.gt, src.n)
+    return report
+
+
+def _cli(argv) -> tuple[int, dict]:
+    import contextlib
+    import io
+    from jetracer_orbslam2_torch import run
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = run.main(argv + ["--json", "--log-level", "warning"])
+    lines = buf.getvalue().strip().splitlines()
+    return code, (json.loads(lines[-1]) if lines else {})
+
+
+def _check_telemetry_doc(doc: dict, k_max: int) -> list:
+    import io
+    import numpy as np
+    from PIL import Image
+
+    bad = [f"missing {f}" for f in ("ax", "ay", "az", "width", "height",
+                                    "channels", "keypoints_x", "keypoints_y",
+                                    "image", "pose") if f not in doc]
+    if bad:
+        return bad
+    if (doc["width"], doc["height"]) != (640, 480):
+        bad.append(f"size {doc['width']}x{doc['height']}")
+    kx = np.frombuffer(doc["keypoints_x"], np.int16)
+    ky = np.frombuffer(doc["keypoints_y"], np.int16)
+    if not 0 < len(kx) == len(ky) <= k_max:
+        bad.append(f"{len(kx)} / {len(ky)} keypoints")
+    if not ((kx >= 0).all() and (kx < 640).all() and (ky >= 0).all()
+            and (ky < 480).all()):
+        bad.append("a keypoint outside the image")
+    if Image.open(io.BytesIO(doc["image"])).size != (640, 480):
+        bad.append("the JPEG does not decode to 640x480")
+    pose = np.frombuffer(doc["pose"], np.float32).reshape(4, 4)
+    if not np.allclose(pose[3], [0, 0, 0, 1], atol=1e-6):
+        bad.append(f"pose last row {pose[3]}")
+    return bad
+
+
+def _overlay_card_vs_cpu(root: str, dev) -> dict:
+    """`overlay_keypoints` on the card and on the CPU for frame 0's keypoints
+    (the port's front-end on the card) plus dots on the border, partly
+    outside, wholly outside and invalid: torch.equal."""
+    import torch
+    from jetracer_orbslam2_torch import run
+    from jetracer_orbslam2_torch.config import SystemConfig
+    from jetracer_orbslam2_torch.models.slam import Slam
+    from jetracer_orbslam2_torch.ops.overlay import overlay_keypoints
+
+    args = run.build_argparser().parse_args(["--dataset", root])
+    src = run._open_source(args, dev)
+    g, d, _, _ = run.to_device(src.load(0), dev)
+    feats = Slam(SystemConfig(frontend=run._frontend_cfg(args, src.hw, src.cal)),
+                 src.intr, device=dev).features(g, d)
+    extra = torch.tensor([[0.0, 0.0], [639.0, 479.0], [639.5, 100.0],
+                          [-0.5, 200.0], [300.0, -0.7], [640.0, 10.0],
+                          [10.0, 480.0], [-5.0, -5.0], [320.0, 240.0]],
+                         device=dev)
+    xy = torch.cat([feats.xy, extra])
+    valid = torch.cat([feats.valid, torch.tensor(
+        [True] * 8 + [False], device=dev)])
+    card = overlay_keypoints(g, xy, valid)
+    cpu = overlay_keypoints(g.cpu(), xy.cpu(), valid.cpu())
+    out = {"keypoints": int(valid.sum()), "equal": bool(torch.equal(card.cpu(), cpu)),
+           "pixels_changed": int((cpu != g.cpu()).sum())}
+    say("  overlay_keypoints, card vs CPU: " + json.dumps(out))
+    if not out["equal"] or out["pixels_changed"] == 0:
+        raise SystemExit("FAIL: overlay_keypoints differs between the card and the CPU")
+    return out
+
+
+def phase_runtime(dev) -> dict:
+    """The CLI's `--mode slam` host loop behind the runtime, on a 640x480
+    TUM-layout sequence written here: A (the loop without its runtime,
+    driven by this phase), B (`--dataset`, through FramePipeline and the
+    Watchdog), C (B + `--telemetry` with a client + `--checkpoint`), D
+    (`--resume` from C's map), then B and A again; the gates of phase 20."""
+    import os
+    import shutil
+    import statistics as st
+    import tempfile
+    import numpy as np
+    from jetracer_orbslam2_torch.io import datasets
+    from jetracer_orbslam2_torch.runtime.checkpoint import load_checkpoint
+
+    tmp = tempfile.mkdtemp(prefix="jetracer_runtime_")
+    try:
+        root, ck = os.path.join(tmp, "seq"), os.path.join(tmp, "ck")
+        t0 = time.perf_counter()
+        _write_tum_sequence(root, RUNTIME_FRAMES, dev)
+        say(f"  wrote {RUNTIME_FRAMES} frames of 640x480 (RGB + 16-bit depth "
+            f"PNGs, TUM layout) in {time.perf_counter() - t0:.2f} s")
+        overlay = _overlay_card_vs_cpu(root, dev)
+        runs, outs = {}, {}
+        # the last two runs decode with PIL, which holds the GIL for part of
+        # its work: do two workers then slow the host-bound loop?
+        for name in ("A", "B", "C", "D", "B2", "A2", "B_pil", "A_pil"):
+            argv = ["--dataset", root]
+            client = None
+            if name == "C":
+                port = _free_port()
+                argv += ["--telemetry", str(port), "--checkpoint", ck]
+                client = _TelemetryClient(port)
+            if name == "D":
+                argv += ["--max-frames", str(RUNTIME_RESUME_FRAMES), "--resume", ck]
+            before = dict(datasets.DECODED)
+            pil = name.endswith("_pil")
+            if pil:
+                os.environ["JETRACER_DISABLE_NATIVE"] = "1"
+            _reset_counters()
+            try:
+                with _RuntimeProbe(wait_for_client=client is not None) as probe:
+                    if name.startswith("A"):
+                        code, report = 0, _drive_without_pipeline(root, dev)
+                    else:
+                        code, report = _cli(argv)
+            finally:
+                if pil:
+                    os.environ.pop("JETRACER_DISABLE_NATIVE")
+            launches = _read_counters()
+            frames = report.get("frames", 0)
+            row = dict(report)
+            row.update(
+                exit=code, ms_per_frame=1e3 / report["fps"] if report.get("fps") else None,
+                launches=launches, keyframes_inserted=probe.keyframe_updates,
+                host_waits=dict(probe.waits),
+                frame_waits_per_frame=probe.waits["frame"] / max(frames, 1),
+                publish_waits_per_frame=probe.waits["publish"] / max(frames, 1),
+                frames_pinned=probe.frames_pinned, frames_copied=probe.frames_copied,
+                decode_ms_per_frame=(1e3 * sum(probe.decode_s) / len(probe.decode_s)
+                                     if probe.decode_s else None),
+                decoder={k: datasets.DECODED[k] - before[k] for k in before})
+            if probe.jpeg_s:
+                row.update(jpeg_ms_per_frame=1e3 * st.mean(probe.jpeg_s),
+                           jpeg_bytes_per_frame=st.mean(probe.jpeg_bytes),
+                           telemetry_bytes_per_frame=st.mean(probe.sent_bytes))
+            if client is not None:
+                client.thread.join(timeout=60)
+                row.update(client_docs=len(client.docs), client_error=client.error)
+                bad_docs = {i: b for i, doc in enumerate(client.docs)
+                            if (b := _check_telemetry_doc(doc, 1024))}
+                row["bad_docs"] = bad_docs
+            runs[name] = row
+            outs[name] = probe.result
+            say(f"  run {name}: " + json.dumps(row))
+
+        bad = []
+        a, b, c, d = runs["A"], runs["B"], runs["C"], runs["D"]
+        for name, r in runs.items():
+            if r["exit"] != 0 or r.get("device") != "cuda:0":
+                bad.append(f"{name}: exit {r['exit']} on {r.get('device')}")
+            if r["launches"]["fast_nms_pyramid"] != r["frames"]:
+                bad.append(f"{name}: K1 launches {r['launches']['fast_nms_pyramid']}")
+            if r["launches"]["extract_patches_fused"] != r["frames"]:
+                bad.append(f"{name}: K4 launches {r['launches']['extract_patches_fused']}")
+            want_ba = 10 * r["keyframes_inserted"]
+            if not (r["launches"]["fused_normal_schur"] == r["launches"]["fused_backsub"]
+                    == want_ba):
+                bad.append(f"{name}: K2/K3 launches {r['launches']} != {want_ba}")
+            if r["frames_pinned"] != r["frames_copied"] or r["frames_copied"] != r["frames"]:
+                bad.append(f"{name}: {r['frames_pinned']} of {r['frames_copied']} "
+                           "frames came pinned")
+            if r["host_waits"]["worker"]:
+                bad.append(f"{name}: a worker thread waited for the card")
+            if "watchdog_stalls" in r and r["watchdog_stalls"] != 0:
+                bad.append(f"{name}: {r['watchdog_stalls']} watchdog stalls")
+            want = "pil" if name.endswith("_pil") else "native"
+            if r["decoder"][want] <= 0 or sum(r["decoder"].values()) != r["decoder"][want]:
+                bad.append(f"{name}: decoder {r['decoder']}, expected {want} only")
+        for name in ("B", "C", "B2", "A2", "B_pil", "A_pil"):
+            r = runs[name]
+            for key in ("keyframes", "loops", "relocs", "tracked_frac", "ate_rmse_m",
+                        "frames"):
+                if r[key] != a[key]:
+                    bad.append(f"{name} vs A: {key} {r[key]} != {a[key]}")
+            if not (np.array_equal(outs[name].poses, outs["A"].poses)
+                    and np.array_equal(outs[name].tracked, outs["A"].tracked)):
+                bad.append(f"{name} vs A: poses or tracked flags differ")
+            if name != "C" and r["host_waits"]["frame"] != a["host_waits"]["frame"]:
+                bad.append(f"{name} vs A: host waits in the frames' calls "
+                           f"{r['host_waits']['frame']} != {a['host_waits']['frame']}")
+        if c["host_waits"]["frame"] != a["host_waits"]["frame"]:
+            bad.append("C vs A: host waits outside the publish differ")
+        if c["host_waits"]["publish"] > c["frames"]:
+            bad.append(f"C: {c['host_waits']['publish']} host waits in "
+                       f"{c['frames']} publishes (at most one a frame)")
+        if not (a["ate_rmse_m"] < 0.10 and a["tracked_frac"] >= 0.95):
+            bad.append(f"A: ATE {a['ate_rmse_m']} m, tracked {a['tracked_frac']}")
+        if c.get("telemetry_sent", 0) + c.get("telemetry_dropped", 0) != c["frames"]:
+            bad.append("C: telemetry sent + dropped != frames")
+        if c.get("client_error") or c.get("client_docs", 0) < 2:
+            bad.append(f"C: the client got {c.get('client_docs')} documents "
+                       f"({c.get('client_error')})")
+        if c.get("bad_docs"):
+            bad.append(f"C: documents off: {c['bad_docs']}")
+        saved, extra = load_checkpoint(ck)
+        if int(saved.num_kf) != c["keyframes"] or extra != {"frames": c["frames"]}:
+            bad.append(f"checkpoint: {int(saved.num_kf)} keyframes, {extra}")
+        if d["frames"] != RUNTIME_RESUME_FRAMES or not d["keyframes"] >= c["keyframes"]:
+            bad.append(f"D: {d['frames']} frames, keyframes {d['keyframes']} < "
+                       f"{c['keyframes']}")
+        if bad:
+            raise SystemExit("FAIL: runtime phase: " + "; ".join(bad))
+        summary = {
+            "frames": RUNTIME_FRAMES,
+            "ms_per_frame": {k: r["ms_per_frame"] for k, r in runs.items()},
+            "decode_ms_per_frame": {k: r["decode_ms_per_frame"] for k, r in runs.items()},
+            "host_waits_per_frame": {k: r["frame_waits_per_frame"]
+                                     + r["publish_waits_per_frame"]
+                                     for k, r in runs.items()},
+            "jpeg_ms_per_frame": c["jpeg_ms_per_frame"],
+            "telemetry_bytes_per_frame": c["telemetry_bytes_per_frame"],
+            "decoder": {k: r["decoder"] for k, r in runs.items()},
+            "overlay": overlay,
+        }
+        say("  runtime: " + json.dumps(summary))
+        return {"runs": runs, "summary": summary}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def print_build(name: str) -> None:
     from jetracer_orbslam2_torch.utils import cuda_build
 
@@ -2212,6 +2764,12 @@ def main(argv: list[str]) -> int:
 
         phase(19, "datasets: run.main --dataset on every fixture, on the card")
         datasets_report = phase_datasets()
+
+        phase(20, f"runtime: the --mode slam host loop through FramePipeline, "
+                  f"telemetry and checkpoint/resume, {RUNTIME_FRAMES} frames of "
+                  "640x480")
+        runtime_report = phase_runtime(dev)
+        runtime_launches = runtime_report["runs"]["C"]["launches"]
     torch.cuda.synchronize()
 
     k1 = times["odometry"]
@@ -2220,7 +2778,8 @@ def main(argv: list[str]) -> int:
         "route": "cuda",
         "source": "jetracer_orbslam2_torch/csrc/fast_nms.cu",
         "replaces": "jetracer_orbslam2_tpu/ops/pallas_fast.py:190",
-        "launches": stereo_launches["fast_nms_pyramid"],
+        "launches": runtime_launches["fast_nms_pyramid"],
+        "stereo_path_launches": stereo_launches["fast_nms_pyramid"],
         "odometry_launches": launches,
         "max_abs_err": max_err,
         "ms": k1["ms"],
@@ -2231,8 +2790,10 @@ def main(argv: list[str]) -> int:
         "exact_match": all_equal,
         "numbers_are": "per launch = per frame: the 4 levels of 640x480 at one "
                        "threshold (the odometry path's configuration); launches "
-                       "are the stereo path's (one a frame: both pyramids in "
-                       "one launch), odometry_launches the odometry path's; "
+                       "are the runtime path's (phase 20 run C, one a frame), "
+                       "stereo_path_launches the stereo path's (one a frame: "
+                       "both pyramids in one launch), odometry_launches the "
+                       "odometry path's; "
                        "'slam' is the time at the SLAM path's two thresholds, "
                        "with its launches; 'stereo' a stereo frame's two "
                        "pyramids by one launch each and by one launch, timed "
@@ -2254,7 +2815,8 @@ def main(argv: list[str]) -> int:
             "route": "cuda",
             "source": "jetracer_orbslam2_torch/csrc/ba_fused.cu",
             "replaces": f"jetracer_orbslam2_tpu/ops/pallas_ba.py:{line}",
-            "launches": stereo_launches[name],
+            "launches": runtime_launches[name],
+            "stereo_path_launches": stereo_launches[name],
             "ba_path_launches": count,
             "max_abs_err": worst[key]["abs"],
             "max_abs_err_scale": worst[key]["scale"],
@@ -2266,7 +2828,9 @@ def main(argv: list[str]) -> int:
             "library_ms": None,
             "floor_ms": at_path["floor_ms"],
             "numbers_are": "per launch at (P 8, L 4096), the BA path's shape; "
-                           "launches are the stereo path's, ba_path_launches "
+                           "launches are the runtime path's (phase 20 run C), "
+                           "stereo_path_launches the stereo path's, "
+                           "ba_path_launches "
                            "the BA path's (local BA launched "
                            f"{local_report['launches']} more); floor_ms is an "
                            "empty kernel's launch through the same harness",
@@ -2277,7 +2841,8 @@ def main(argv: list[str]) -> int:
         "route": "cuda",
         "source": "jetracer_orbslam2_torch/csrc/patch_gather.cu",
         "replaces": "scripts/experiment_pallas_patches.py:52",
-        "launches": stereo_launches["extract_patches_fused"],
+        "launches": runtime_launches["extract_patches_fused"],
+        "stereo_path_launches": stereo_launches["extract_patches_fused"],
         "slam_path_launches": slam_launches["extract_patches_fused"],
         "max_abs_err": patch_max_err,
         "exact_match": patch_all_equal,
@@ -2292,7 +2857,9 @@ def main(argv: list[str]) -> int:
         "floor_ms": patch_time["floor_ms"],
         "numbers_are": "per launch = per frame on frame 0's 640x480 pyramid (4 "
                        "levels), K 1024, P 37, read from the levels; launches "
-                       "are the stereo path's (two a frame), slam_path_launches "
+                       "are the runtime path's (phase 20 run C, one a frame), "
+                       "stereo_path_launches the stereo path's (two a frame), "
+                       "slam_path_launches "
                        "the SLAM path's (one a frame); pr4_route_ms is PR "
                        "4's route (pack_levels + patch_origins + the canvas "
                        "kernel, one graph) and canvas_kernel_ms its kernel "
@@ -2311,6 +2878,7 @@ def main(argv: list[str]) -> int:
                     "card": card}))
     say(json.dumps({"stereo_path": stereo_report, "stereo_check": stereo_check,
                     "datasets": datasets_report, "card": card}))
+    say(json.dumps({"runtime": runtime_report["summary"], "card": card}))
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

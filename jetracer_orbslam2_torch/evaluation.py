@@ -101,3 +101,15 @@ def rpe_drift(est_poses: Tensor, gt_poses: Tensor, delta: int = 10):
     trans, rot, seg = _relative_errors(est_poses, gt_poses, delta)
     total = torch.clamp_min(torch.sum(seg), 1e-9)
     return torch.sum(trans) / total, torch.sum(rot) / total
+
+
+def rpe_drift_median(est_poses: Tensor, gt_poses: Tensor, delta: int = 10):
+    """Median per-segment drift ratio: robust to the tail of segments that
+    cross tracking dropouts (motion-model freerun then re-lock), which
+    dominate the length-weighted mean of `rpe_drift` whenever tracked_frac <
+    1.  Report both: mean = includes every failure, median = the typical
+    drift while tracking.  Returns (trans_drift_frac, rot_rad_per_m)."""
+    trans, rot, seg = _relative_errors(est_poses, gt_poses, delta)
+    seg = torch.clamp_min(seg, 1e-9)
+    # median of an even count averages the two middle values, as in JAX
+    return torch.quantile(trans / seg, 0.5), torch.quantile(rot / seg, 0.5)

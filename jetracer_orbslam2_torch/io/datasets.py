@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import threading
 from typing import Optional
 
 import numpy as np
@@ -37,6 +38,12 @@ class Frame:
 
 
 DECODED = {"native": 0, "pil": 0}
+_decoded_lock = threading.Lock()     # decode threads count concurrently
+
+
+def _count_decode(which: str) -> None:
+    with _decoded_lock:
+        DECODED[which] += 1
 
 
 def _read_png(path: str) -> Optional[np.ndarray]:
@@ -50,14 +57,14 @@ def _read_png(path: str) -> Optional[np.ndarray]:
         out = native_loader.decode_png_file(path)
     except ValueError:
         return None          # unsupported PNG variant -> PIL fallback
-    DECODED["native"] += 1
+    _count_decode("native")
     return out
 
 
 def _pil_open(path: str):
     from PIL import Image
 
-    DECODED["pil"] += 1
+    _count_decode("pil")
     return Image.open(path)
 
 

@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Iterator, Optional
 
@@ -34,6 +35,9 @@ LINK_FLAGS = ("-lz", "-lpthread")
 _lib: Optional[ctypes.CDLL] = None
 _lib_tried = False
 _build_error: Optional[str] = None
+# decode threads (runtime.FramePipeline) reach _load() together: the first
+# builds and loads, the others wait for it rather than fall back to PIL
+_load_lock = threading.Lock()
 
 
 def library_path() -> Path:
@@ -95,12 +99,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 def _load() -> Optional[ctypes.CDLL]:
     """Build (once per process) and load the library; None if that failed."""
     global _lib, _lib_tried, _build_error
-    if not _lib_tried:
-        _lib_tried = True
-        try:
-            _lib = _bind(ctypes.CDLL(str(build())))
-        except (RuntimeError, OSError) as e:
-            _build_error = str(e)
+    with _load_lock:
+        if not _lib_tried:
+            try:
+                _lib = _bind(ctypes.CDLL(str(build())))
+            except (RuntimeError, OSError) as e:
+                _build_error = str(e)
+            _lib_tried = True
     return _lib
 
 

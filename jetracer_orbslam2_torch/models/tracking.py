@@ -24,7 +24,7 @@ from jetracer_orbslam2_torch.config import TrackingConfig
 from jetracer_orbslam2_torch.models.frontend import Features
 from jetracer_orbslam2_torch.ops import geometry as geo
 from jetracer_orbslam2_torch.ops import match as match_ops
-from jetracer_orbslam2_torch.utils.ties import first_argmax
+from jetracer_orbslam2_torch.utils.ties import first_argmax, first_argmin
 
 Tensor = torch.Tensor
 
@@ -215,3 +215,38 @@ def track_rgbd(
         match_idx=m.idx,
         inlier_mask=inlier_mask,
     )
+
+
+_BIG = 1e9
+
+
+def icp(
+    src: Tensor,
+    dst: Tensor,
+    src_mask: Tensor,
+    dst_mask: Tensor,
+    iters: int = 8,
+    max_pair_dist: float = 0.25,
+    T_init: Tensor | None = None,
+) -> tuple[Tensor, Tensor]:
+    """Point-to-point ICP (reference buildStream.cpp:134-188).
+
+    Returns (T, mean_err) with dst ~= T @ src.  A fixed number of
+    iterations, each a masked (Ns, Nd) distance matrix, the first nearest
+    neighbour (`first_argmin`, the JAX tie order) and a weighted `kabsch`
+    refit.  The loop reads nothing back to the host; on a CUDA device the
+    SVD inside `kabsch` waits for the card, as it does everywhere.
+    """
+    T = (torch.eye(4, dtype=src.dtype, device=src.device) if T_init is None
+         else T_init)
+    err = src.new_zeros(())
+    for _ in range(iters):
+        src_t = geo.transform_points(T, src[None])[0]
+        d2 = torch.sum((src_t[:, None] - dst[None]) ** 2, -1)
+        d2 = torch.where(dst_mask[None, :], d2, _BIG)
+        d2_min, nn = first_argmin(d2, dim=1)
+        nn_dist = torch.sqrt(d2_min)
+        w = (src_mask & (nn_dist < max_pair_dist)).to(src.dtype)
+        T = geo.kabsch(src, dst.index_select(0, nn), w)
+        err = torch.sum(nn_dist * w) / torch.clamp_min(torch.sum(w), 1.0)
+    return T, err

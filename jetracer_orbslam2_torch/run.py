@@ -6,6 +6,8 @@ sequence.
     python -m jetracer_orbslam2_torch.run --synthetic 100
     python -m jetracer_orbslam2_torch.run --synthetic 100 --mode odometry
     python -m jetracer_orbslam2_torch.run --synthetic 8 --device cpu
+    python -m jetracer_orbslam2_torch.run --dataset DIR --telemetry 9002 --checkpoint ck
+    python -m jetracer_orbslam2_torch.run --dataset DIR --resume ck
 
 Counterpart of `jetracer_orbslam2_tpu/run.py`.  The source is `--dataset DIR`
 (TUM RGB-D, EuRoC `mav0/` or KITTI odometry, sniffed by `open_dataset`) or
@@ -13,9 +15,17 @@ Counterpart of `jetracer_orbslam2_tpu/run.py`.  The source is `--dataset DIR`
 through the host loop `Slam`, or through `ChunkedSlam` with `--chunked C`;
 a stereo dataset (baseline > 0) runs the stereo front-end, and its IMU
 packets feed the attitude filter.  `--mode odometry` (whole-sequence or
-`--chunked C`) needs depth frames.  `--mesh`, `--telemetry`, `--checkpoint`
-and `--resume` are not ported yet and exit with code 2.  Runs on `cuda:0`
-unless `--device cpu` is given.
+`--chunked C`) needs depth frames.  Runs on `cuda:0` unless `--device cpu` is
+given.
+
+The host loop runs as the JAX CLI's does: a `FramePipeline` of two worker
+threads decodes frames ahead of it (to pinned host memory; every CUDA call
+stays on the main thread), a `Watchdog` counts stalls, `--telemetry PORT`
+streams BSON frames over a WebSocket to `viewer/index.html`
+(`--telemetry-no-image` leaves the JPEG out), `--checkpoint DIR` saves the
+final map and `--resume DIR` starts from a saved one (either package's).
+`--mode odometry` and `--chunked` ignore these flags, as the JAX CLI does.
+`--mesh` is not ported yet and exits with code 2.
 """
 
 from __future__ import annotations
@@ -25,6 +35,7 @@ import json
 import logging
 import sys
 import time
+from typing import Callable, NamedTuple, Optional
 
 log = logging.getLogger("jetracer_orbslam2_torch")
 
@@ -48,9 +59,14 @@ def build_argparser():
                         "stereo), with --mode odometry constant-memory "
                         "streaming")
     p.add_argument("--max-frames", type=int, default=0)
-    for flag, meta in (("--mesh", "N"), ("--telemetry", "PORT"),
-                       ("--checkpoint", "DIR"), ("--resume", "DIR")):
-        p.add_argument(flag, metavar=meta, help="not ported yet")
+    p.add_argument("--checkpoint", help="directory to save the final map")
+    p.add_argument("--resume", help="checkpoint directory to start from")
+    p.add_argument("--mesh", metavar="N", help="not ported yet")
+    p.add_argument("--telemetry", type=int, default=0, metavar="PORT",
+                   help="serve live BSON telemetry on ws://0.0.0.0:PORT "
+                        "(open viewer/index.html to watch; 0 = off)")
+    p.add_argument("--telemetry-no-image", action="store_true",
+                   help="omit the JPEG image from telemetry frames")
     p.add_argument("--max-keypoints", type=int, default=1024)
     p.add_argument("--levels", type=int, default=4)
     p.add_argument("--fast-min-threshold", type=float, default=0.0,
@@ -67,12 +83,43 @@ def build_argparser():
     return p
 
 
-def _open_source(args, device):
-    """Resolve the frame source.  Returns (frames() iterator of (gray, depth,
-    right, imu_packet), n, (h, w), intrinsics, baseline, gt poses as numpy or
-    None, cal), where gray / depth / right are tensors on `device` (None where
-    the source has none), imu_packet a tuple of numpy arrays or None, and cal
-    the camera calibration the loader found (the keys of `_NO_CAL`)."""
+class Source(NamedTuple):
+    """A frame source.  `load(i)` returns frame i as (gray, depth, right,
+    imu_packet): tensors (None where the source has none) and a tuple of
+    numpy arrays or None.  A dataset's frames are decoded to host tensors,
+    pinned when the device is a CUDA one; a synthetic sequence's already lie
+    on the device.  `load` queues no work on the card (it only pins host
+    memory), so worker threads may run it.
+    `gt` is the ground truth as numpy or None, `cal` the camera calibration
+    the loader found (the keys of `_NO_CAL`)."""
+    load: Callable
+    n: int
+    hw: tuple
+    intr: "torch.Tensor"
+    baseline: float
+    gt: Optional["np.ndarray"]
+    cal: dict
+    device: "torch.device"
+
+    def frames(self):
+        """Frames 0..n-1 on the device, loaded on the calling thread."""
+        for i in range(self.n):
+            yield to_device(self.load(i), self.device)
+
+
+def to_device(frame, device):
+    """A frame from `Source.load` on `device`.  Host tensors are pinned, so
+    their copies are queued behind the card's work without a host wait; the
+    caching host allocator keeps each pinned block until its copy is done."""
+    g, d, r, pk = frame
+
+    def up(x):
+        return None if x is None else x.to(device, non_blocking=True)
+    return up(g), up(d), up(r), pk
+
+
+def _open_source(args, device) -> Source:
+    """Resolve the frame source (`--synthetic N` or `--dataset DIR`)."""
     import numpy as np
     import torch
 
@@ -83,11 +130,11 @@ def _open_source(args, device):
         seq = generate_sequence(n_frames=n, shape=(480, 640), device=device)
         gt = seq.poses.cpu().numpy()
 
-        def frames():
-            for i in range(n):
-                yield seq.gray[i], seq.depth[i], None, None
+        def load(i):
+            return seq.gray[i], seq.depth[i], None, None
 
-        return frames, n, (480, 640), seq.intrinsics, 0.0, gt, dict(_NO_CAL)
+        return Source(load, n, (480, 640), seq.intrinsics, 0.0, gt,
+                      dict(_NO_CAL), device)
 
     from jetracer_orbslam2_torch.io.datasets import open_dataset
 
@@ -97,19 +144,22 @@ def _open_source(args, device):
     # per-frame IMU packets when the dataset ships an IMU (EuRoC imu0)
     imu_pk = getattr(ds, "imu_packets", lambda: None)()
     cal = {k: getattr(ds, k, v) for k, v in _NO_CAL.items()}
+    pin = device.type == "cuda"
 
-    def to_dev(a):
-        return None if a is None else torch.from_numpy(a).to(device)
+    def host(a):
+        if a is None:
+            return None
+        t = torch.from_numpy(a)
+        return t.pin_memory() if pin else t
 
-    def frames():
-        for i in range(n):
-            fr = ds.frame(i)
-            pk = None if imu_pk is None else tuple(p[i] for p in imu_pk)
-            yield to_dev(fr.gray), to_dev(fr.depth), to_dev(fr.right), pk
+    def load(i):
+        fr = ds.frame(i)
+        pk = None if imu_pk is None else tuple(p[i] for p in imu_pk)
+        return host(fr.gray), host(fr.depth), host(fr.right), pk
 
     intr = torch.from_numpy(np.asarray(ds.intrinsics, np.float32)).to(device)
-    return (frames, n, ds.frame(0).gray.shape, intr, float(ds.baseline), gt,
-            cal)
+    return Source(load, n, ds.frame(0).gray.shape, intr, float(ds.baseline),
+                  gt, cal, device)
 
 
 def _sync(device) -> None:
@@ -140,7 +190,7 @@ _NEEDS_DEPTH = ("odometry mode needs depth frames (RGB-D dataset or "
                 "--synthetic); use --mode slam for stereo datasets")
 
 
-def _run_odometry(args, frames, n, hw, intr, baseline, cal, device):
+def _run_odometry(args, src: Source, device):
     """Whole-sequence on-device odometry (or constant-memory chunks).
     Returns None when the source has no depth."""
     import numpy as np
@@ -150,9 +200,10 @@ def _run_odometry(args, frames, n, hw, intr, baseline, cal, device):
     from jetracer_orbslam2_torch.models.odometry import (
         ChunkedOdometry, init_state, odometry_scan)
 
-    fcfg = _frontend_cfg(args, hw, cal)
+    n, intr = src.n, src.intr
+    fcfg = _frontend_cfg(args, src.hw, src.cal)
     tcfg = TrackingConfig()
-    if baseline > 0.0:
+    if src.baseline > 0.0:
         log.error(_NEEDS_DEPTH)
         return None
 
@@ -162,7 +213,7 @@ def _run_odometry(args, frames, n, hw, intr, baseline, cal, device):
         _sync(device)
         t0 = time.perf_counter()
         count = 0
-        for g, d, _, _ in frames():
+        for g, d, _, _ in src.frames():
             if d is None:
                 log.error(_NEEDS_DEPTH)
                 return None
@@ -179,7 +230,7 @@ def _run_odometry(args, frames, n, hw, intr, baseline, cal, device):
         }, poses
 
     gray, depth = [], []
-    for g, d, _, _ in frames():
+    for g, d, _, _ in src.frames():
         if d is None:
             log.error(_NEEDS_DEPTH)
             return None
@@ -205,20 +256,20 @@ def _run_odometry(args, frames, n, hw, intr, baseline, cal, device):
     }, poses
 
 
-def _run_slam(args, frames, n, hw, intr, baseline, cal, device):
-    """The full system: the host loop `Slam`, or `ChunkedSlam` over
-    `--chunked C` frames at a time; stereo when the source has a baseline.
-    Returns None when a frame has neither depth nor a right image."""
+def _run_slam(args, src: Source, device):
+    """The full system: the host loop `Slam` behind the runtime, or
+    `ChunkedSlam` over `--chunked C` frames at a time; stereo when the source
+    has a baseline.  Returns None when a frame has neither depth nor a right
+    image."""
     import numpy as np
 
     from jetracer_orbslam2_torch.config import (
         StereoConfig, SystemConfig, TrackingConfig)
-    from jetracer_orbslam2_torch.models.slam import Slam
     from jetracer_orbslam2_torch.models.slam_scan import ChunkedSlam
-    from jetracer_orbslam2_torch.models.stereo import frontend_stereo
 
-    fcfg = _frontend_cfg(args, hw, cal)
-    is_stereo = baseline > 0.0
+    fcfg = _frontend_cfg(args, src.hw, src.cal)
+    is_stereo = src.baseline > 0.0
+    cal = src.cal
 
     if args.chunked:
         stereo_cfg, tcfg = None, TrackingConfig()
@@ -226,17 +277,17 @@ def _run_slam(args, frames, n, hw, intr, baseline, cal, device):
             # each chunk's frames are (left, right) pairs, and the stereo
             # front-end runs inside the scan step (models/slam_scan._features)
             stereo_cfg = StereoConfig(
-                baseline=float(baseline),
+                baseline=float(src.baseline),
                 dist_r=_tup(cal["dist_r"]), rect_l=_tup(cal["rect_l"]),
                 rect_r=_tup(cal["rect_r"]),
                 intrinsics_r=_tup(cal["intrinsics_r"]))
             tcfg = TrackingConfig(max_depth=80.0)
         cfg = SystemConfig(frontend=fcfg, tracking=tcfg, stereo=stereo_cfg)
-        ch = ChunkedSlam(cfg, intr, chunk_size=args.chunked, device=device)
+        ch = ChunkedSlam(cfg, src.intr, chunk_size=args.chunked, device=device)
         _sync(device)
         t0 = time.perf_counter()
         count = 0
-        for g, d, right, pk in frames():
+        for g, d, right, pk in src.frames():
             second = right if is_stereo else d
             if second is None:
                 log.error("--chunked needs RGB-D or stereo frames")
@@ -257,33 +308,92 @@ def _run_slam(args, frames, n, hw, intr, baseline, cal, device):
             "loops": int(ch.state.num_loops),
             "relocs": int(ch.state.num_relocs),
         }, poses
+    return _run_host_loop(args, src, SystemConfig(frontend=fcfg), device)
 
-    cfg = SystemConfig(frontend=fcfg)
-    slam = Slam(cfg, intr, device=device)
+
+def _run_host_loop(args, src: Source, cfg, device):
+    """`Slam` frame by frame, as the JAX CLI runs it: frames decoded ahead by
+    a `FramePipeline` (two workers, blocking, in order), a `Watchdog` beat a
+    frame, a telemetry frame after each processed frame, `--resume` /
+    `--checkpoint` around the run; ctrl-C reports the frames done so far."""
+    import numpy as np
+
+    from jetracer_orbslam2_torch.models.slam import Slam
+    from jetracer_orbslam2_torch.models.stereo import frontend_stereo
+    from jetracer_orbslam2_torch.runtime.liveness import Watchdog
+    from jetracer_orbslam2_torch.runtime.pipeline import FramePipeline
+
+    is_stereo = src.baseline > 0.0
+    cal = src.cal
+    slam = Slam(cfg, src.intr, device=device)
+    if args.resume:
+        from jetracer_orbslam2_torch.runtime.checkpoint import load_checkpoint
+
+        slam.m, _ = load_checkpoint(args.resume, device=device)
+        log.info("resumed map: %d keyframes, %d landmarks",
+                 int(slam.m.num_kf), int(slam.m.num_lm))
+
+    publisher = None
+    server = None
+    if args.telemetry:
+        from jetracer_orbslam2_torch.runtime.telemetry import (
+            TelemetryPublisher, WebSocketServer)
+
+        server = WebSocketServer(port=args.telemetry, host="0.0.0.0",
+                                 rate_bytes_per_s=cfg.runtime
+                                 .telemetry_rate_bytes).start()
+        publisher = TelemetryPublisher(
+            server, send_image=not args.telemetry_no_image)
+        log.info("telemetry on ws://0.0.0.0:%d (viewer/index.html)",
+                 server.port)
+
     t_max = cfg.tracking.max_depth
+    # liveness probe (reference PingPong.cpp:27-81): flags a wedged device
+    # dispatch or a stuck source; generous timeout, as the first keyframe
+    # may build the BA kernels
+    watchdog = Watchdog(timeout_s=180.0).start()
+    pipe = FramePipeline(range(src.n), transform=src.load, capacity=8,
+                         num_workers=2)
     _sync(device)
     t0 = time.perf_counter()
     count = 0
-    for g, d, right, pk in frames():
-        if is_stereo:
-            feats = frontend_stereo(
-                g, right, intr, float(baseline), cfg.frontend,
-                max_depth=t_max if t_max > 8 else 80.0,
-                dist_r=cal["dist_r"], rect_l=cal["rect_l"],
-                rect_r=cal["rect_r"], intrinsics_r=cal["intrinsics_r"],
-                device=device)
-        elif d is None:
-            log.error("slam mode needs depth or stereo frames")
-            return None
-        else:
-            feats = slam.features(g, d)
-        slam.process_features(feats, imu_packet=pk)
-        count += 1
-        if count % 50 == 0:
-            log.info("[%d/%d] loops=%d", count, n, slam.num_loops)
+    try:
+        for frame in pipe:
+            watchdog.beat()
+            g, d, right, pk = to_device(frame, device)
+            if is_stereo:
+                feats = frontend_stereo(
+                    g, right, src.intr, float(src.baseline), cfg.frontend,
+                    max_depth=t_max if t_max > 8 else 80.0,
+                    dist_r=cal["dist_r"], rect_l=cal["rect_l"],
+                    rect_r=cal["rect_r"], intrinsics_r=cal["intrinsics_r"],
+                    device=device)
+            elif d is None:
+                log.error("slam mode needs depth or stereo frames")
+                return None
+            else:
+                feats = slam.features(g, d)
+            slam.process_features(feats, imu_packet=pk)
+            if publisher is not None:
+                # the frame's grey image as loaded: host memory for a
+                # dataset, so only the keypoints cross from the card
+                publisher.publish(
+                    frame[0], feats.xy, feats.valid,
+                    euler_deg=np.degrees(slam.attitude),
+                    pose=slam.trajectory[-1])
+            count += 1
+            if count % 50 == 0:
+                log.info("[%d/%d] loops=%d", count, src.n, slam.num_loops)
+    except KeyboardInterrupt:
+        log.warning("interrupted: reporting partial run")
+    finally:
+        pipe.close()
+        watchdog.close()
+        if server is not None:
+            server.close()
     out = slam.result()
     wall = time.perf_counter() - t0
-    return {
+    report = {
         "mode": "slam",
         "stereo": is_stereo,
         "frames": count,
@@ -294,7 +404,17 @@ def _run_slam(args, frames, n, hw, intr, baseline, cal, device):
         "loops": out.num_loops,
         "relocs": out.num_relocs,
         "attitude_rad": [round(float(x), 4) for x in slam.attitude],
-    }, out.poses
+        "watchdog_stalls": watchdog.stalls,
+    }
+    if server is not None:
+        report["telemetry_sent"] = server.sent_frames
+        report["telemetry_dropped"] = server.dropped_frames
+    if args.checkpoint:
+        from jetracer_orbslam2_torch.runtime.checkpoint import save_checkpoint
+
+        save_checkpoint(args.checkpoint, slam.m, extra={"frames": count})
+        report["checkpoint"] = args.checkpoint
+    return report, out.poses
 
 
 def _accuracy(report, poses, gt, count):
@@ -322,11 +442,10 @@ def main(argv=None) -> int:
         format="%(asctime)s %(name)s %(levelname)s %(message)s",
         stream=sys.stderr)
 
-    for flag in ("mesh", "telemetry", "checkpoint", "resume"):
-        if getattr(args, flag):
-            print(f"--{flag} is not ported yet in jetracer_orbslam2_torch",
-                  file=sys.stderr)
-            return 2
+    if args.mesh:
+        print("--mesh is not ported yet in jetracer_orbslam2_torch",
+              file=sys.stderr)
+        return 2
     if not args.synthetic and not args.dataset:
         print("need --dataset or --synthetic", file=sys.stderr)
         return 2
@@ -338,14 +457,14 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     log.info("running on %s", device)
 
-    frames, n, hw, intr, baseline, gt, cal = _open_source(args, device)
+    src = _open_source(args, device)
     run = _run_odometry if args.mode == "odometry" else _run_slam
-    res = run(args, frames, n, hw, intr, baseline, cal, device)
+    res = run(args, src, device)
     if res is None:
         return 2
     report, poses = res
     report["device"] = str(device)
-    _accuracy(report, poses, gt, min(report["frames"], len(poses)))
+    _accuracy(report, poses, src.gt, min(report["frames"], len(poses)))
     print(json.dumps(report))
     return 0
 

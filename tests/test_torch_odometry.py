@@ -25,7 +25,7 @@ from jetracer_orbslam2_torch.config import FrontendConfig, TrackingConfig
 from jetracer_orbslam2_torch.convert import (
     desc_to_numpy, features_from_numpy, features_to_numpy,
     odom_state_from_numpy, odom_state_to_numpy)
-from jetracer_orbslam2_torch.evaluation import ate, rpe, rpe_drift
+from jetracer_orbslam2_torch.evaluation import ate, rpe, rpe_drift, rpe_drift_median
 from jetracer_orbslam2_torch.io import synthetic as tsyn
 from jetracer_orbslam2_torch.models import odometry as todom
 from jetracer_orbslam2_torch.models.frontend import frontend_gray_depth, frontend_rgbd
@@ -169,6 +169,33 @@ def test_odometry_scan_matches_jax(sequence):
         # where an ulp of the trace is ~3e-4 rad
         close(float(a[0]), float(b[0]), rtol=0, atol=1e-6)
         close(float(a[1]), float(b[1]), rtol=0, atol=2e-3)
+
+
+@pytest.mark.parametrize("delta", [4, 5])
+def test_rpe_drift_median_matches_jax(delta):
+    """The median drift ratios against the JAX package, rtol 1e-5, over 20
+    (even: the two middle values are averaged) and 19 segments.  The
+    estimate is the truth rotated by about 0.15 rad a frame, so each
+    segment's angle error stays away from 0, where arccos of the trace turns
+    an ulp into 3e-4 rad."""
+    from jetracer_orbslam2_tpu.evaluation import rpe_drift_median as j_median
+    from jetracer_orbslam2_tpu.ops import geometry as jgeo
+
+    rng = np.random.default_rng(11)
+    steps = np.concatenate([rng.normal(0, 0.02, (24, 3)),
+                            rng.normal([0.0, 0.0, 0.05], 0.01, (24, 3))], 1)
+    gt = np.array(jgeo.se3_exp(jnp.asarray(steps, jnp.float32)))
+    for i in range(1, 24):
+        gt[i] = gt[i - 1] @ gt[i]
+    noise = np.concatenate([rng.normal(0, 0.08, (24, 3)),
+                            rng.normal(0, 0.15, (24, 3))], 1)
+    est = gt @ np.asarray(jgeo.se3_exp(jnp.asarray(noise, jnp.float32)))
+    gt, est = gt.astype(np.float32), est.astype(np.float32)
+    got = rpe_drift_median(t(est), t(gt), delta=delta)
+    want = j_median(jnp.asarray(est), jnp.asarray(gt), delta=delta)
+    for g, w in zip(got, want):
+        close(float(g), float(w), rtol=1e-5, atol=0)
+        assert float(g) > 0.1
 
 
 @pytest.mark.parametrize("chunk", [4, 5])

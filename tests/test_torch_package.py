@@ -38,7 +38,10 @@ def test_port_sources_name_no_jax_import():
                 "ops/fused_ba.py", "parallel/bench_ba.py", "convert.py",
                 "models/backend/loop.py", "models/imu.py", "models/slam_scan.py",
                 "ops/fused_patches.py", "models/stereo.py", "io/datasets.py",
-                "io/native_loader.py"):
+                "io/native_loader.py", "runtime/__init__.py",
+                "runtime/pipeline.py", "runtime/liveness.py", "runtime/bson.py",
+                "runtime/telemetry.py", "runtime/checkpoint.py",
+                "ops/overlay.py", "utils/timing.py"):
         assert f"jetracer_orbslam2_torch/{new}" in names
     for path in files:
         assert not _FORBIDDEN.search(path.read_text()), path
@@ -64,7 +67,10 @@ count = 0
 for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(info.name)
     count += 1
-for name in ("models.stereo", "io.datasets", "io.native_loader"):
+for name in ("models.stereo", "io.datasets", "io.native_loader",
+             "runtime.pipeline", "runtime.liveness", "runtime.bson",
+             "runtime.telemetry", "runtime.checkpoint", "ops.overlay",
+             "utils.timing"):
     assert "jetracer_orbslam2_torch." + name in sys.modules, name
 import chip_smoke
 leaked = [m for m in sys.modules
@@ -214,9 +220,6 @@ def test_set_exact_f32():
     ["--mode", "slam"],                          # no source
     ["--mode", "odometry"],
     ["--synthetic", "4", "--mesh", "4"],
-    ["--synthetic", "4", "--telemetry", "9002"],
-    ["--synthetic", "4", "--checkpoint", "/nonexistent"],
-    ["--synthetic", "4", "--resume", "/nonexistent"],
 ])
 def test_cli_refuses_what_is_not_ported(argv, capsys):
     assert trun.main(argv + ["--device", "cpu"]) == 2
@@ -224,6 +227,28 @@ def test_cli_refuses_what_is_not_ported(argv, capsys):
     assert captured.out == ""
     assert ("not ported" in captured.err
             or "need --dataset or --synthetic" in captured.err)
+
+
+@pytest.mark.parametrize("flag", [
+    ["--resume", "/nonexistent"], ["--telemetry", "0"],
+    ["--telemetry-no-image"]])
+def test_cli_runtime_flags_as_the_jax_cli_reads_them(flag, capsys):
+    """The runtime's flags are ported: a missing checkpoint directory raises
+    the JAX CLI's FileNotFoundError; `--telemetry 0` (the default port 0)
+    and `--telemetry-no-image` alone run with no telemetry."""
+    import json
+
+    argv = ["--synthetic", "2", "--json", "--device", "cpu", "--levels", "2",
+            "--max-keypoints", "128"] + flag
+    if flag[0] == "--resume":
+        with pytest.raises(FileNotFoundError, match="/nonexistent"):
+            trun.main(argv)
+        return
+    assert trun.main(argv) == 0
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert report["mode"] == "slam" and report["frames"] == 2
+    assert report["watchdog_stalls"] == 0
+    assert "telemetry_sent" not in report and "checkpoint" not in report
 
 
 @pytest.mark.parametrize("mode", ["slam", "odometry"])

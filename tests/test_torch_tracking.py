@@ -173,3 +173,43 @@ def test_track_rgbd_falls_back_to_motion_model(two_frames):
     assert int(got.num_matches) == 0
     close(n(got.T_wc), T_prev @ vel, rtol=0, atol=1e-6)
     np.testing.assert_array_equal(n(got.velocity), vel)
+
+
+def _icp_clouds(seed):
+    """64 points seen before and after a known small motion, with masks."""
+    rng = np.random.default_rng(seed)
+    xi = np.concatenate([rng.normal(0, 0.03, 3), rng.normal(0, 0.02, 3)]).astype(np.float32)
+    T = n(jgeo.se3_exp(jnp.asarray(xi)))
+    src = rng.uniform(-1.0, 1.0, (64, 3)).astype(np.float32) * [1.5, 1.0, 0.5]
+    src = (src + [0.0, 0.0, 3.0]).astype(np.float32)
+    dst = (src @ T[:3, :3].T + T[:3, 3] + rng.normal(0, 0.002, (64, 3))).astype(np.float32)
+    src_mask = rng.random(64) > 0.15
+    dst_mask = rng.random(64) > 0.1
+    return src, dst, src_mask, dst_mask, T
+
+
+@pytest.mark.parametrize("masked,with_init,iters", [
+    (False, False, 10), (True, False, 8), (True, True, 6)])
+def test_icp_matches_jax(masked, with_init, iters):
+    """ICP against the JAX package on 64 points, compared as transforms (SVD
+    factors are not defined across libraries), atol 1e-4."""
+    src, dst, sm, dm, T_true = _icp_clouds(3 + iters)
+    if not masked:
+        sm = dm = np.ones(64, bool)
+    T0 = None
+    if with_init:
+        T0 = n(jgeo.se3_exp(jnp.asarray([0.01, -0.01, 0.0, 0.02, 0.0, -0.01],
+                                        jnp.float32)))
+    ref_T, ref_err = jtrack.icp(
+        jnp.asarray(src), jnp.asarray(dst), jnp.asarray(sm), jnp.asarray(dm),
+        iters=iters, T_init=None if T0 is None else jnp.asarray(T0))
+    got_T, got_err = ttrack.icp(
+        t(src), t(dst), t(sm), t(dm), iters=iters,
+        T_init=None if T0 is None else t(T0))
+    close(n(got_T), n(ref_T), rtol=0, atol=1e-4)
+    close(float(got_err), float(ref_err), rtol=0, atol=1e-5)
+    if not masked:
+        # every point has its partner: both find the motion (a masked-out
+        # partner leaves a point a wrong neighbour, and a biased fit)
+        close(n(got_T), T_true, rtol=0, atol=1e-2)
+    assert got_T.dtype == torch.float32 and got_T.shape == (4, 4)
