@@ -9,8 +9,10 @@ RGB-D odometry on a synthetic 640x480 sequence at the CLI's defaults (4
 pyramid levels, 1024 keypoints, 256 RANSAC hypotheses), standalone bundle
 adjustment at 8 poses x 4,096 landmarks, windowed BA over a keyframe map at
 its full capacity (256 keyframe slots, 16,384 landmarks, 65,536
-observations), the pose graph, and the full SLAM system (`slam_scan`, `Slam`,
-the CLI's default mode) with loop closure: a 126-frame lap at 240x180 and
+observations), the pose graph, landmark-sharded BA over a `torch.distributed`
+group (one rank with NCCL, and two ranks on the one card with gloo) and the
+CLI's `--mesh 1`, and the full SLAM system (`slam_scan`, `Slam`, the CLI's
+default mode) with loop closure: a 126-frame lap at 240x180 and
 1,200 frames of 640x480 over three laps; the stereo SLAM system over 120
 stereo pairs of 640x480 (an arc and a lap); the CLI on the committed TUM,
 EuRoC and KITTI fixtures; and the CLI's host loop behind the runtime
@@ -102,10 +104,27 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
                   document the viewer's fields at 640x480, the checkpoint's
                   keyframes; overlay_keypoints card vs CPU; ms a frame,
                   decode, JPEG time and bytes a frame recorded
+  21 sharded BA   (a) sharded_bundle_adjust 8 x 4,096 on a one-rank NCCL
+                  group: torch.equal to bundle_adjust, K2 = K3 = 10, no host
+                  wait in the call (sync debug "error"); ms per LM iteration
+                  at 10 and 50 iterations beside time_ba, in turns;
+                  measure_scaling (one row a card); (b) sharded_local_ba on
+                  phase 9's full-capacity map: torch.equal to local_ba,
+                  nothing dropped; (c) run.main --synthetic 120 --mode slam
+                  --mesh 1, whole and --chunked 8, against the meshless runs:
+                  exit 0 on cuda:0, keyframes, loops, relocs, poses and
+                  tracked flags equal, ATE < 10 cm, tracked >= 0.95, K1 = K4
+                  = frames, K2 = K3 = 10 x keyframe updates, mesh_devices 1,
+                  ba_edges_dropped 0; (d) the distributed worker twice on
+                  this card over gloo (2,048 landmarks a rank): ranks
+                  bit-identical, poses 5e-3 and points 2e-2 of (a), cost
+                  below 0.2 x initial, K2 = K3 = 10 a rank; ms per iteration
 Kernel times are CUDA events around a replayed CUDA graph of launches.  Then
 the paths' reports (the stereo path's and the datasets' on one line, the
-runtime's on one), one JSON line `{"kernels": [...]}` (launches: the runtime
-path's, phase 20 run C), and as the last line `{"ok": true, "device": {...}}`.
+runtime's on one, the sharded phase's on one), one JSON line
+`{"kernels": [...]}` (launches: the runtime path's, phase 20 run C;
+sharded_path_launches the --mesh 1 CLI run's, phase 21c), and as the last
+line `{"ok": true, "device": {...}}`.
 
 Imports torch and the port only: no JAX, nothing of the JAX package.
 """
@@ -128,7 +147,7 @@ F32_OPS_PER_S = 67e12
 FAST_THRESHOLD, FAST_ARC, FAST_BORDER = 13.0, 12, 19
 SLAM_FAST_MIN_THRESHOLD = 7.0   # the SLAM path's second FAST threshold
 N_FRAMES = 120
-N_PHASES = 20
+N_PHASES = 21
 PATCH = 37
 
 # SLAM path at full width (the JAX package's long-sequence benchmark): frames,
@@ -1029,7 +1048,7 @@ def phase_local_ba(args, source, poses, dev) -> dict:
         "cost_after_fused": cost_f, "cost_after_dense": cost_d,
         "ms_fused": ms_fused, "ms_dense": ms_dense,
         "local_ba_fused_default": chosen,
-    }
+    }, m
 
 
 def phase_pose_graph(dev) -> dict:
@@ -2621,6 +2640,318 @@ def phase_runtime(dev) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 21: sharded BA and the mesh path
+# ---------------------------------------------------------------------------
+
+class _MeshRunProbe:
+    """Patches, for one CLI run, what phase 21 reads off it: keyframe
+    updates (`slam.keyframe_update`, which `Slam` and `slam_scan` call
+    through the module) and the final poses and tracked flags
+    (`Slam.result`, `ChunkedSlam.result` / `tracked`)."""
+
+    def __enter__(self):
+        from jetracer_orbslam2_torch.models import slam as slam_mod
+        from jetracer_orbslam2_torch.models import slam_scan as ss
+
+        self.keyframe_updates, self.poses, self.tracked = 0, None, None
+        probe, self._saved = self, []
+
+        def patch(owner, name, make):
+            fn = getattr(owner, name)
+            self._saved.append((owner, name, fn))
+            setattr(owner, name, make(fn))
+
+        def counted(fn):
+            def wrapped(*a, **kw):
+                probe.keyframe_updates += 1
+                return fn(*a, **kw)
+            return wrapped
+
+        def slam_result(fn):
+            def wrapped(*a, **kw):
+                out = fn(*a, **kw)
+                probe.poses, probe.tracked = out.poses, out.tracked
+                return out
+            return wrapped
+
+        def captured(field):
+            def make(fn):
+                def wrapped(*a, **kw):
+                    out = fn(*a, **kw)
+                    setattr(probe, field, out)
+                    return out
+                return wrapped
+            return make
+
+        patch(slam_mod, "keyframe_update", counted)
+        patch(slam_mod.Slam, "result", slam_result)
+        patch(ss.ChunkedSlam, "result", captured("poses"))
+        patch(ss.ChunkedSlam, "tracked", captured("tracked"))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in reversed(self._saved):
+            setattr(owner, name, fn)
+
+
+def _sharded_solve(dev) -> tuple[dict, tuple]:
+    """(a) `sharded_bundle_adjust` on a one-rank NCCL group against
+    `bundle_adjust`, launches, host waits, and the timings."""
+    import numpy as np
+    import torch
+    from jetracer_orbslam2_torch.config import BAConfig
+    from jetracer_orbslam2_torch.models.backend.ba import bundle_adjust
+    from jetracer_orbslam2_torch.parallel import (
+        make_mesh, prepare_sharded_problem, sharded_bundle_adjust)
+    from jetracer_orbslam2_torch.parallel.bench_ba import (
+        make_synthetic_ba, measure_scaling, time_ba, time_sharded_ba)
+
+    mesh = make_mesh(1)
+    say(f"  (a) {mesh!r}")
+    if mesh.backend != "nccl" or mesh.device != dev or mesh.size != 1:
+        raise SystemExit(f"FAIL: the one-rank mesh is {mesh!r}, not NCCL on {dev}")
+    prob, intr = make_synthetic_ba(BA_POSES, BA_LANDMARKS, BA_OBS_PER_LM)
+    cfg = BAConfig(iters=BA_ITERS)
+    sprob = prepare_sharded_problem(prob, 1)
+    sharded_bundle_adjust(sprob, intr, cfg, mesh)     # warm: the communicator
+    torch.cuda.synchronize()
+    _reset_ba_counters()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        poses_s, points_s, trace_s = sharded_bundle_adjust(sprob, intr, cfg, mesh)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    launches = _ba_counters()
+    poses_u, points_u, stats = bundle_adjust(prob, intr, cfg)
+    equal = (torch.equal(poses_s, poses_u) and torch.equal(points_s, points_u)
+             and torch.equal(trace_s, stats.cost))
+    trace = trace_s.cpu().numpy()
+    say(f"  (a) sharded_bundle_adjust {BA_POSES} x {BA_LANDMARKS}, one rank: "
+        f"trace {np.array2string(trace, precision=2)}; torch.equal to "
+        f"bundle_adjust {equal}; K2/K3 launches {launches}; no host wait in "
+        "the call (sync debug mode 'error')")
+    if not equal:
+        raise SystemExit("FAIL: the one-rank sharded solve differs from bundle_adjust")
+    if launches != (BA_ITERS, BA_ITERS):
+        raise SystemExit(f"FAIL: sharded K2/K3 launches {launches} != "
+                         f"({BA_ITERS}, {BA_ITERS})")
+    timing = {}
+    for iters in (10, 50):
+        c = BAConfig(iters=iters)
+        runs = {"sharded": [], "unsharded": []}
+        for kind in ("sharded", "unsharded", "unsharded", "sharded"):
+            if kind == "sharded":
+                runs[kind].append(time_sharded_ba(prob, intr, 1, c, reps=3))
+            else:
+                runs[kind].append(time_ba(prob, intr, c, reps=3))
+        timing[iters] = {k: min(r["ms_per_iter"] for r in v) for k, v in runs.items()}
+        say(f"  (a) iters {iters}: sharded (one rank) "
+            f"{timing[iters]['sharded']:.3f} ms per LM iteration, unsharded "
+            f"time_ba {timing[iters]['unsharded']:.3f} (warm, host clock, one "
+            "fetch a run, best of 3, in turns s u u s)")
+    mesh.close()
+    rows = measure_scaling(n_poses=BA_POSES, n_landmarks=BA_LANDMARKS,
+                           obs_per_lm=BA_OBS_PER_LM, iters=BA_ITERS)
+    say(f"  (a) measure_scaling (a spawned group a mesh size, up to "
+        f"{torch.cuda.device_count()} card(s)): {json.dumps(rows)}")
+    if not rows or rows[0]["n"] != 1 or rows[0]["efficiency"] != 1.0:
+        raise SystemExit(f"FAIL: measure_scaling gave {rows}")
+    report = {
+        "problem": [BA_POSES, BA_LANDMARKS, int(prob.obs_kf.shape[0])],
+        "iters": BA_ITERS, "launches": list(launches), "equal_to_unsharded": equal,
+        "cost_initial": float(trace[0]), "cost_final": float(trace[-1]),
+        "ba_ms_per_iter_4096lm": timing[10]["sharded"],
+        "ba_ms_per_iter_4096lm_amortized": timing[50]["sharded"],
+        "time_ba_ms_per_iter": timing[10]["unsharded"],
+        "time_ba_ms_per_iter_amortized": timing[50]["unsharded"],
+        "measure_scaling": rows,
+    }
+    return report, (poses_s.cpu().numpy(), points_s.cpu().numpy())
+
+
+def _sharded_local(m, intr, dev) -> dict:
+    """(b) `sharded_local_ba` against `local_ba` on phase 9's full-capacity
+    map (P 8, L 16,384)."""
+    import torch
+    from jetracer_orbslam2_torch.config import SystemConfig
+    from jetracer_orbslam2_torch.models import slam
+    from jetracer_orbslam2_torch.parallel import make_mesh, sharded_local_ba
+
+    cfg = SystemConfig()
+    W = cfg.map.window_size
+    with make_mesh(1) as mesh:
+        sharded_local_ba(m, intr, W, cfg, mesh)             # warm
+        _reset_ba_counters()
+        m2, dropped = sharded_local_ba(m, intr, W, cfg, mesh)
+        launches = _ba_counters()
+        m1 = slam.local_ba(m, intr, W, cfg)
+        equal = all(torch.equal(a, b) for a, b in zip(m1, m2))
+        n_dropped = int(dropped)
+
+        def timed(fn) -> float:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t) * 1e3
+
+        runs = {"sharded": [], "unsharded": []}
+        for kind in ("sharded", "unsharded", "unsharded", "sharded",
+                     "sharded", "unsharded"):
+            runs[kind].append(timed(
+                (lambda: sharded_local_ba(m, intr, W, cfg, mesh)) if kind == "sharded"
+                else (lambda: slam.local_ba(m, intr, W, cfg))))
+    ms = {k: min(v) for k, v in runs.items()}
+    say(f"  (b) sharded_local_ba P {W}, L {m.lm_valid.shape[0]}: torch.equal to "
+        f"local_ba {equal}, n_dropped {n_dropped}, K2/K3 launches {launches}; "
+        f"{ms['sharded']:.2f} ms against local_ba {ms['unsharded']:.2f} ms (host "
+        "clock around one call + sync, best of 3, in turns)")
+    if not equal or n_dropped != 0:
+        raise SystemExit("FAIL: sharded_local_ba differs from local_ba or dropped edges")
+    if launches != (cfg.ba.iters, cfg.ba.iters):
+        raise SystemExit(f"FAIL: sharded_local_ba launches {launches}")
+    return {"problem": [W, int(m.lm_valid.shape[0]), int(m.obs_valid.shape[0])],
+            "equal_to_local_ba": equal, "n_dropped": n_dropped,
+            "launches": list(launches), "ms_sharded": ms["sharded"],
+            "ms_local_ba": ms["unsharded"]}
+
+
+def _mesh_cli(dev) -> tuple[dict, dict]:
+    """(c) run.main at full width with --mesh 1 against the meshless run,
+    whole and --chunked 8; returns (report, the --mesh 1 whole run's
+    launches)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        raise SystemExit("FAIL: a process group is still up before (c)")
+    out, bad = {}, []
+    for extra in ([], ["--chunked", "8"]):
+        runs = {}
+        for mesh in ([], ["--mesh", "1"]):
+            argv = ["--synthetic", str(N_FRAMES), "--mode", "slam"] + extra + mesh
+            _reset_counters()
+            with _MeshRunProbe() as probe:
+                code, report = _cli(argv)
+            report.update(exit=code, launches=_read_counters(),
+                          keyframes_inserted=probe.keyframe_updates)
+            runs["mesh" if mesh else "meshless"] = (report, probe.poses, probe.tracked)
+            say(f"  (c) run.main({argv}) -> {code}: " + json.dumps(report))
+        (rm, pm, tm), (r0, p0, t0) = runs["mesh"], runs["meshless"]
+        name = "chunked8" if extra else "whole"
+        if dist.is_initialized():
+            bad.append(f"{name}: the CLI left its process group up")
+        for what, r in (("mesh", rm), ("meshless", r0)):
+            if r["exit"] != 0 or r.get("device") != "cuda:0":
+                bad.append(f"{name} {what}: exit {r['exit']} on {r.get('device')}")
+                continue
+            if not (r["ate_rmse_m"] < 0.10 and r["tracked_frac"] >= 0.95):
+                bad.append(f"{name} {what}: ATE {r['ate_rmse_m']} tracked "
+                           f"{r['tracked_frac']}")
+            k = r["launches"]
+            if not (k["fast_nms_pyramid"] == k["extract_patches_fused"] == N_FRAMES):
+                bad.append(f"{name} {what}: K1/K4 launches {k}")
+            want = 10 * r["keyframes_inserted"]
+            if not (k["fused_normal_schur"] == k["fused_backsub"] == want > 0):
+                bad.append(f"{name} {what}: K2/K3 launches {k}, {want} expected")
+        if rm.get("mesh_devices") != 1 or rm.get("ba_edges_dropped") != 0:
+            bad.append(f"{name}: mesh_devices {rm.get('mesh_devices')}, "
+                       f"ba_edges_dropped {rm.get('ba_edges_dropped')}")
+        for key in ("keyframes", "loops", "relocs", "landmarks", "ate_rmse_m"):
+            if rm.get(key) != r0.get(key):
+                bad.append(f"{name}: {key} {rm.get(key)} != {r0.get(key)}")
+        if pm is None or p0 is None or not np.array_equal(pm, p0):
+            bad.append(f"{name}: poses differ from the meshless run")
+        if tm is None or t0 is None or not np.array_equal(tm, t0):
+            bad.append(f"{name}: tracked flags differ from the meshless run")
+        out[name] = {"mesh": rm, "meshless": r0,
+                     "poses_equal": pm is not None and np.array_equal(pm, p0)}
+    if bad:
+        raise SystemExit("FAIL: the --mesh 1 CLI runs: " + "; ".join(bad))
+    say("  (c) --mesh 1 whole and --chunked 8: keyframes, loops, relocs, poses "
+        "and tracked flags equal to the meshless runs")
+    return out, out["whole"]["mesh"]["launches"]
+
+
+def _two_ranks(reference) -> dict:
+    """(d) the worker twice on cuda:0 over gloo: 2,048 landmarks a rank."""
+    import os
+    import shutil
+    import subprocess
+    import tempfile
+    import numpy as np
+
+    tmp = tempfile.mkdtemp(prefix="jetracer_two_ranks_")
+    try:
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "jetracer_orbslam2_torch.parallel.distributed_worker",
+             f"file://{os.path.join(tmp, 'store')}", "2", str(rank),
+             "--device", "cuda:0", "--backend", "gloo",
+             "--problem", f"{BA_POSES},{BA_LANDMARKS},{BA_OBS_PER_LM}",
+             "--iters", str(BA_ITERS), "--time", "3",
+             "--save", os.path.join(tmp, f"rank{rank}.npz")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for rank in (0, 1)]
+        outs = []
+        try:
+            for p in procs:
+                o, e = p.communicate(timeout=300)
+                if p.returncode != 0:
+                    raise SystemExit(f"FAIL: a rank of (d) exited {p.returncode}:\n"
+                                     + e[-3000:])
+                outs.append(json.loads(o.strip().splitlines()[-1]))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        saved = [np.load(os.path.join(tmp, f"rank{r}.npz")) for r in (0, 1)]
+        same = all(np.array_equal(saved[0][k], saved[1][k])
+                   for k in ("poses", "points", "trace"))
+        dp = float(np.abs(saved[0]["poses"] - reference[0]).max())
+        dx = float(np.abs(saved[0]["points"] - reference[1]).max())
+        tr = saved[0]["trace"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for o in outs:
+        say(f"  (d) rank {o['rank']}: " + json.dumps(o))
+    say(f"  (d) two ranks on one card over gloo: ranks bit-identical {same}, "
+        f"against (a): poses {dp:.2e}, points {dx:.2e}; cost {tr[0]:.2f} -> "
+        f"{tr[-1]:.2f}; {outs[0]['timing']['ms_per_iter']:.3f} ms per LM "
+        "iteration (both ranks share one card: not a scaling figure)")
+    bad = []
+    if not same or outs[0]["digest"] != outs[1]["digest"]:
+        bad.append("the ranks disagree")
+    if dp >= 5e-3 or dx >= 2e-2:
+        bad.append(f"off (a) by poses {dp}, points {dx}")
+    if not tr[-1] < 0.2 * tr[0]:
+        bad.append(f"cost {tr[-1]} >= 0.2 x {tr[0]}")
+    for o in outs:
+        k = o.get("launches", {})
+        if o["world_size"] != 2 or o["backend"] != "gloo" or not (
+                k.get("fused_normal_schur") == k.get("fused_backsub") == BA_ITERS):
+            bad.append(f"rank {o['rank']}: world {o['world_size']} "
+                       f"{o['backend']}, launches {k}")
+    if bad:
+        raise SystemExit("FAIL: two ranks: " + "; ".join(bad))
+    return {"ranks_equal": same, "max_pose_diff_vs_a": dp,
+            "max_point_diff_vs_a": dx, "cost_initial": float(tr[0]),
+            "cost_final": float(tr[-1]),
+            "ms_per_iter": outs[0]["timing"]["ms_per_iter"],
+            "launches": [o["launches"] for o in outs]}
+
+
+def phase_sharded(local_map, intr, dev) -> tuple[dict, dict]:
+    """Phase 21: (a) the one-rank sharded solve, (b) the sharded local BA at
+    full capacity, (c) the CLI with --mesh 1, (d) two ranks on the card."""
+    solve, reference = _sharded_solve(dev)
+    local = _sharded_local(local_map, intr, dev)
+    cli, launches = _mesh_cli(dev)
+    two = _two_ranks(reference)
+    return {"solve": solve, "local_ba": local, "cli": cli, "two_ranks": two}, launches
+
+
 def print_build(name: str) -> None:
     from jetracer_orbslam2_torch.utils import cuda_build
 
@@ -2710,7 +3041,7 @@ def main(argv: list[str]) -> int:
 
             phase(9, f"local BA: {KF_COUNT} keyframes (every {KF_EVERY}th frame) "
                      "in a map of full capacity")
-            local_report = phase_local_ba(args, source, poses, dev)
+            local_report, local_map = phase_local_ba(args, source, poses, dev)
 
             phase(10, "pose graph")
             pg_report = phase_pose_graph(dev)
@@ -2770,6 +3101,12 @@ def main(argv: list[str]) -> int:
                   "640x480")
         runtime_report = phase_runtime(dev)
         runtime_launches = runtime_report["runs"]["C"]["launches"]
+
+        phase(21, "sharded BA and the mesh path: (a) sharded_bundle_adjust on a "
+                  "one-rank NCCL group, (b) sharded_local_ba at full capacity, "
+                  f"(c) run.main --mesh 1 ({N_FRAMES} frames of 640x480, whole "
+                  "and --chunked 8), (d) two ranks on this card over gloo")
+        sharded_report, sharded_launches = phase_sharded(local_map, source.intr, dev)
     torch.cuda.synchronize()
 
     k1 = times["odometry"]
@@ -2780,6 +3117,7 @@ def main(argv: list[str]) -> int:
         "replaces": "jetracer_orbslam2_tpu/ops/pallas_fast.py:190",
         "launches": runtime_launches["fast_nms_pyramid"],
         "stereo_path_launches": stereo_launches["fast_nms_pyramid"],
+        "sharded_path_launches": sharded_launches["fast_nms_pyramid"],
         "odometry_launches": launches,
         "max_abs_err": max_err,
         "ms": k1["ms"],
@@ -2792,7 +3130,8 @@ def main(argv: list[str]) -> int:
                        "threshold (the odometry path's configuration); launches "
                        "are the runtime path's (phase 20 run C, one a frame), "
                        "stereo_path_launches the stereo path's (one a frame: "
-                       "both pyramids in one launch), odometry_launches the "
+                       "both pyramids in one launch), sharded_path_launches "
+                       "the --mesh 1 CLI run's (phase 21c), odometry_launches the "
                        "odometry path's; "
                        "'slam' is the time at the SLAM path's two thresholds, "
                        "with its launches; 'stereo' a stereo frame's two "
@@ -2817,6 +3156,9 @@ def main(argv: list[str]) -> int:
             "replaces": f"jetracer_orbslam2_tpu/ops/pallas_ba.py:{line}",
             "launches": runtime_launches[name],
             "stereo_path_launches": stereo_launches[name],
+            "sharded_path_launches": sharded_launches[name],
+            "sharded_ba_launches": sharded_report["solve"]["launches"][0 if key == "K2" else 1],
+            "two_ranks_launches": [r[name] for r in sharded_report["two_ranks"]["launches"]],
             "ba_path_launches": count,
             "max_abs_err": worst[key]["abs"],
             "max_abs_err_scale": worst[key]["scale"],
@@ -2830,6 +3172,10 @@ def main(argv: list[str]) -> int:
             "numbers_are": "per launch at (P 8, L 4096), the BA path's shape; "
                            "launches are the runtime path's (phase 20 run C), "
                            "stereo_path_launches the stereo path's, "
+                           "sharded_path_launches the --mesh 1 CLI run's "
+                           "(phase 21c, on each rank's block), "
+                           "sharded_ba_launches phase 21a's one-rank solve's, "
+                           "two_ranks_launches phase 21d's per rank, "
                            "ba_path_launches "
                            "the BA path's (local BA launched "
                            f"{local_report['launches']} more); floor_ms is an "
@@ -2843,6 +3189,7 @@ def main(argv: list[str]) -> int:
         "replaces": "scripts/experiment_pallas_patches.py:52",
         "launches": runtime_launches["extract_patches_fused"],
         "stereo_path_launches": stereo_launches["extract_patches_fused"],
+        "sharded_path_launches": sharded_launches["extract_patches_fused"],
         "slam_path_launches": slam_launches["extract_patches_fused"],
         "max_abs_err": patch_max_err,
         "exact_match": patch_all_equal,
@@ -2859,7 +3206,8 @@ def main(argv: list[str]) -> int:
                        "levels), K 1024, P 37, read from the levels; launches "
                        "are the runtime path's (phase 20 run C, one a frame), "
                        "stereo_path_launches the stereo path's (two a frame), "
-                       "slam_path_launches "
+                       "sharded_path_launches the --mesh 1 CLI run's (phase "
+                       "21c), slam_path_launches "
                        "the SLAM path's (one a frame); pr4_route_ms is PR "
                        "4's route (pack_levels + patch_origins + the canvas "
                        "kernel, one graph) and canvas_kernel_ms its kernel "
@@ -2879,6 +3227,7 @@ def main(argv: list[str]) -> int:
     say(json.dumps({"stereo_path": stereo_report, "stereo_check": stereo_check,
                     "datasets": datasets_report, "card": card}))
     say(json.dumps({"runtime": runtime_report["summary"], "card": card}))
+    say(json.dumps({"sharded": sharded_report, "card": card}))
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

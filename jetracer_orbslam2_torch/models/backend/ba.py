@@ -24,9 +24,9 @@ to device memory).
 `lm_run_dense` is the whole LM schedule.  The loop never makes the host wait
 for the device: accept/reject is a tensor (`torch.where` on poses, points,
 lambda and cost), and a Cholesky factorisation that fails is a rejected
-step, not an exception.  `psum` is a hook for a landmark-sharded caller: a
-callable that reduces pose-sized partial sums over the shards (identity
-when unsharded).
+step, not an exception.  `psum` is the hook of the landmark-sharded caller
+(`parallel/ba_sharded.py`): a callable that reduces pose-sized partial sums
+over the shards (identity when unsharded).  Both routes take it.
 """
 
 from __future__ import annotations
@@ -381,11 +381,11 @@ def lm_run_dense(
     solver runs landmark-last.  psum: reduces pose-sized partial sums over
     landmark shards (None = unsharded).
     fused: route the per-iteration linear solve through the fused kernels
-    (ops/fused_ba).  Default auto: on for an unsharded problem on a CUDA
-    device whose pose count the kernels take (fused_ba.MAX_POSES); True
-    beyond that count raises; False is the dense route.  On the CPU
-    `fused=True` runs the kernels' plain versions.  No landmark padding:
-    the kernels take any L >= 1.
+    (ops/fused_ba).  Default auto: on for a problem (or a landmark shard of
+    one) on a CUDA device whose pose count the kernels take
+    (fused_ba.MAX_POSES); True beyond that count raises; False is the dense
+    route.  On the CPU `fused=True` runs the kernels' plain versions.  No
+    landmark padding: the kernels take any L >= 1.
     Returns (poses_cw, points, cost trace, initial cost first).
     """
     from jetracer_orbslam2_torch.ops import fused_ba
@@ -401,11 +401,9 @@ def lm_run_dense(
     lm_valid = torch.as_tensor(lm_valid).to(dev)
 
     P = poses_cw.shape[0]
-    sharded = psum is not None
     psum = psum or _identity
     if fused is None:
-        fused = (not sharded and dev.type == "cuda"
-                 and fused_ba.takes_num_poses(P))
+        fused = dev.type == "cuda" and fused_ba.takes_num_poses(P)
     if fused and not fused_ba.takes_num_poses(P):
         raise ValueError(
             f"fused BA path takes 1..{fused_ba.MAX_POSES} poses, got {P}")

@@ -264,6 +264,7 @@ class KeyframeUpdate(NamedTuple):
     compacted: bool
     loop_prev_uid: Tensor  # () int32 loop gate state, to be carried into the
     loop_consist: Tensor   # () int32 next keyframe's `retrieve_and_verify`
+    ba_dropped: int       # colliding edges the sharded BA dropped (0 meshless)
 
 
 def compact_if_full(m: MapState, cfg: SystemConfig, num_obs: int, num_lm: int,
@@ -295,7 +296,7 @@ def keyframe_update(
     m: MapState, feats: Features, T_wc: Tensor, frame_idx, lm_idx: Tensor,
     lm_ok: Tensor, intrinsics: Tensor, cfg: SystemConfig,
     generator: Optional[torch.Generator], loop_prev_uid, loop_consist,
-    sample_idx: Optional[Tensor] = None, device=None,
+    sample_idx: Optional[Tensor] = None, mesh=None, device=None,
 ) -> KeyframeUpdate:
     """The keyframe branch: insert + windowed BA + loop detection, ONE packed
     fetch of the verdict and the capacity counters, then on the host's
@@ -303,18 +304,29 @@ def keyframe_update(
 
     Loop detection runs at every keyframe: retrieval's min_kf_gap exclusion
     is the recency gate and the RANSAC verification the correctness gate.
-    sample_idx: optional RANSAC samples for `loop.retrieve_and_verify`."""
+    sample_idx: optional RANSAC samples for `loop.retrieve_and_verify`.
+    mesh: a `parallel.mesh.Mesh` on this device; the windowed BA then runs
+    landmark-sharded over it (`parallel.ba_sharded.sharded_local_ba`)."""
     dev = resolve_device(device)
     set_exact_f32()
     new_mask = feats.has_point & ~lm_ok
     m, slot = map_mod.insert_keyframe(
         m, feats, T_wc, frame_idx, new_mask, lm_idx, lm_ok, device=dev)
-    m = local_ba(m, intrinsics, cfg.map.window_size, cfg, device=dev)
+    counters = []
+    if mesh is None:
+        m = local_ba(m, intrinsics, cfg.map.window_size, cfg, device=dev)
+    else:
+        from jetracer_orbslam2_torch.parallel.ba_sharded import sharded_local_ba
+
+        m, dropped = sharded_local_ba(m, intrinsics, cfg.map.window_size, cfg,
+                                      mesh)
+        counters = [dropped]
     cand_idx, T_ab, loop_ok, lp_uid, lp_cons = loop_mod.retrieve_and_verify(
         m, slot, generator, cfg.loop, intrinsics, loop_prev_uid, loop_consist,
         sample_idx=sample_idx, device=dev)
-    num_obs, num_lm, num_kf, looped = torch.stack(
-        [m.num_obs, m.num_lm, m.num_kf, loop_ok.to(torch.int32)]).cpu().tolist()
+    num_obs, num_lm, num_kf, looped, *dropped = torch.stack(
+        [m.num_obs, m.num_lm, m.num_kf, loop_ok.to(torch.int32)]
+        + counters).cpu().tolist()
     if looped:
         m = loop_mod.close(m, slot, cand_idx, T_ab, cfg.pose_graph, device=dev)
     # the live pose rides the optimized (and corrected) newest keyframe
@@ -324,7 +336,24 @@ def keyframe_update(
     # have moved during compaction
     return KeyframeUpdate(
         m=m, T_wc=T_wc, slot=m.num_kf - 1, looped=bool(looped),
-        compacted=compacted, loop_prev_uid=lp_uid, loop_consist=lp_cons)
+        compacted=compacted, loop_prev_uid=lp_uid, loop_consist=lp_cons,
+        ba_dropped=sum(dropped))
+
+
+def mesh_device(mesh, device, cfg: SystemConfig) -> torch.device:
+    """The device of a system that may own a mesh: the mesh's (`device` may
+    name it again, not another), else `resolve_device(device)`.  Raises
+    ValueError when the map's landmark capacity does not split into the
+    mesh's blocks."""
+    if mesh is None:
+        return resolve_device(device)
+    if device is not None and resolve_device(device) != mesh.device:
+        raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+    if cfg.map.max_landmarks % mesh.size:
+        raise ValueError(
+            f"landmark capacity must divide the mesh: "
+            f"L={cfg.map.max_landmarks} n={mesh.size}")
+    return mesh.device
 
 
 @dataclasses.dataclass
@@ -345,13 +374,15 @@ class Slam:
     def __init__(self, cfg: SystemConfig, intrinsics, seed: int = 0,
                  mesh=None, device=None):
         """device: None is cuda:0 (raises without a CUDA device), "cpu" on
-        request.  mesh: the landmark-sharded BA is not ported; must be None."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "landmark-sharded local BA (parallel/ba_sharded) is not "
-                "ported yet: pass mesh=None")
+        request.  mesh: a `parallel.mesh.Mesh`; when given, every windowed
+        BA runs landmark-sharded across its ranks
+        (`parallel.ba_sharded.sharded_local_ba`), the system runs on the
+        mesh's device, and every rank runs this whole system in lockstep.
+        The one-rank mesh runs the identical program."""
         set_exact_f32()
-        self.device = resolve_device(device)
+        self.device = mesh_device(mesh, device, cfg)
+        self.mesh = mesh
+        self.ba_edges_dropped = 0
         self.cfg = cfg
         self.intr = as_f32(intrinsics, self.device)
         self.m = map_mod.init_map(
@@ -480,8 +511,9 @@ class Slam:
             up = keyframe_update(
                 self.m, feats, self.T_wc, self.frame_idx, lm_idx, lm_ok,
                 self.intr, self.cfg, self.generator, self._loop_prev_uid,
-                self._loop_consist, device=self.device)
+                self._loop_consist, mesh=self.mesh, device=self.device)
             self.m, self.T_wc = up.m, up.T_wc
+            self.ba_edges_dropped += up.ba_dropped
             self.frames_since_kf = 0
             self._loop_prev_uid = up.loop_prev_uid
             self._loop_consist = up.loop_consist

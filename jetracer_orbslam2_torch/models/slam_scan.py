@@ -54,6 +54,7 @@ class ScanState(NamedTuple):
     loop_prev_uid: Tensor   # () int32 last keyframe's winning loop candidate
     loop_consist: Tensor    # () int32 consecutive-detection streak
     generator: torch.Generator  # RANSAC draws (the JAX state's base_key)
+    ba_edges_dropped: int = 0   # host count: edges the sharded BA dropped
 
 
 class ScanOutput(NamedTuple):
@@ -131,10 +132,10 @@ def _skip(state: ScanState) -> tuple:
 
 
 def _step(state: ScanState, gray, depth, imu, intrinsics,
-          cfg: SystemConfig) -> tuple[ScanState, tuple]:
+          cfg: SystemConfig, mesh=None) -> tuple[ScanState, tuple]:
     """One SLAM frame.  imu: (delta_w (3,), ok host bool).  Returns the new
     state and the frame's output row, whose last entry (`is_kf`) is a host
-    bool."""
+    bool.  mesh: see `slam_scan`."""
     dev = state.T_wc.device
     feats = _features(gray, depth, intrinsics, cfg, dev)
     imu_delta_w, imu_ok = imu
@@ -161,11 +162,13 @@ def _step(state: ScanState, gray, depth, imu, intrinsics,
     m, ref_slot, num_loops = state.m, state.ref_slot, state.num_loops
     lp_uid, lp_cons = state.loop_prev_uid, state.loop_consist
     frames_since_kf = state.frames_since_kf + 1
+    dropped = state.ba_edges_dropped
     if need_kf:
         up = slam_mod.keyframe_update(
             m, feats, T_wc, state.frame_idx, lm_idx, lm_ok, intrinsics, cfg,
-            state.generator, lp_uid, lp_cons, device=dev)
+            state.generator, lp_uid, lp_cons, mesh=mesh, device=dev)
         m, T_wc, ref_slot = up.m, up.T_wc, up.slot
+        dropped += up.ba_dropped
         lp_uid, lp_cons = up.loop_prev_uid, up.loop_consist
         num_loops = num_loops + int(up.looped)
         frames_since_kf = torch.ones_like(frames_since_kf)
@@ -177,7 +180,7 @@ def _step(state: ScanState, gray, depth, imu, intrinsics,
         frame_idx=state.frame_idx + 1, ref_slot=ref_slot,
         num_loops=num_loops, num_relocs=num_relocs,
         loop_prev_uid=lp_uid, loop_consist=lp_cons,
-        generator=state.generator,
+        generator=state.generator, ba_edges_dropped=dropped,
     )
     return new_state, (loop_mod._row(m.kf_frame_id, ref_slot),
                        geo.pose_inverse(ref_pose) @ T_wc, T_wc, tracked, need_kf)
@@ -206,19 +209,20 @@ def slam_scan(
     imu_valid and live are read on the host (a tensor is fetched once, before
     the loop).  Frames with live=False are inert padding: no tracking, no
     state change, no draw; their output row is the carried pose, untracked.
-    mesh: the landmark-sharded BA is not ported; must be None.
+    mesh: a `parallel.mesh.Mesh` on the state's device; every windowed BA
+    inside the scan then runs landmark-sharded over it
+    (`parallel.ba_sharded.sharded_local_ba`), and every rank runs the scan
+    in lockstep.
 
     Returns (final state, per-frame ScanOutput on the device).  Use
     `compose_trajectory` to turn the output into world poses that reflect
     every BA/loop correction.  The state's generator is advanced: a second
     scan from the same state draws other samples.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "landmark-sharded local BA (parallel/ba_sharded) is not ported "
-            "yet: pass mesh=None")
     set_exact_f32()
     dev = state.T_wc.device
+    if mesh is not None:
+        slam_mod.mesh_device(mesh, dev, cfg)
     grays, depths = as_f32(grays, dev), as_f32(depths, dev)
     intrinsics = as_f32(intrinsics, dev)
     n = grays.shape[0]
@@ -232,7 +236,8 @@ def slam_scan(
             rows.append(_skip(state))
             continue
         imu = (imu_delta_w[i] if imu_ok[i] else None, imu_ok[i])
-        state, row = _step(state, grays[i], depths[i], imu, intrinsics, cfg)
+        state, row = _step(state, grays[i], depths[i], imu, intrinsics, cfg,
+                           mesh)
         rows.append(row)
     if n == 0:
         f32 = dict(dtype=torch.float32, device=dev)
@@ -257,12 +262,11 @@ class ChunkedSlam:
 
     def __init__(self, cfg: SystemConfig, intrinsics, chunk_size: int = 8,
                  seed: int = 0, mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "landmark-sharded local BA (parallel/ba_sharded) is not "
-                "ported yet: pass mesh=None")
+        """device: None is cuda:0, "cpu" on request; with a mesh, the mesh's
+        (see `slam.Slam`)."""
         set_exact_f32()
-        self.device = resolve_device(device)
+        self.device = slam_mod.mesh_device(mesh, device, cfg)
+        self.mesh = mesh
         self.cfg = cfg
         self.intr = as_f32(intrinsics, self.device)
         self.chunk = chunk_size
@@ -316,7 +320,7 @@ class ChunkedSlam:
             pending.clear()
         self.state, out = slam_scan(
             self.state, g, d, self.intr, self.cfg,
-            imu_delta_w=iw, imu_valid=iv)
+            imu_delta_w=iw, imu_valid=iv, mesh=self.mesh)
         out = ScanOutput(*(x.cpu().numpy() for x in out))
         self._outs.append(out)
         return out

@@ -1,0 +1,193 @@
+"""Process groups as meshes, and the multi-process bootstrap.
+
+Counterpart of `jetracer_orbslam2_tpu/parallel/mesh.py`.  There a mesh is a
+`jax.sharding.Mesh` over devices and a sharded program runs under
+`shard_map`.  Here a mesh is a `torch.distributed` process group with ONE
+PROCESS PER RANK: every rank runs the same program on its own device, owns
+one block of the landmark axis, and each `psum` of the JAX program is an
+`all_reduce(SUM)` over the group.  A one-rank group runs the identical
+program, so the single-card path and the multi-card path are one code path.
+
+  * `init_distributed` joins a group from its arguments or from the
+    variables `python -m torch.distributed.run` sets (MASTER_ADDR,
+    MASTER_PORT, WORLD_SIZE, RANK, LOCAL_RANK).  With nothing set it returns
+    False and does nothing.
+  * `make_mesh` wraps the joined group, or, with no group up and n in
+    (None, 1), builds a one-rank group over an in-process store (no TCP
+    port).
+  * The backend is NCCL for a CUDA mesh and gloo for a CPU mesh unless one
+    is named.  The device is `cuda:LOCAL_RANK` unless the caller asks for
+    another one; a mesh never falls back to the CPU (the JAX `virtual_mesh`
+    falls back to virtual CPU devices; this one raises instead).
+
+The JAX module's `replicated` and `sharded_axis0` build `NamedSharding`s,
+which have no meaning here: a rank holds whole tensors, and which block of
+the landmark axis it owns is its rank (`Mesh.block`).
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+from jetracer_orbslam2_torch.utils.device import resolve_device
+
+Tensor = torch.Tensor
+
+# every group gets a timeout: a rank that leaves the lockstep (or dies) fails
+# the others' collectives instead of hanging them
+GROUP_TIMEOUT = datetime.timedelta(minutes=5)
+
+
+def rank_device(device=None) -> torch.device:
+    """None -> cuda:LOCAL_RANK (raises without a CUDA device); else the
+    device named.  The CPU only on request."""
+    if device is None:
+        return resolve_device(f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}")
+    return resolve_device(device)
+
+
+def _backend_for(dev: torch.device) -> str:
+    return "gloo" if dev.type == "cpu" else "nccl"
+
+
+def init_distributed(
+    init_method: Optional[str] = None,
+    world_size: Optional[int] = None,
+    rank: Optional[int] = None,
+    backend: Optional[str] = None,
+    device=None,
+) -> bool:
+    """Join a multi-process group.  Call once per process, before any mesh.
+
+    With no arguments the variables of `torch.distributed.run` drive it
+    (MASTER_ADDR / MASTER_PORT / WORLD_SIZE / RANK; LOCAL_RANK picks the
+    card).  Returns True when a group of more than one rank is up, False for
+    the single-process fallback: with nothing set it does nothing, and the
+    caller proceeds identically either way (`make_mesh` then builds a
+    one-rank group).  device: the rank's device (None = cuda:LOCAL_RANK),
+    which also picks the backend (NCCL for CUDA, gloo for the CPU) unless
+    `backend` names one.
+    """
+    if dist.is_initialized():
+        return dist.get_world_size() > 1
+    env = os.environ
+    if init_method is None and world_size is None and not (
+            "MASTER_ADDR" in env and "WORLD_SIZE" in env):
+        return False
+    world_size = int(env["WORLD_SIZE"]) if world_size is None else int(world_size)
+    rank = int(env.get("RANK", 0)) if rank is None else int(rank)
+    dev = rank_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(
+        backend or _backend_for(dev), init_method=init_method or "env://",
+        world_size=world_size, rank=rank, timeout=GROUP_TIMEOUT)
+    return world_size > 1
+
+
+class Mesh:
+    """One axis of ranks over a process group (the default group).
+
+    `size` ranks, this process is `rank` on `device`.  The landmark axis of a
+    problem whose length is a multiple of `size` splits into `size` equal
+    blocks; rank r owns block r.  `close()` destroys the group if this mesh
+    built it (a one-rank group), and leaves a joined group alone.
+    """
+
+    def __init__(self, device: torch.device, axis: str = "lm",
+                 owns_group: bool = False):
+        self.axis = axis
+        self.device = device
+        self.size = dist.get_world_size()
+        self.rank = dist.get_rank()
+        self.backend = dist.get_backend()
+        self.owns_group = owns_group
+
+    def block(self, length: int) -> slice:
+        """This rank's block of an axis of `length` (a multiple of size)."""
+        if length % self.size:
+            raise ValueError(f"an axis of {length} does not split into "
+                             f"{self.size} equal blocks")
+        lb = length // self.size
+        return slice(self.rank * lb, (self.rank + 1) * lb)
+
+    def psum(self, x: Tensor) -> Tensor:
+        """Sum of `x` over the ranks (a new tensor).  Queued on the current
+        stream: no host wait."""
+        y = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, op=dist.ReduceOp.SUM)
+        return y
+
+    def gather_blocks(self, block: Tensor) -> Tensor:
+        """Concatenate every rank's `block` along axis 0, on every rank.
+
+        An all-reduce of a zero-filled buffer into which each rank wrote its
+        own block (adding +0 is exact): gloo has no `all_gather` of CUDA
+        tensors, and both backends have `all_reduce`."""
+        lb = block.shape[0]
+        full = block.new_zeros((self.size * lb,) + tuple(block.shape[1:]))
+        full[self.rank * lb:(self.rank + 1) * lb] = block
+        dist.all_reduce(full, op=dist.ReduceOp.SUM)
+        return full
+
+    def close(self) -> None:
+        if self.owns_group and dist.is_initialized():
+            dist.destroy_process_group()
+        self.owns_group = False
+
+    def __enter__(self) -> "Mesh":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def __repr__(self) -> str:
+        return (f"Mesh({self.axis}={self.size}, rank {self.rank}, "
+                f"{self.backend} on {self.device})")
+
+
+def make_mesh(n_devices: Optional[int] = None, axis: str = "lm",
+              device=None) -> Mesh:
+    """A mesh over the joined group (its world size must be `n_devices` when
+    given), or, with no group up and `n_devices` in (None, 1), over a new
+    one-rank group on `device` (None = cuda:LOCAL_RANK; "cpu" on request),
+    which the mesh owns and `close()` destroys.  More ranks than one need
+    processes: start them with `python -m torch.distributed.run
+    --nproc-per-node N` and call `init_distributed()` first."""
+    dev = rank_device(device)
+    if dist.is_initialized():
+        size = dist.get_world_size()
+        if n_devices is not None and n_devices != size:
+            raise ValueError(f"a mesh of {n_devices} ranks was asked for, the "
+                             f"joined group has {size}")
+        if dev.type == "cpu" and dist.get_backend() == "nccl":
+            raise ValueError("an NCCL group cannot reduce CPU tensors")
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        return Mesh(dev, axis)
+    if n_devices not in (None, 1):
+        raise ValueError(
+            f"a mesh of {n_devices} ranks needs a group of {n_devices} "
+            f"processes: run under python -m torch.distributed.run "
+            f"--nproc-per-node {n_devices} and call init_distributed() first")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(_backend_for(dev), store=dist.HashStore(), rank=0,
+                            world_size=1, timeout=GROUP_TIMEOUT)
+    return Mesh(dev, axis, owns_group=True)
+
+
+def virtual_mesh(n_devices: int, axis: str = "lm", device=None) -> Mesh:
+    """`make_mesh(n_devices)`.  The JAX function falls back to virtual CPU
+    devices when the host has too few chips; a rank here is a process, so
+    there is nothing to fall back to, and none is made up."""
+    return make_mesh(n_devices, axis, device)
+
+
+def map_mesh(mesh: Optional[Mesh] = None, device=None) -> Mesh:
+    return mesh if mesh is not None else make_mesh(device=device)

@@ -8,6 +8,9 @@ sequence.
     python -m jetracer_orbslam2_torch.run --synthetic 8 --device cpu
     python -m jetracer_orbslam2_torch.run --dataset DIR --telemetry 9002 --checkpoint ck
     python -m jetracer_orbslam2_torch.run --dataset DIR --resume ck
+    python -m jetracer_orbslam2_torch.run --synthetic 100 --mesh 1
+    python -m torch.distributed.run --nproc-per-node 4 -m jetracer_orbslam2_torch.run \
+        --synthetic 100 --mesh 4 --distributed
 
 Counterpart of `jetracer_orbslam2_tpu/run.py`.  The source is `--dataset DIR`
 (TUM RGB-D, EuRoC `mav0/` or KITTI odometry, sniffed by `open_dataset`) or
@@ -25,7 +28,16 @@ streams BSON frames over a WebSocket to `viewer/index.html`
 (`--telemetry-no-image` leaves the JPEG out), `--checkpoint DIR` saves the
 final map and `--resume DIR` starts from a saved one (either package's).
 `--mode odometry` and `--chunked` ignore these flags, as the JAX CLI does.
-`--mesh` is not ported yet and exits with code 2.
+
+`--mesh N` runs every windowed BA of the SLAM system landmark-sharded over
+N ranks (`parallel/ba_sharded.py`): one process per rank, each running the
+whole system on its own card in lockstep, the reduced camera system
+all-reduced once an LM iteration.  `--mesh 1` builds a one-rank group on the
+run's device; more ranks need a joined group: start the processes with
+`python -m torch.distributed.run --nproc-per-node N` and pass
+`--distributed`, which joins the group from its variables (and, with none
+set, logs the single-process fallback and runs on).  A distributed run's
+device is `cuda:LOCAL_RANK`.
 """
 
 from __future__ import annotations
@@ -61,7 +73,14 @@ def build_argparser():
     p.add_argument("--max-frames", type=int, default=0)
     p.add_argument("--checkpoint", help="directory to save the final map")
     p.add_argument("--resume", help="checkpoint directory to start from")
-    p.add_argument("--mesh", metavar="N", help="not ported yet")
+    p.add_argument("--mesh", type=int, default=0, metavar="N",
+                   help="shard the map backend's BA over an N-rank mesh "
+                        "(N > 1: under torch.distributed.run, with "
+                        "--distributed)")
+    p.add_argument("--distributed", action="store_true",
+                   help="join a process group first (MASTER_ADDR / "
+                        "MASTER_PORT / WORLD_SIZE / RANK / LOCAL_RANK, as "
+                        "torch.distributed.run sets them)")
     p.add_argument("--telemetry", type=int, default=0, metavar="PORT",
                    help="serve live BSON telemetry on ws://0.0.0.0:PORT "
                         "(open viewer/index.html to watch; 0 = off)")
@@ -256,7 +275,7 @@ def _run_odometry(args, src: Source, device):
     }, poses
 
 
-def _run_slam(args, src: Source, device):
+def _run_slam(args, src: Source, device, mesh=None):
     """The full system: the host loop `Slam` behind the runtime, or
     `ChunkedSlam` over `--chunked C` frames at a time; stereo when the source
     has a baseline.  Returns None when a frame has neither depth nor a right
@@ -283,7 +302,8 @@ def _run_slam(args, src: Source, device):
                 intrinsics_r=_tup(cal["intrinsics_r"]))
             tcfg = TrackingConfig(max_depth=80.0)
         cfg = SystemConfig(frontend=fcfg, tracking=tcfg, stereo=stereo_cfg)
-        ch = ChunkedSlam(cfg, src.intr, chunk_size=args.chunked, device=device)
+        ch = ChunkedSlam(cfg, src.intr, chunk_size=args.chunked, mesh=mesh,
+                         device=device)
         _sync(device)
         t0 = time.perf_counter()
         count = 0
@@ -297,7 +317,7 @@ def _run_slam(args, src: Source, device):
         ch.flush()
         poses = ch.result()
         wall = time.perf_counter() - t0
-        return {
+        report = {
             "mode": f"slam-chunked{args.chunked}",
             "stereo": is_stereo,
             "frames": count,
@@ -307,11 +327,15 @@ def _run_slam(args, src: Source, device):
             "landmarks": int(ch.state.m.num_lm),
             "loops": int(ch.state.num_loops),
             "relocs": int(ch.state.num_relocs),
-        }, poses
-    return _run_host_loop(args, src, SystemConfig(frontend=fcfg), device)
+        }
+        if mesh is not None:
+            report["mesh_devices"] = mesh.size
+            report["ba_edges_dropped"] = ch.state.ba_edges_dropped
+        return report, poses
+    return _run_host_loop(args, src, SystemConfig(frontend=fcfg), device, mesh)
 
 
-def _run_host_loop(args, src: Source, cfg, device):
+def _run_host_loop(args, src: Source, cfg, device, mesh=None):
     """`Slam` frame by frame, as the JAX CLI runs it: frames decoded ahead by
     a `FramePipeline` (two workers, blocking, in order), a `Watchdog` beat a
     frame, a telemetry frame after each processed frame, `--resume` /
@@ -325,7 +349,7 @@ def _run_host_loop(args, src: Source, cfg, device):
 
     is_stereo = src.baseline > 0.0
     cal = src.cal
-    slam = Slam(cfg, src.intr, device=device)
+    slam = Slam(cfg, src.intr, mesh=mesh, device=device)
     if args.resume:
         from jetracer_orbslam2_torch.runtime.checkpoint import load_checkpoint
 
@@ -406,6 +430,9 @@ def _run_host_loop(args, src: Source, cfg, device):
         "attitude_rad": [round(float(x), 4) for x in slam.attitude],
         "watchdog_stalls": watchdog.stalls,
     }
+    if mesh is not None:
+        report["mesh_devices"] = mesh.size
+        report["ba_edges_dropped"] = slam.ba_edges_dropped
     if server is not None:
         report["telemetry_sent"] = server.sent_frames
         report["telemetry_dropped"] = server.dropped_frames
@@ -442,24 +469,50 @@ def main(argv=None) -> int:
         format="%(asctime)s %(name)s %(levelname)s %(message)s",
         stream=sys.stderr)
 
-    if args.mesh:
-        print("--mesh is not ported yet in jetracer_orbslam2_torch",
-              file=sys.stderr)
-        return 2
     if not args.synthetic and not args.dataset:
         print("need --dataset or --synthetic", file=sys.stderr)
         return 2
 
+    import torch.distributed as dist
+
+    from jetracer_orbslam2_torch.parallel import mesh as mesh_mod
     from jetracer_orbslam2_torch.utils.device import resolve_device
     from jetracer_orbslam2_torch.utils.precision import set_exact_f32
 
     set_exact_f32()
-    device = resolve_device(args.device)
-    log.info("running on %s", device)
+    had_group = dist.is_initialized()
+    try:
+        if args.distributed:
+            multi = mesh_mod.init_distributed(device=args.device)
+            log.info("distributed init: %s",
+                     f"{dist.get_world_size()} ranks" if multi else
+                     "single-process fallback")
+        if dist.is_initialized():
+            device = mesh_mod.rank_device(args.device)
+        else:
+            device = resolve_device(args.device)
+        mesh = None
+        if args.mesh:
+            world = dist.get_world_size() if dist.is_initialized() else 1
+            if args.mesh != world:
+                print(f"--mesh {args.mesh} needs a group of {args.mesh} "
+                      f"processes (this one has {world}): run python -m "
+                      f"torch.distributed.run --nproc-per-node {args.mesh} "
+                      f"-m jetracer_orbslam2_torch.run ... --distributed",
+                      file=sys.stderr)
+                return 2
+            mesh = mesh_mod.make_mesh(args.mesh, device=device)
+            log.info("map backend sharded over %r", mesh)
+        log.info("running on %s", device)
 
-    src = _open_source(args, device)
-    run = _run_odometry if args.mode == "odometry" else _run_slam
-    res = run(args, src, device)
+        src = _open_source(args, device)
+        if args.mode == "odometry":
+            res = _run_odometry(args, src, device)
+        else:
+            res = _run_slam(args, src, device, mesh)
+    finally:
+        if dist.is_initialized() and not had_group:
+            dist.destroy_process_group()
     if res is None:
         return 2
     report, poses = res

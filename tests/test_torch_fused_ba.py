@@ -206,7 +206,7 @@ def test_route_choice_follows_device_and_pose_count():
     assert (4, 6, 6) in calls and (24, 24) in calls and () in calls
     calls.clear()
     tba.lm_run_dense(*tt, BAConfig(iters=1), psum=psum, device="cpu")
-    assert (4, 6, 6) in calls and (24, 24) in calls       # dense when sharded
+    assert (4, 6, 6) in calls and (24, 24) in calls       # dense on the CPU
 
 
 @pytest.mark.parametrize("case", ["f64", "strided", "too_many_poses",

@@ -1,5 +1,5 @@
 """Package hygiene of the PyTorch port: it imports no JAX and nothing of the
-JAX package, chooses the card by default, and refuses what is not ported."""
+JAX package, chooses the card by default, and refuses what it cannot run."""
 
 import pathlib
 import re
@@ -41,7 +41,8 @@ def test_port_sources_name_no_jax_import():
                 "io/native_loader.py", "runtime/__init__.py",
                 "runtime/pipeline.py", "runtime/liveness.py", "runtime/bson.py",
                 "runtime/telemetry.py", "runtime/checkpoint.py",
-                "ops/overlay.py", "utils/timing.py"):
+                "ops/overlay.py", "utils/timing.py", "parallel/mesh.py",
+                "parallel/ba_sharded.py", "parallel/distributed_worker.py"):
         assert f"jetracer_orbslam2_torch/{new}" in names
     for path in files:
         assert not _FORBIDDEN.search(path.read_text()), path
@@ -70,7 +71,8 @@ for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
 for name in ("models.stereo", "io.datasets", "io.native_loader",
              "runtime.pipeline", "runtime.liveness", "runtime.bson",
              "runtime.telemetry", "runtime.checkpoint", "ops.overlay",
-             "utils.timing"):
+             "utils.timing", "parallel.mesh", "parallel.ba_sharded",
+             "parallel.distributed_worker"):
     assert "jetracer_orbslam2_torch." + name in sys.modules, name
 import chip_smoke
 leaked = [m for m in sys.modules
@@ -140,7 +142,7 @@ def test_backend_entry_points_default_to_the_card():
     from jetracer_orbslam2_torch.models.backend import ba, map as map_mod
     from jetracer_orbslam2_torch.models.backend import pose_graph as pg
     from jetracer_orbslam2_torch.models.frontend import Features
-    from jetracer_orbslam2_torch.parallel import bench_ba
+    from jetracer_orbslam2_torch.parallel import ba_sharded, bench_ba
 
     prob, intr = bench_ba.make_synthetic_ba(3, 8, 2, device="cpu")
     obs, _ = ba.edges_to_dense(3, 8, *prob[2:8])
@@ -167,6 +169,10 @@ def test_backend_entry_points_default_to_the_card():
             torch.ones(8, dtype=torch.bool), intr, BAConfig(iters=1), **kw),
         "time_ba": lambda **kw: bench_ba.time_ba(
             prob, intr, BAConfig(iters=1), reps=1, **kw),
+        "prepare_sharded_problem": lambda **kw: ba_sharded.prepare_sharded_problem(
+            prob, 2, **kw),
+        "time_sharded_ba": lambda **kw: bench_ba.time_sharded_ba(
+            prob, intr, 1, BAConfig(iters=1), reps=1, **kw),
         "optimize_pose_graph": lambda **kw: pg.optimize_pose_graph(
             graph, PoseGraphConfig(iters=1), **kw),
         "init_map": lambda **kw: map_mod.init_map(MapConfig(), 4, **kw),
@@ -222,11 +228,17 @@ def test_set_exact_f32():
     ["--synthetic", "4", "--mesh", "4"],
 ])
 def test_cli_refuses_what_is_not_ported(argv, capsys):
+    """No source; `--mesh 4` in a one-process run (a mesh of N ranks needs N
+    processes: the message names `torch.distributed.run`)."""
     assert trun.main(argv + ["--device", "cpu"]) == 2
     captured = capsys.readouterr()
     assert captured.out == ""
-    assert ("not ported" in captured.err
-            or "need --dataset or --synthetic" in captured.err)
+    if "--mesh" in argv:
+        assert ("--mesh 4 needs a group of 4 processes" in captured.err
+                and "python -m torch.distributed.run --nproc-per-node 4"
+                in captured.err and "--distributed" in captured.err)
+    else:
+        assert "need --dataset or --synthetic" in captured.err
 
 
 @pytest.mark.parametrize("flag", [

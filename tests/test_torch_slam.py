@@ -8,6 +8,8 @@ samples, and at every keyframe the port's `keyframe_update` (insert + local BA
 leaves.  Then both systems run free on the same frames.
 """
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -236,6 +238,14 @@ def test_relocalize_reposes_a_lost_frame(run):
 
 
 def test_mesh_is_refused():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tslam.Slam(TCFG, np.float32([100, 100, 80, 60]), mesh=object(),
+    """A mesh whose size does not divide the map's landmark capacity, or that
+    lives on another device, is refused when the system is made."""
+    three = types.SimpleNamespace(size=3, rank=0, device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="must divide the mesh"):
+        tslam.Slam(TCFG, np.float32([100, 100, 80, 60]), mesh=three,
+                   device="cpu")
+    with pytest.raises(ValueError, match="not the mesh's"):
+        tslam.Slam(TCFG, np.float32([100, 100, 80, 60]),
+                   mesh=types.SimpleNamespace(size=1, rank=0,
+                                              device=torch.device("meta")),
                    device="cpu")

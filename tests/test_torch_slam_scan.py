@@ -4,6 +4,8 @@ host branches, the RANSAC generator advanced in the same order), chunking and
 padding must not change the result, and on a small lap a loop closes in the
 port as it does in the JAX package."""
 
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -142,8 +144,12 @@ def test_empty_scan_stereo_and_mesh(arc):
     final, out = ss.slam_scan(st, gray[:0], depth[:0], intr, CFG)
     assert out.T_rel.shape == (0, 4, 4) and final is st
     assert ss.compose_trajectory(final, out).shape == (0, 4, 4)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ss.slam_scan(st, gray[1:2], depth[1:2], intr, CFG, mesh=object())
+    # a mesh whose size does not divide the landmark capacity is refused
+    three = types.SimpleNamespace(size=3, rank=0, device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="must divide the mesh"):
+        ss.slam_scan(st, gray[1:2], depth[1:2], intr, CFG, mesh=three)
+    with pytest.raises(ValueError, match="must divide the mesh"):
+        ss.ChunkedSlam(CFG, intr, mesh=three)
     # stereo: the second channel is the right image (here the next frame
     # of the arc, which is what a camera 2 cm ahead sees); one frame runs
     scfg = CFG.replace(stereo=StereoConfig(baseline=0.11),
