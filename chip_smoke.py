@@ -17,16 +17,20 @@ default mode) with loop closure: a 126-frame lap at 240x180 and
 stereo pairs of 640x480 (an arc and a lap); the CLI on the committed TUM,
 EuRoC and KITTI fixtures; and the CLI's host loop behind the runtime
 (frame pipeline, watchdog, WebSocket telemetry, checkpoint and resume) on a
-640x480 TUM-layout sequence.  It builds the hand-written CUDA
-kernels from the sources in this checkout, holds each against its plain
-PyTorch version, shows that each path launched its kernels, and times them.
+640x480 TUM-layout sequence.  The odometry step and the tracking half of a
+SLAM frame are captured once into a CUDA graph and replayed once a frame on
+every path; phase 22 holds them against their eager steps.  It builds the
+hand-written CUDA kernels from the sources in this checkout, holds each
+against its plain PyTorch version, shows that each path launched its
+kernels (a replay launches each of its graph's kernel nodes once), and times
+them.
 
 Phases (any failure ends the run with a non-zero exit; there is no CPU path):
    1 device       a CUDA device must be present; prints the card's name and
                   power limit as nvidia-smi gives them
-   2 build        nvcc compiles csrc/fast_nms.cu, csrc/ba_fused.cu and
-                  csrc/patch_gather.cu side by side; prints seconds and ptxas'
-                  notes
+   2 build        nvcc compiles csrc/fast_nms.cu, csrc/ba_fused.cu,
+                  csrc/patch_gather.cu and csrc/rigid_fit.cu side by side;
+                  prints seconds and ptxas' notes
    3 K1, K4 check fast_nms kernel vs plain version, torch.equal: the one-level
                   call at every shape, the batched call (every level of a
                   pyramid, one or two thresholds, one launch) on frame 0's
@@ -39,7 +43,8 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
                   window origins; two launches bit-identical
    4 semantics    tie orders and CPU/GPU agreement of the front-end
    5 main path    whole-sequence odometry: ATE, tracked fraction, kernel
-                  launches (K1 and K4 once a frame, no canvas packed);
+                  launches (K1 and K4 once a frame, K5 twice a tracked
+                  frame, no canvas packed);
                   --chunked 32 on the same frames gives the same poses; a
                   second, warm run is timed
    6 K1 time      the empty-kernel launch floor; device time of the one
@@ -119,10 +124,32 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
                   this card over gloo (2,048 landmarks a rank): ranks
                   bit-identical, poses 5e-3 and points 2e-2 of (a), cost
                   below 0.2 x initial, K2 = K3 = 10 a rank; ms per iteration
+  22 graphs       (a) K5 (rigid_fit) vs its plain version, the SVD route:
+                  rotation entries and translations (of the points' scale)
+                  within 1e-5 at B 1 and 8, N 1,024, 0/1 weights, no
+                  weights, all weights 0 (exactly the identity), coplanar
+                  points; a proper rotation on collinear points; relaunch
+                  and two graph replays torch.equal; its time, the plain
+                  route's and the bound; (b) the eager odometry_step over
+                  the 120 frames under set_sync_debug_mode("error"); (c)
+                  odometry_scan's graph against the eager step loop: poses
+                  and flags torch.equal, ATE < 10 cm, tracked >= 0.95, one
+                  capture, frames - 2 replays after one eager warm-up frame,
+                  K1 = K4 = frames and K5 = 2 x tracked frames by nodes x
+                  replays; (d) slam_scan and Slam (the tracking graph)
+                  against their eager tracking steps: poses, flags,
+                  keyframes, loops equal, one host wait a plain frame, the
+                  same graph counts; the same equalities on the arc's first
+                  60 frames with frames 30-33 blank, where both relocalize
+                  (>= 1 reloc each); (e) ms a frame graphed and eager in
+                  turns, and each one's device-busy share over frames 40-79
+Launch counts: a wrapper counts one when it launches its kernel, and a
+replay of a captured frame step counts each kernel node of the graph once
+(`utils/step_graph.note_launch`), so "once a frame" holds either way.
 Kernel times are CUDA events around a replayed CUDA graph of launches.  Then
 the paths' reports (the stereo path's and the datasets' on one line, the
 runtime's on one, the sharded phase's on one), one JSON line
-`{"kernels": [...]}` (launches: the runtime path's, phase 20 run C;
+`{"kernels": [...]}` (K1-K5; launches: the runtime path's, phase 20 run C;
 sharded_path_launches the --mesh 1 CLI run's, phase 21c), and as the last
 line `{"ok": true, "device": {...}}`.
 
@@ -147,7 +174,14 @@ F32_OPS_PER_S = 67e12
 FAST_THRESHOLD, FAST_ARC, FAST_BORDER = 13.0, 12, 19
 SLAM_FAST_MIN_THRESHOLD = 7.0   # the SLAM path's second FAST threshold
 N_FRAMES = 120
-N_PHASES = 21
+N_PHASES = 22
+GRAPHS_TITLE = (
+    "graphs: (a) K5 (rigid_fit) vs the SVD route, (b) the eager odometry_step "
+    "with no host wait, (c) odometry_scan's CUDA graph vs the eager step "
+    "loop, (d) slam_scan's and Slam's tracking graph vs their eager steps, "
+    "also through a forced tracking loss, "
+    f"(e) ms a frame and device-busy share in turns; {N_FRAMES} frames of "
+    "640x480")
 PATCH = 37
 
 # SLAM path at full width (the JAX package's long-sequence benchmark): frames,
@@ -450,15 +484,19 @@ def phase_main_path(argv, args, source, dev):
     import numpy as np
     import torch
     from jetracer_orbslam2_torch import run
-    from jetracer_orbslam2_torch.ops import fused_fast, fused_patches
+    from jetracer_orbslam2_torch.ops import fused_fast, fused_patches, fused_rigid
 
     n, gt = source.n, source.gt
     fused_fast.fast_nms_pyramid.launches = 0
     fused_patches.extract_patches_fused.launches = 0
     fused_patches.patch_gather.launches = 0
+    fused_rigid.rigid_fit.launches = 0
     with counting_calls() as calls:
         report, poses = run._run_odometry(args, source, dev)
     launches = fused_fast.fast_nms_pyramid.launches
+    if fused_rigid.rigid_fit.launches != 2 * (n - 1):
+        raise SystemExit(f"FAIL: rigid_fit launches {fused_rigid.rigid_fit.launches}"
+                         f" != {2 * (n - 1)} (two RANSAC refits a tracked frame)")
     if fused_patches.extract_patches_fused.launches != n:
         raise SystemExit(f"FAIL: extract_patches_fused launches "
                          f"{fused_patches.extract_patches_fused.launches} != {n}")
@@ -1440,13 +1478,27 @@ def phase_patch_kernel_time(pyramid, kp, floor_ms: float) -> dict:
 
 
 def _kernel_counters() -> dict:
-    from jetracer_orbslam2_torch.ops import fused_ba, fused_fast, fused_patches
+    from jetracer_orbslam2_torch.ops import (
+        fused_ba, fused_fast, fused_patches, fused_rigid)
 
     return {"fast_nms_pyramid": fused_fast.fast_nms_pyramid,
             "extract_patches_fused": fused_patches.extract_patches_fused,
             "patch_gather": fused_patches.patch_gather,
             "fused_normal_schur": fused_ba.fused_normal_schur,
-            "fused_backsub": fused_ba.fused_backsub}
+            "fused_backsub": fused_ba.fused_backsub,
+            "rigid_fit": fused_rigid.rigid_fit}
+
+
+def _without_k5(launches: dict, tracked_frames: int, what: str) -> dict:
+    """K1-K4's launches; fails unless K5 ran at least 4 times a tracked SLAM
+    frame (two RANSAC refits, two map refits; relocalization and loop
+    verification add more, as the data decides)."""
+    rest = dict(launches)
+    k5 = rest.pop("rigid_fit")
+    if k5 < 4 * tracked_frames:
+        raise SystemExit(f"FAIL: {what}: rigid_fit launched {k5} times, at "
+                         f"least {4 * tracked_frames} expected")
+    return rest
 
 
 def _reset_counters() -> None:
@@ -1632,6 +1684,7 @@ def phase_slam_path(dev) -> tuple[dict, dict]:
     ms = start.elapsed_time(stop)
     inserted = int(out.is_kf.sum())
     m = final.m
+    k1_k4 = _without_k5(launches, LONG_FRAMES - 1, "SLAM path")
     report = {
         "frames": LONG_FRAMES, "shape": [480, 640], "levels": 4, "keypoints": 1024,
         "map_capacity": [LONG_KEYFRAMES, int(m.lm_valid.shape[0]),
@@ -1655,7 +1708,7 @@ def phase_slam_path(dev) -> tuple[dict, dict]:
     want = {"fast_nms_pyramid": LONG_FRAMES, "extract_patches_fused": LONG_FRAMES,
             "patch_gather": 0,
             "fused_normal_schur": 10 * inserted, "fused_backsub": 10 * inserted}
-    if launches != want:
+    if k1_k4 != want:
         raise SystemExit(f"FAIL: SLAM path launches {launches}, expected {want}")
     if any(calls.values()):
         raise SystemExit(f"FAIL: the SLAM path packed a canvas: {calls}")
@@ -1883,6 +1936,7 @@ def phase_stereo_check(dev) -> dict:
     say(f"  launches of one frontend_stereo call (under "
         f"set_sync_debug_mode('error'), no host wait): {json.dumps(per_call)}")
     want = {"fast_nms_pyramid": STEREO_K1_PER_FRAME, "extract_patches_fused": 2,
+            "rigid_fit": 0,
             "patch_gather": 0, "fused_normal_schur": 0, "fused_backsub": 0}
     if per_call != want:
         raise SystemExit(f"FAIL: frontend_stereo launched {per_call}, expected {want}")
@@ -1958,7 +2012,8 @@ def phase_stereo_path(dev) -> dict:
                 "extract_patches_fused": 2 * STEREO_FRAMES, "patch_gather": 0,
                 "fused_normal_schur": 10 * inserted,
                 "fused_backsub": 10 * inserted}
-        if launches != want or any(calls.values()):
+        k1_k4 = _without_k5(launches, STEREO_FRAMES - 1, f"stereo {name}")
+        if k1_k4 != want or any(calls.values()):
             raise SystemExit(f"FAIL: stereo {name} launches {launches} (calls "
                              f"{calls}), expected {want}")
         report[name] = row
@@ -2952,6 +3007,510 @@ def phase_sharded(local_map, intr, dev) -> tuple[dict, dict]:
     return {"solve": solve, "local_ba": local, "cli": cli, "two_ranks": two}, launches
 
 
+# K5 against its plain version: rotation entries within K5_TOL, translations
+# within K5_TOL of the points' scale (the plain version factors in f32 with
+# cuSOLVER, the kernel in f64)
+K5_TOL = 1e-5
+K5_POINTS = 1024
+# frames of phase 22's device-traced windows (a run in steady state)
+BUSY = (40, 80)
+# phase 22's forced tracking loss: frames of the arc, first and end of the
+# blanked run
+LOST = (60, 30, 34)
+
+
+def _rotation(rng, angle_scale: float):
+    """A random rotation (numpy f64) by Rodrigues' formula."""
+    import numpy as np
+
+    axis = rng.normal(size=3)
+    axis /= np.linalg.norm(axis)
+    a = rng.uniform(-angle_scale, angle_scale)
+    K = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]],
+                  [-axis[1], axis[0], 0]])
+    return np.eye(3) + np.sin(a) * K + (1 - np.cos(a)) * K @ K
+
+
+def _rigid_problems(b: int, n: int, seed: int, dev, kinds=None):
+    """b problems of n point pairs, dst = R src + t + 1 cm noise, 0/1 weights
+    (70 % ones), from a numpy seed.  kinds[i]: "random", "zero" (all weights
+    0), "coplanar" (src on a plane), "collinear" (src on a line)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    kinds = kinds or ["random"] * b
+    src = rng.normal(0.0, 2.0, (b, n, 3)) + rng.normal(0.0, 3.0, (b, 1, 3))
+    w = (rng.random((b, n)) < 0.7).astype(np.float32)
+    dst = np.empty_like(src)
+    for i, kind in enumerate(kinds):
+        if kind == "coplanar":
+            src[i, :, 2] = 4.0
+        elif kind == "collinear":
+            src[i] = src[i, :1] + np.outer(rng.normal(0.0, 2.0, n), [0.6, 0.0, 0.8])
+        elif kind == "zero":
+            w[i] = 0.0
+        R, t = _rotation(rng, 1.0), rng.normal(0.0, 1.0, 3)
+        dst[i] = src[i] @ R.T + t + rng.normal(0.0, 0.01, (n, 3))
+    f = lambda x: torch.from_numpy(x.astype(np.float32)).to(dev)  # noqa: E731
+    return f(src), f(dst), f(w)
+
+
+def _replayed(fn):
+    """Two replays of `fn` captured into a CUDA graph (after a warm-up on
+    the capture stream); returns both outputs."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    first = out.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    return first, out.clone()
+
+
+def _phase_k5(dev, floor_ms: float) -> dict:
+    """(a) K5 against the SVD route on the card, relaunch and graph replay
+    bit for bit, its time beside the plain route's and the bound."""
+    import torch
+    from jetracer_orbslam2_torch.ops import fused_rigid
+
+    cases = [
+        ("B 1, 0/1 weights", 1, None, False),
+        ("B 1, no weights", 1, None, True),
+        ("B 1, coplanar", 1, ["coplanar"], False),
+        ("B 1, all weights 0", 1, ["zero"], False),
+        ("B 8: 6 random, all weights 0, coplanar", 8,
+         ["random"] * 6 + ["zero", "coplanar"], False),
+    ]
+    worst = 0.0
+    rows = []
+    for seed, (label, b, kinds, no_w) in enumerate(cases):
+        src, dst, w = _rigid_problems(b, K5_POINTS, seed, dev, kinds)
+        w = None if no_w else w
+        fit = lambda: fused_rigid.rigid_fit(src, dst, w)  # noqa: E731
+        got, again = fit(), fit()
+        plain = fused_rigid.rigid_fit_reference(src, dst, w)
+        replays = _replayed(fit)
+        torch.cuda.synchronize()
+        scale = max(1.0, float(src.abs().max()), float(dst.abs().max()))
+        err_r = float((got[:, :3, :3] - plain[:, :3, :3]).abs().max())
+        err_t = float((got[:, :3, 3] - plain[:, :3, 3]).abs().max()) / scale
+        bits = (torch.equal(got, again) and torch.equal(got, replays[0])
+                and torch.equal(got, replays[1]))
+        rows.append({"case": label, "rotation_err": err_r,
+                     "translation_err_rel": err_t, "bit_identical": bits})
+        say(f"  K5 {label}: rotation {err_r:.2e}, translation {err_t:.2e} of "
+            f"scale {scale:.1f} (tol {K5_TOL:g}); relaunch and two graph "
+            f"replays torch.equal: {bits}")
+        worst = max(worst, err_r, err_t)
+        if not (err_r <= K5_TOL and err_t <= K5_TOL and bits):
+            raise SystemExit(f"FAIL: K5 at {label}")
+        if kinds and "zero" in kinds:
+            i = kinds.index("zero")
+            if not torch.equal(got[i], torch.eye(4, device=dev)):
+                raise SystemExit(f"FAIL: K5 with all weights 0 gave {got[i]}")
+    # collinear points: the rotation about the line is free, so no reference
+    # transform exists; the kernel's must be proper and fit the points
+    src, dst, w = _rigid_problems(1, K5_POINTS, 9, dev, ["collinear"])
+    T = fused_rigid.rigid_fit(src, dst, w)[0].double()
+    R = T[:3, :3]
+    ortho = float((R @ R.T - torch.eye(3, dtype=R.dtype, device=dev)).abs().max())
+    det = float(torch.linalg.det(R))
+    fit_err = float(((src[0].double() @ R.T + T[:3, 3]) - dst[0].double())
+                    .norm(dim=-1)[w[0] > 0].max())
+    say(f"  K5 collinear points: |R R^T - I| {ortho:.2e}, det R {det:.9f}, "
+        f"worst fit residual {fit_err * 100:.2f} cm (noise 1 cm)")
+    if not (ortho <= K5_TOL and abs(det - 1.0) <= K5_TOL and fit_err < 0.06):
+        raise SystemExit("FAIL: K5 on collinear points gave no proper fit")
+
+    # time at the refits' shape: B 1, N 1,024, 0/1 weights
+    src, dst, w = _rigid_problems(1, K5_POINTS, 0, dev)
+    ms = time_launches(lambda: fused_rigid.rigid_fit(src, dst, w), reps=20,
+                       batch=20)
+    # the plain route waits on the host inside torch.linalg.svd, so it cannot
+    # be captured: CUDA events around 10 eager calls, median of 10
+    plain_ms = _median_event_ms(
+        lambda: [fused_rigid.rigid_fit_reference(src, dst, w)
+                 for _ in range(10)], reps=10, per_run=10)
+    n_bytes = K5_POINTS * 7 * 4 + 16 * 4
+    # per point: 7 sums, then 6 differences, 3 products, 9 multiply-adds;
+    # the 3 x 3 factorisation about 1,000 more
+    n_ops = K5_POINTS * (7 + 6 + 3 + 18) + 1000
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / F32_OPS_PER_S * 1e3
+    out = {"cases": rows, "max_err": worst, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "bytes": n_bytes, "ops": n_ops, "floor_ms": floor_ms,
+           "library_ms": None}
+    say(f"  K5 at B 1, N {K5_POINTS}: {ms * 1e3:.2f} us a launch (floor "
+        f"{floor_ms * 1e3:.2f}); plain route (SVD, one host wait) "
+        f"{plain_ms * 1e3:.2f} us a call; bound {out['bound_ms'] * 1e3:.4f} us "
+        f"({out['bound_by']}: {n_bytes} B, {n_ops} f32 ops)")
+    return out
+
+
+def _count_waits(fn):
+    """(fn(), host waits inside it) under sync-debug "warn"."""
+    import warnings
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("called a synchronizing" in str(w.message) for w in caught)
+
+
+def _device_busy(fn) -> tuple:
+    """(wall s, device-busy s) of one pass of `fn` traced on the device side."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_s = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA) / 1e6
+    return wall, dev_s
+
+
+def _timed(fn) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _graph_odometry(gray, depth, intr, gt, fcfg, tcfg, dev) -> dict:
+    """(b) the eager odometry_step with no host wait; (c) odometry_scan's
+    graph against the eager step loop; (e) both timed in turns."""
+    import numpy as np
+    import torch
+    from jetracer_orbslam2_torch.evaluation import ate
+    from jetracer_orbslam2_torch.models import odometry as odo
+
+    n = gray.shape[0]
+    runs = {}
+
+    def eager(sync_error: bool = False):
+        st = odo.init_state(gray[0], depth[0], intr, fcfg, tcfg, device=dev)
+        poses, oks = [st.T_wc], [torch.ones((), dtype=torch.bool, device=dev)]
+        if sync_error:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            for i in range(1, n):
+                st, res = odo.odometry_step(st, gray[i], depth[i], intr, fcfg, tcfg)
+                poses.append(res.T_wc)
+                oks.append(res.tracked_ok)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        runs["eager"] = (torch.stack(poses), torch.stack(oks))
+
+    def graphed():
+        st = odo.init_state(gray[0], depth[0], intr, fcfg, tcfg, device=dev)
+        final, poses, oks = odo.odometry_scan(st, gray[1:], depth[1:], intr,
+                                              fcfg, tcfg)
+        runs["graphed"] = (torch.cat([st.T_wc[None], poses]),
+                           torch.cat([oks.new_ones(1), oks]), final.graph)
+
+    walls = {"eager": [_timed(eager)]}
+    eager(sync_error=True)                       # (b): raises at a host wait
+    ref = runs["eager"]
+    _reset_counters()
+    walls["graphed"] = [_timed(graphed)]
+    launches = _read_counters()
+    poses, oks, graph = runs["graphed"]
+    walls["graphed"].append(_timed(graphed))
+    walls["eager"].append(_timed(eager))
+    same = (torch.equal(poses, ref[0]) and torch.equal(oks, ref[1])
+            and torch.equal(runs["graphed"][0], poses)
+            and torch.equal(runs["eager"][0], ref[0]))
+    rmse = float(ate(poses.cpu(), torch.as_tensor(gt)).rmse)
+
+    # the device-busy share over frames BUSY of a run in steady state (the
+    # graph captured and replayed before the window)
+    st = odo.init_state(gray[0], depth[0], intr, fcfg, tcfg, device=dev)
+    st_g, _, _ = odo.odometry_scan(st, gray[1:BUSY[0]], depth[1:BUSY[0]], intr,
+                                   fcfg, tcfg)
+    st_e = odo.init_state(gray[0], depth[0], intr, fcfg, tcfg, device=dev)
+    for i in range(1, BUSY[0]):
+        st_e, _ = odo.odometry_step(st_e, gray[i], depth[i], intr, fcfg, tcfg)
+
+    def eager_window():
+        st = st_e
+        for i in range(*BUSY):
+            st, _ = odo.odometry_step(st, gray[i], depth[i], intr, fcfg, tcfg)
+
+    def graphed_window():
+        odo.odometry_scan(st_g, gray[BUSY[0]:BUSY[1]], depth[BUSY[0]:BUSY[1]],
+                          intr, fcfg, tcfg)
+
+    busy = {"eager": _device_busy(eager_window),
+            "graphed": _device_busy(graphed_window)}
+    window = BUSY[1] - BUSY[0]
+    report = {
+        "frames": n, "ate_rmse_m": rmse,
+        "tracked_frac": float(oks.float().mean()),
+        "graphed_equals_eager": same, "eager_host_waits": 0,
+        "captures": graph.captures, "replays": graph.replays,
+        "eager_calls": graph.eager_calls,
+        "nodes": {fn.__name__: k for fn, k in graph.nodes.items()},
+        "launches": launches,
+        "ms_per_frame": {k: [w / (n - 1) * 1e3 for w in v]
+                         for k, v in walls.items()},
+        "device_busy_ms_per_frame": {k: b[1] / window * 1e3
+                                     for k, b in busy.items()},
+        "traced_ms_per_frame": {k: b[0] / window * 1e3 for k, b in busy.items()},
+        "idle_share": {k: 1 - b[1] / b[0] for k, b in busy.items()},
+        "turns": "eager, graphed, graphed, eager over every frame; then "
+                 f"frames {BUSY[0]}-{BUSY[1] - 1} of each, traced on the device",
+    }
+    say("  odometry graph: " + json.dumps(report))
+    if not same:
+        diff = float((poses - ref[0]).abs().max())
+        raise SystemExit(f"FAIL: the graphed odometry_scan differs from the "
+                         f"eager step loop (max pose diff {diff:g})")
+    if not (rmse < 0.10 and report["tracked_frac"] >= 0.95):
+        raise SystemExit(f"FAIL: graphed odometry ATE {rmse} / tracked "
+                         f"{report['tracked_frac']}")
+    want = {"fast_nms_pyramid": n, "extract_patches_fused": n,
+            "rigid_fit": 2 * (n - 1)}
+    got = {k: launches[k] for k in want}
+    if (graph.captures, graph.replays, graph.eager_calls) != (1, n - 2, 1) \
+            or got != want:
+        raise SystemExit(f"FAIL: odometry graph: captures {graph.captures}, "
+                         f"replays {graph.replays}, eager calls "
+                         f"{graph.eager_calls}, launches {got}; expected 1, "
+                         f"{n - 2}, 1, {want}")
+    return report
+
+
+class _EagerStep:
+    """`slam.tracking_step` called directly: the eager step a tracking
+    graph is held against (the graph's call signature)."""
+
+    def __init__(self, generator, cfg, extract=None):
+        self.generator, self.cfg, self.extract = generator, cfg, extract
+
+    def __call__(self, *args):
+        from jetracer_orbslam2_torch.models import slam as slam_mod
+
+        return slam_mod.tracking_step(self.generator, *args, cfg=self.cfg,
+                                      extract=self.extract)
+
+
+def _graph_slam(gray, depth, intr, gt, cfg, dev) -> dict:
+    """(d) slam_scan and Slam graphed against their eager steps on the arc:
+    poses, flags, keyframes, loops equal, one host wait a plain frame; (e)
+    the scan timed in turns, and its device-busy share."""
+    import numpy as np
+    import torch
+    from jetracer_orbslam2_torch.evaluation import ate
+    from jetracer_orbslam2_torch.models import slam as slam_mod
+    from jetracer_orbslam2_torch.models import slam_scan as ss
+
+    n = gray.shape[0]
+    waits = {"scan": [], "slam": []}
+    step_fn, track_fn = ss._step, slam_mod.Slam._track
+
+    def scan_step(*a, **kw):
+        (state, row), k = _count_waits(lambda: step_fn(*a, **kw))
+        waits["scan"].append((k, bool(row[3]) and not row[-1]))
+        return state, row
+
+    def slam_track(self, *a, **kw):
+        report, k = _count_waits(lambda: track_fn(self, *a, **kw))
+        # plain: tracked, and not a keyframe (whose uid is its frame id)
+        waits["slam"].append((k, self.tracked[-1] and
+                              self.frame_ref_uid[-1] != self.frame_idx - 1))
+        return report
+
+    def scan(eager: bool = False, upto: int = n, start=None, seq=None):
+        """Frames 1..upto-1 from a fresh state, or frames BUSY from `start`;
+        of the arc, or of `seq` (gray, depth)."""
+        g, d = seq or (gray, depth)
+        lo, hi = (1, upto) if start is None else BUSY
+        state = start or ss.init_scan_state(g[0], d[0], intr, cfg, device=dev)
+        if not eager:
+            return ss.slam_scan(state, g[lo:hi], d[lo:hi], intr, cfg)
+        step = _EagerStep(state.generator, cfg, ss.frame_extract(cfg, dev))
+        rows = []
+        for i in range(lo, hi):
+            state, row = ss._step(state, g[i], d[i], (None, False),
+                                  intr, cfg, None, step)
+            rows.append(row)
+        ref_uid, T_rel, T_w_emit, tracked, is_kf = zip(*rows)
+        return state, ss.ScanOutput(
+            ref_uid=torch.stack(ref_uid), T_rel=torch.stack(T_rel),
+            T_w_emit=torch.stack(T_w_emit), tracked=torch.stack(tracked),
+            is_kf=torch.tensor(is_kf, dtype=torch.bool, device=dev))
+
+    def summary(final, out):
+        poses = np.concatenate([final.m.kf_pose[:1].cpu().numpy(),
+                                ss.compose_trajectory(final, out)])
+        return {"poses": poses, "tracked": out.tracked.cpu().numpy(),
+                "is_kf": out.is_kf.cpu().numpy(),
+                "keyframes": int(final.m.num_kf), "loops": int(final.num_loops),
+                "relocs": int(final.num_relocs)}
+
+    class EagerSlam(slam_mod.Slam):
+        def _graph(self, name, extract=None):
+            return _EagerStep(self.generator, self.cfg, extract)
+
+    def slam(eager: bool = False, seq=None):
+        g, d = seq or (gray, depth)
+        s = (EagerSlam if eager else slam_mod.Slam)(cfg, intr, device=dev)
+        for i in range(g.shape[0]):
+            s.process_frame(g[i], d[i])
+        return s, s.result()
+
+    def slam_equal(a, b) -> bool:
+        return (np.array_equal(a.poses, b.poses)
+                and np.array_equal(a.tracked, b.tracked)
+                and (a.num_keyframes, a.num_loops, a.num_relocs)
+                == (b.num_keyframes, b.num_loops, b.num_relocs))
+
+    eager_scan = summary(*scan(eager=True))
+    _reset_counters()
+    ss._step, slam_mod.Slam._track = scan_step, slam_track
+    try:
+        final, out = scan()
+        launches = _read_counters()
+        graphed_scan = summary(final, out)
+        graph = final.graph
+        g_slam, g_out = slam()
+    finally:
+        ss._step, slam_mod.Slam._track = step_fn, track_fn
+    _, e_out = slam(eager=True)
+    same_scan = all(np.array_equal(graphed_scan[k], eager_scan[k])
+                    for k in eager_scan)
+    same_slam = slam_equal(g_out, e_out)
+    # (d) again through a forced tracking loss: the frames LOST[1]..LOST[2]-1
+    # of the arc's first LOST[0] are blank, so tracking fails, relocalization
+    # draws eagerly between replays and re-poses the first frame after them
+    lost_g = gray[:LOST[0]].clone()
+    lost_g[LOST[1]:LOST[2]] = 0
+    lost = (lost_g, depth[:LOST[0]])
+    lost_scan = [summary(*scan(eager=e, upto=LOST[0], seq=lost))
+                 for e in (False, True)]
+    lost_slam = [slam(eager=e, seq=lost)[1] for e in (False, True)]
+    reloc = {
+        "frames": LOST[0], "blank": list(LOST[1:]),
+        "relocs": {"scan": [r["relocs"] for r in lost_scan],
+                   "slam": [o.num_relocs for o in lost_slam]},
+        "scan_graphed_equals_eager": all(
+            np.array_equal(lost_scan[0][k], lost_scan[1][k])
+            for k in lost_scan[0]),
+        "slam_graphed_equals_eager": slam_equal(*lost_slam),
+    }
+    # plain frames (tracked, no keyframe) after the capture (a run's first
+    # tracked frame warms up, its second captures); a keyframe frame and a
+    # relocalization wait more
+    plain = {k: [w for w, is_plain in v[2:] if is_plain]
+             for k, v in waits.items()}
+    walls = {"eager": [_timed(lambda: scan(eager=True))]}
+    walls["graphed"] = [_timed(scan), _timed(scan)]
+    walls["eager"].append(_timed(lambda: scan(eager=True)))
+    # the device-busy share over frames BUSY, after frames 1.. of a run
+    st_g, _ = scan(upto=BUSY[0])
+    st_e, _ = scan(eager=True, upto=BUSY[0])
+    busy = {"eager": _device_busy(lambda: scan(eager=True, start=st_e)),
+            "graphed": _device_busy(lambda: scan(start=st_g))}
+    window = BUSY[1] - BUSY[0]
+    frames = n - 1
+    rmse = float(ate(torch.from_numpy(graphed_scan["poses"]),
+                     torch.as_tensor(gt)).rmse)
+    report = {
+        "frames": n, "keyframes": graphed_scan["keyframes"],
+        "loops": graphed_scan["loops"], "relocs": graphed_scan["relocs"],
+        "ate_rmse_m": rmse,
+        "tracked_frac": float(graphed_scan["tracked"].mean()),
+        "scan_graphed_equals_eager": same_scan,
+        "slam_graphed_equals_eager": same_slam,
+        "captures": graph.captures, "replays": graph.replays,
+        "eager_calls": graph.eager_calls,
+        "launches": launches,
+        "plain_frames": {k: len(v) for k, v in plain.items()},
+        "host_waits_per_plain_frame": {
+            k: (sum(v) / len(v) if v else None) for k, v in plain.items()},
+        "host_waits_max_plain_frame": {k: max(v, default=None)
+                                       for k, v in plain.items()},
+        "ms_per_frame": {k: [w / frames * 1e3 for w in v]
+                         for k, v in walls.items()},
+        "device_busy_ms_per_frame": {k: b[1] / window * 1e3
+                                     for k, b in busy.items()},
+        "traced_ms_per_frame": {k: b[0] / window * 1e3 for k, b in busy.items()},
+        "idle_share": {k: 1 - b[1] / b[0] for k, b in busy.items()},
+        "turns": "eager, graphed, graphed, eager over every frame; then "
+                 f"frames {BUSY[0]}-{BUSY[1] - 1} of each, traced on the device",
+        "relocalization": reloc,
+    }
+    say("  SLAM graph: " + json.dumps(report))
+    if not (same_scan and same_slam):
+        raise SystemExit(f"FAIL: graphed SLAM differs from its eager step "
+                         f"(slam_scan equal {same_scan}, Slam equal {same_slam})")
+    if not (reloc["scan_graphed_equals_eager"]
+            and reloc["slam_graphed_equals_eager"]):
+        raise SystemExit(f"FAIL: through a tracking loss the graphed SLAM "
+                         f"differs from its eager step: {reloc}")
+    if min(reloc["relocs"]["scan"] + reloc["relocs"]["slam"]) < 1:
+        raise SystemExit(f"FAIL: the forced tracking loss relocalized no "
+                         f"frame: {reloc}")
+    if not (rmse < 0.10 and report["tracked_frac"] >= 0.95):
+        raise SystemExit(f"FAIL: graphed SLAM ATE {rmse} / tracked "
+                         f"{report['tracked_frac']}")
+    if (graph.captures, graph.replays, graph.eager_calls) != (1, n - 2, 1):
+        raise SystemExit(f"FAIL: SLAM graph captures {graph.captures}, replays "
+                         f"{graph.replays}, eager calls {graph.eager_calls}; "
+                         f"expected 1, {n - 2}, 1")
+    if launches["fast_nms_pyramid"] != n or launches["extract_patches_fused"] != n:
+        raise SystemExit(f"FAIL: SLAM graph launches {launches}: K1 = K4 = {n} "
+                         "expected")
+    _without_k5(launches, n - 1, "SLAM graph")
+    if any(not v or max(v) != 1 or min(v) != 1 for v in plain.values()):
+        raise SystemExit(f"FAIL: host waits of a plain SLAM frame: {plain} "
+                         "(one expected: the packed fetch)")
+    return report
+
+
+def phase_graphs(source, args, dev, floor_ms: float) -> dict:
+    """Phase 22: (a) K5; (b)-(e) the odometry and SLAM frame steps captured
+    as CUDA graphs against their eager steps, on the CLI's arc."""
+    import torch
+    from jetracer_orbslam2_torch import run
+    from jetracer_orbslam2_torch.config import SystemConfig, TrackingConfig
+
+    k5 = _phase_k5(dev, floor_ms)
+    frames = list(source.frames())
+    gray = torch.stack([f[0] for f in frames])
+    depth = torch.stack([f[1] for f in frames])
+    fcfg = run._frontend_cfg(args, source.hw, source.cal)
+    odometry = _graph_odometry(gray, depth, source.intr, source.gt, fcfg,
+                               TrackingConfig(), dev)
+    slam = _graph_slam(gray, depth, source.intr, source.gt,
+                       SystemConfig(frontend=fcfg), dev)
+    return {"k5": k5, "odometry": odometry, "slam": slam}
+
+
 def print_build(name: str) -> None:
     from jetracer_orbslam2_torch.utils import cuda_build
 
@@ -2978,7 +3537,8 @@ def main(argv: list[str]) -> int:
         return 1
     # the port under test; absent in a directory that holds only this script
     import jetracer_orbslam2_torch
-    from jetracer_orbslam2_torch.ops import fused_ba, fused_fast, fused_patches
+    from jetracer_orbslam2_torch.ops import (
+        fused_ba, fused_fast, fused_patches, fused_rigid)
     from jetracer_orbslam2_torch.utils import cuda_build
     from jetracer_orbslam2_torch.utils.device import resolve_device
     from jetracer_orbslam2_torch.utils.precision import set_exact_f32
@@ -2995,12 +3555,13 @@ def main(argv: list[str]) -> int:
 
     phase(2, "build (one nvcc per source, started together)")
     t0 = time.perf_counter()
-    sources = ["fast_nms", "ba_fused", "patch_gather"]
+    sources = ["fast_nms", "ba_fused", "patch_gather", "rigid_fit"]
     cuda_build.build_libraries(sources)
     fused_fast._launcher()
     fused_ba._launchers()
     fused_patches._library()
-    say(f"  three libraries built and loaded in {time.perf_counter() - t0:.2f} s")
+    fused_rigid._launcher()
+    say(f"  four libraries built and loaded in {time.perf_counter() - t0:.2f} s")
     for name in sources:
         print_build(name)
 
@@ -3107,6 +3668,9 @@ def main(argv: list[str]) -> int:
                   f"(c) run.main --mesh 1 ({N_FRAMES} frames of 640x480, whole "
                   "and --chunked 8), (d) two ranks on this card over gloo")
         sharded_report, sharded_launches = phase_sharded(local_map, source.intr, dev)
+
+        phase(22, GRAPHS_TITLE)
+        graphs = phase_graphs(source, args, dev, floor_ms)
     torch.cuda.synchronize()
 
     k1 = times["odometry"]
@@ -3217,6 +3781,36 @@ def main(argv: list[str]) -> int:
                        "call with its index prebuilt",
         "shapes": [patch_time],
     })
+    k5 = graphs["k5"]
+    kernels.append({
+        "name": "rigid_fit",
+        "route": "cuda",
+        "source": "jetracer_orbslam2_torch/csrc/rigid_fit.cu",
+        "replaces": "jetracer_orbslam2_tpu/ops/geometry.py:397",
+        "launches": runtime_launches["rigid_fit"],
+        "odometry_path_launches": graphs["odometry"]["launches"]["rigid_fit"],
+        "slam_path_launches": slam_launches["rigid_fit"],
+        "stereo_path_launches": stereo_launches["rigid_fit"],
+        "max_abs_err": k5["max_err"],
+        "ms": k5["ms"],
+        "plain_ms": k5["plain_ms"],
+        "bound_ms": k5["bound_ms"],
+        "bound_by": k5["bound_by"],
+        "library_ms": None,
+        "floor_ms": k5["floor_ms"],
+        "numbers_are": "K5 has no Pallas counterpart: it replaces the SVD of "
+                       "kabsch (jnp.linalg.svd in the JAX package, "
+                       "torch.linalg.svd with a host wait as the plain "
+                       "version); per launch at B 1, N 1,024 (a refit); "
+                       "max_abs_err is the worst rotation entry or translation "
+                       "relative to the points' scale against the plain "
+                       "route; plain_ms is the SVD route per eager call "
+                       "(its host wait included); launches are the runtime "
+                       "path's (phase 20 run C), odometry_path_launches "
+                       "phase 22's graphed odometry_scan's, slam_path_launches "
+                       "phase 13's, stereo_path_launches phase 18's",
+        "cases": k5["cases"],
+    })
     seconds = round(time.perf_counter() - t_start, 1)
     say(json.dumps({"main_path": report, "card": card, "seconds": seconds}))
     say(json.dumps({"ba_path": ba_report, "local_ba": local_report,
@@ -3228,6 +3822,7 @@ def main(argv: list[str]) -> int:
                     "datasets": datasets_report, "card": card}))
     say(json.dumps({"runtime": runtime_report["summary"], "card": card}))
     say(json.dumps({"sharded": sharded_report, "card": card}))
+    say(json.dumps({"graphs": graphs, "card": card}))
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -1,16 +1,21 @@
 """Frame-to-frame visual odometry: one step, and a whole-sequence scan.
 
-Counterpart of `jetracer_orbslam2_tpu/models/odometry.py`.  `lax.scan`
-becomes a Python loop over frames with every tensor resident on the device;
-the loop never reads a value back to the host (no `.item()`, no `if tensor`),
-so the host only enqueues work and results are fetched once per scan or
-chunk.  RANSAC draws come from one `torch.Generator` carried in the state and
-advanced once per tracked frame.
+Counterpart of `jetracer_orbslam2_tpu/models/odometry.py`, whose
+`odometry_step` is one dispatch a frame and whose `odometry_scan` keeps the
+loop on the device.  Here `odometry_step` is the eager step, and
+`odometry_scan` (with `ChunkedOdometry` on top) replays it as a CUDA graph:
+captured once, replayed once a frame (`utils/step_graph.StepGraph`; the
+first tracked frame runs eagerly and warms up, on the CPU every frame runs
+eagerly through the graph's buffers).  No step reads a value back to the
+host: the rigid refits are the K5 kernel on the card (`geo.kabsch`), so a
+frame makes the host wait for nothing, and results are fetched once per scan
+or chunk.  RANSAC draws come from one `torch.Generator` carried in the state,
+advanced once per tracked frame, in a replay exactly as in an eager step.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -20,6 +25,7 @@ from jetracer_orbslam2_torch.models import tracking
 from jetracer_orbslam2_torch.models.frontend import Features, frontend_gray_depth
 from jetracer_orbslam2_torch.utils.device import as_f32, resolve_device
 from jetracer_orbslam2_torch.utils.precision import set_exact_f32
+from jetracer_orbslam2_torch.utils.step_graph import StepGraph
 
 Tensor = torch.Tensor
 
@@ -30,6 +36,7 @@ class OdomState(NamedTuple):
     prev: Features      # features of the previous frame
     frame_idx: Tensor   # () int32
     generator: torch.Generator  # RANSAC draws (the JAX state's base_key)
+    graph: Optional[StepGraph] = None  # the scan's captured step, carried
 
 
 def make_generator(seed: int, device) -> torch.Generator:
@@ -82,18 +89,42 @@ def odometry_step(
     return new_state, res
 
 
+def _graph_step(generator, prev: Features, gray, depth, T_wc, velocity,
+                frame_idx, intrinsics, fcfg: FrontendConfig,
+                tcfg: TrackingConfig):
+    """The body the scan's graph captures: `odometry_step` on plain tensors,
+    returning what the next frame and the scan's outputs need."""
+    state = OdomState(T_wc=T_wc, velocity=velocity, prev=prev,
+                      frame_idx=frame_idx, generator=generator)
+    new, res = odometry_step(state, gray, depth, intrinsics, fcfg, tcfg)
+    return new.prev, new.T_wc, new.velocity, new.frame_idx, res.tracked_ok
+
+
+def step_graph(state: OdomState, frame_shape, fcfg: FrontendConfig,
+               tcfg: TrackingConfig) -> StepGraph:
+    """The state's graph when it was made for this configuration, frame
+    shape and generator; else a new one (captured at its second call)."""
+    return StepGraph.reuse(
+        state.graph, lambda gen, *a: _graph_step(gen, *a, fcfg=fcfg, tcfg=tcfg),
+        state.generator, (fcfg, tcfg, tuple(frame_shape), state.T_wc.device))
+
+
 @torch.no_grad()
 def odometry_scan(
     state: OdomState, grays, depths, intrinsics,
     fcfg: FrontendConfig, tcfg: TrackingConfig,
     live: Sequence[bool] | None = None,
 ) -> tuple[OdomState, Tensor, Tensor]:
-    """Run odometry over a whole (N, H, W) sequence on the state's device.
+    """Run odometry over a whole (N, H, W) sequence on the state's device:
+    `odometry_step` once a frame through the state's `StepGraph` (a CUDA
+    graph replay on the card).
 
     Returns (final state, (N,4,4) poses T_wc, (N,) tracked_ok), all device
-    tensors; the caller fetches them once.  live: (N,) HOST booleans,
-    optional — False rows are inert padding (they leave the state untouched,
-    draw nothing, and report the carried pose with tracked_ok False).
+    tensors; the caller fetches them once.  The final state carries the
+    graph, so a later scan from it (a chunk) replays the same capture.
+    live: (N,) HOST booleans, optional — False rows are inert padding (they
+    leave the state untouched, draw nothing, and report the carried pose
+    with tracked_ok False).
     """
     set_exact_f32()
     dev = state.T_wc.device
@@ -101,8 +132,12 @@ def odometry_scan(
     depths = as_f32(depths, dev)
     intrinsics = as_f32(intrinsics, dev)
     n = grays.shape[0]
+    if n == 0:
+        return (state, torch.zeros((0, 4, 4), dtype=torch.float32, device=dev),
+                torch.zeros((0,), dtype=torch.bool, device=dev))
     if live is not None:
         live = [bool(v) for v in np.asarray(live).tolist()]
+    graph = step_graph(state, grays.shape[1:], fcfg, tcfg)
     not_ok = torch.zeros((), dtype=torch.bool, device=dev)
     poses, oks = [], []
     for i in range(n):
@@ -110,21 +145,22 @@ def odometry_scan(
             poses.append(state.T_wc)
             oks.append(not_ok)
             continue
-        state, res = odometry_step(
-            state, grays[i], depths[i], intrinsics, fcfg, tcfg)
-        poses.append(res.T_wc)
-        oks.append(res.tracked_ok)
-    if n == 0:
-        return (state, torch.zeros((0, 4, 4), dtype=torch.float32, device=dev),
-                torch.zeros((0,), dtype=torch.bool, device=dev))
-    return state, torch.stack(poses), torch.stack(oks)
+        prev, T_wc, velocity, frame_idx, ok = graph(
+            state.prev, grays[i], depths[i], state.T_wc, state.velocity,
+            state.frame_idx, intrinsics)
+        state = OdomState(T_wc=T_wc, velocity=velocity, prev=prev,
+                          frame_idx=frame_idx, generator=state.generator)
+        poses.append(T_wc)
+        oks.append(ok)
+    return state._replace(graph=graph), torch.stack(poses), torch.stack(oks)
 
 
 class ChunkedOdometry:
     """Constant-memory streaming odometry: frames run through
     `odometry_scan` in fixed-size chunks with `OdomState` carried across —
     device memory holds one chunk instead of the whole sequence.  One host
-    sync per chunk; results equal the whole-sequence scan exactly (the same
+    sync per chunk; the state carries the step's graph, so the whole run
+    captures once.  Results equal the whole-sequence scan exactly (the same
     generator is advanced by the same frames in the same order)."""
 
     def __init__(self, intrinsics, fcfg: FrontendConfig,
@@ -156,8 +192,8 @@ class ChunkedOdometry:
         n = len(self._pending_g)
         if n == 0:
             return
-        # a ragged tail is simply a shorter chunk: eager execution has no
-        # fixed-shape program to pad for
+        # a ragged tail is simply a shorter chunk: the graph holds one
+        # frame's step, so a chunk's length is no shape of it
         g = torch.stack(self._pending_g)
         d = torch.stack(self._pending_d)
         self._pending_g.clear()

@@ -5,10 +5,15 @@ Counterpart of `jetracer_orbslam2_tpu/models/slam.py`.
   * Every per-frame computation is one of a handful of fixed-shape functions
     (track step, landmark association, keyframe insert, windowed BA, loop
     retrieve/verify/close).
+  * The tracking half of a frame (`tracking_step`: the front-end when the
+    frame is an image pair, `track_and_associate`, the scheduler's flags) is
+    captured once into a CUDA graph and replayed once a frame
+    (`utils/step_graph.StepGraph`); the keyframe and relocalization branches
+    stay eager host branches, taken on the frame's one packed fetch.
   * The host loop is a thin scheduler: it reads back one packed tensor per
     frame and one per keyframe and picks which functions to run.  No other
-    place reads a value from the device (`geo.kabsch`'s SVD aside, which
-    waits inside the library).
+    place reads a value from the device: on the card `geo.kabsch` is the K5
+    kernel, which waits for nothing (its SVD route runs on the CPU only).
   * Local BA runs over a fixed-size keyframe window against the full
     fixed-capacity landmark table with masked observations.
 
@@ -39,6 +44,7 @@ from jetracer_orbslam2_torch.models.odometry import make_generator
 from jetracer_orbslam2_torch.ops import geometry as geo
 from jetracer_orbslam2_torch.utils.device import as_f32, resolve_device
 from jetracer_orbslam2_torch.utils.precision import set_exact_f32
+from jetracer_orbslam2_torch.utils.step_graph import StepGraph
 from jetracer_orbslam2_torch.utils.ties import first_argmax
 
 Tensor = torch.Tensor
@@ -147,12 +153,13 @@ def track_and_associate(
 ) -> tuple[tracking.TrackResult, Tensor, Tensor, FrameReport]:
     """One SLAM tracking step: odometry + map association + KF decision.
 
-    imu_delta_w (3,) / imu_ok (a host bool): gyro-integrated body rotation
-    between the previous and the current frame.  When present it REPLACES the
-    rotation part of the constant-velocity prior (during erratic motion or a
-    camera blackout the gyro knows the turn the motion model cannot); the
-    translation prior stays constant-velocity.  Assumes identity camera-IMU
-    rotation.  frames_since_kf: a host int or a 0-dim tensor.
+    imu_delta_w (3,) / imu_ok (a host bool, or a () bool tensor inside a
+    captured step): gyro-integrated body rotation between the previous and
+    the current frame.  When present it REPLACES the rotation part of the
+    constant-velocity prior (during erratic motion or a camera blackout the
+    gyro knows the turn the motion model cannot); the translation prior
+    stays constant-velocity.  Assumes identity camera-IMU rotation.
+    frames_since_kf: a host int or a 0-dim tensor.
     sample_idx: optional (ransac_iters, 3) RANSAC samples for the tracker.
 
     Returns (track result, lm_idx (K,), lm_ok (K,), report).
@@ -162,7 +169,12 @@ def track_and_associate(
     prev, curr, m = _features_to(prev, dev), _features_to(curr, dev), _map_to(m, dev)
     T_w_prev, velocity = as_f32(T_w_prev, dev), as_f32(velocity, dev)
     intrinsics = as_f32(intrinsics, dev)
-    if imu_ok:
+    if isinstance(imu_ok, Tensor):
+        # a device flag: both priors are computed and the flag picks one
+        imu_velocity = geo.pose_from_rt(
+            geo.so3_exp(as_f32(imu_delta_w, dev)), velocity[:3, 3])
+        velocity = torch.where(imu_ok, imu_velocity, velocity)
+    elif imu_ok:
         velocity = geo.pose_from_rt(
             geo.so3_exp(as_f32(imu_delta_w, dev)), velocity[:3, 3])
     res = tracking.track_rgbd(
@@ -229,6 +241,82 @@ def track_and_associate(
         packed=packed,
     )
     return res, lm_idx, lm_ok, report
+
+
+class TrackingStep(NamedTuple):
+    """What `tracking_step` returns: the scheduler's inputs for the frame."""
+
+    feats: Optional[Features]  # the frame's features (None when given)
+    velocity: Tensor      # (4, 4) T_prev_curr used as the next prior
+    lm_idx: Tensor        # (K,) int32 map landmark of each keypoint
+    lm_ok: Tensor         # (K,) bool association valid
+    report: FrameReport
+    since_kf: Tensor      # () int32 frames_since_kf + 1 (no keyframe here)
+    lost_streak: Tensor   # () int32 after this frame
+    flags: Tensor         # (3,) bool [tracked, need_kf, try_reloc]
+
+
+def tracking_step(generator, prev: Features, frame, m: MapState, T_w_prev,
+                  velocity, imu_delta_w, imu_ok, frames_since_kf, lost_streak,
+                  intrinsics, *, cfg: SystemConfig,
+                  extract=None) -> TrackingStep:
+    """The tracking half of a SLAM frame, the body a `StepGraph` captures:
+    `frame` is the frame's Features, or with `extract` an image pair
+    (first, second) that `extract(first, second, intrinsics)` turns into
+    them; then `track_and_associate` and the flags the host branches on.
+    imu_ok, frames_since_kf and lost_streak are () device tensors."""
+    feats = frame if extract is None else extract(*frame, intrinsics)
+    res, lm_idx, lm_ok, report = track_and_associate(
+        prev, feats, m, T_w_prev, velocity, imu_delta_w, imu_ok,
+        frames_since_kf, intrinsics, generator, cfg, device=T_w_prev.device)
+    tracked = report.tracked_ok
+    lost = torch.where(tracked, 0, lost_streak + 1).to(torch.int32)
+    try_reloc = (~tracked) & (lost >= cfg.reloc.after_frames)
+    return TrackingStep(
+        feats=None if extract is None else feats, velocity=res.velocity,
+        lm_idx=lm_idx, lm_ok=lm_ok, report=report,
+        since_kf=(frames_since_kf + 1).to(torch.int32), lost_streak=lost,
+        flags=torch.stack([tracked, report.need_kf, try_reloc]))
+
+
+def tracking_graph(generator: torch.Generator, cfg: SystemConfig,
+                   extract=None, key=None,
+                   carried: Optional[StepGraph] = None) -> StepGraph:
+    """A `StepGraph` of `tracking_step` (with `extract`, the front-end too),
+    called with the arguments of `tracking_step` after the generator:
+    `carried` when it was made for `key` and `generator`, else a new one."""
+    return StepGraph.reuse(
+        carried,
+        lambda gen, *a: tracking_step(gen, *a, cfg=cfg, extract=extract),
+        generator, key)
+
+
+_STEP_CONSTANTS: dict = {}
+
+
+def step_constants(dev) -> dict:
+    """Device constants the tracking graph's callers hand it: no IMU prior
+    (a zero (3,) and a False flag), the True flag, int32 0 and 1.  Made once
+    a device by fills, so no frame uploads them."""
+    c = _STEP_CONSTANTS.get(str(dev))
+    if c is None:
+        c = _STEP_CONSTANTS[str(dev)] = {
+            "no_imu": torch.zeros(3, dtype=torch.float32, device=dev),
+            "false": torch.zeros((), dtype=torch.bool, device=dev),
+            "true": torch.ones((), dtype=torch.bool, device=dev),
+            "zero": torch.zeros((), dtype=torch.int32, device=dev),
+            "one": torch.ones((), dtype=torch.int32, device=dev),
+        }
+    return c
+
+
+def imu_upload(delta_w, dev) -> Tensor:
+    """A host (3,) gyro rotation on `dev` with no host wait: on the card
+    through pinned memory, copied without blocking."""
+    x = torch.as_tensor(np.asarray(delta_w, np.float32))
+    if dev.type == "cuda":
+        return x.pin_memory().to(dev, non_blocking=True)
+    return x.to(dev)
 
 
 @torch.no_grad()
@@ -369,7 +457,9 @@ class SlamOutput:
 class Slam:
     """Host-side SLAM orchestrator: a thin scheduler over the fixed-shape
     functions of this module, one packed fetch per frame and one more per
-    keyframe."""
+    keyframe.  A frame's tracking half is one replay of a captured graph on
+    the card (`process_frame`: front-end and tracking; `process_features`:
+    tracking of given features)."""
 
     def __init__(self, cfg: SystemConfig, intrinsics, seed: int = 0,
                  mesh=None, device=None):
@@ -393,7 +483,8 @@ class Slam:
         self.T_wc = torch.eye(4, dtype=torch.float32, device=self.device)
         self.velocity = torch.eye(4, dtype=torch.float32, device=self.device)
         self.frame_idx = 0
-        self.frames_since_kf = 0
+        # () int32 on the device: the tracking graph reads and advances it
+        self.frames_since_kf = step_constants(self.device)["zero"]
         self.num_loops = 0
         self.lost_streak = 0
         self.num_relocs = 0
@@ -420,6 +511,8 @@ class Slam:
         self.imu_state = imu_mod.init_state()
         self._imu_delta_w = np.zeros(3, np.float32)
         self._imu_delta_ok = False
+        # the tracking graphs (of given features, of an image pair)
+        self._graphs: dict = {}
 
     def features(self, gray, depth) -> Features:
         """Front-end entry: this system's Features from an RGB-D pair."""
@@ -452,46 +545,81 @@ class Slam:
         """(3,) filtered Euler attitude [rad]."""
         return np.asarray(self.imu_state.theta)
 
+    @torch.no_grad()
     def process_frame(self, gray, depth, imu_packet=None) -> FrameReport | None:
         """Feed one RGB-D frame.  Returns the per-frame report (None for
-        the very first frame, which only bootstraps)."""
-        return self.process_features(
-            self.features(gray, depth), imu_packet=imu_packet)
+        the very first frame, which only bootstraps).  After the first frame
+        the front-end and the tracking step are one graph replay."""
+        if self.prev is None:
+            return self.process_features(
+                self.features(gray, depth), imu_packet=imu_packet)
+        if imu_packet is not None:
+            self.process_imu(imu_packet)
+        frame = (as_f32(gray, self.device), as_f32(depth, self.device))
+        return self._track(frame, self._graph("frame", self._extract))
+
+    def _extract(self, gray, depth, intrinsics) -> Features:
+        t = self.cfg.tracking
+        return frontend_gray_depth(
+            gray, depth, intrinsics, self.cfg.frontend,
+            min_depth=t.min_depth, max_depth=t.max_depth, device=self.device)
+
+    def _graph(self, name: str, extract=None) -> StepGraph:
+        g = self._graphs[name] = tracking_graph(
+            self.generator, self.cfg, extract, key=name,
+            carried=self._graphs.get(name))
+        return g
 
     @torch.no_grad()
     def process_features(
         self, feats: Features, imu_packet=None,
     ) -> FrameReport | None:
-        """Feed one already-extracted feature set."""
+        """Feed one already-extracted feature set (after the first frame,
+        its tracking step is one graph replay)."""
         if imu_packet is not None:
             self.process_imu(imu_packet)
         feats = _features_to(feats, self.device)
-        if self.prev is None:
-            self.prev = feats
-            self.trajectory.append(self.T_wc.cpu().numpy())
-            self.tracked.append(True)
-            # bootstrap keyframe: everything with depth becomes a landmark
-            k = feats.xy.shape[0]
-            self.m, _ = map_mod.insert_keyframe(
-                self.m, feats, self.T_wc, self.frame_idx, feats.has_point,
-                torch.zeros(k, dtype=torch.int32, device=self.device),
-                torch.zeros(k, dtype=torch.bool, device=self.device),
-                device=self.device)
-            self._ref_uid = self.frame_idx          # kf uid == frame id
-            self._ref_pose_np = self.trajectory[-1]
-            self.frame_ref_uid.append(self._ref_uid)
-            self.frame_rel.append(np.eye(4, dtype=np.float32))
-            self.frame_idx += 1
-            return None
-
-        res, lm_idx, lm_ok, report = track_and_associate(
-            self.prev, feats, self.m, self.T_wc, self.velocity,
-            self._imu_delta_w, self._imu_delta_ok, self.frames_since_kf,
-            self.intr, self.generator, self.cfg, device=self.device)
-        self._imu_delta_ok = False    # consume the prior (one per packet)
-        self.T_wc = res.T_wc
-        self.velocity = res.velocity
+        if self.prev is not None:
+            return self._track(feats, self._graph("features"))
         self.prev = feats
+        self.trajectory.append(self.T_wc.cpu().numpy())
+        self.tracked.append(True)
+        # bootstrap keyframe: everything with depth becomes a landmark
+        k = feats.xy.shape[0]
+        self.m, _ = map_mod.insert_keyframe(
+            self.m, feats, self.T_wc, self.frame_idx, feats.has_point,
+            torch.zeros(k, dtype=torch.int32, device=self.device),
+            torch.zeros(k, dtype=torch.bool, device=self.device),
+            device=self.device)
+        self._ref_uid = self.frame_idx          # kf uid == frame id
+        self._ref_pose_np = self.trajectory[-1]
+        self.frame_ref_uid.append(self._ref_uid)
+        self.frame_rel.append(np.eye(4, dtype=np.float32))
+        self.frame_idx += 1
+        return None
+
+    def _track(self, frame, graph: StepGraph) -> FrameReport:
+        """One tracked frame: the graph's replay, the ONE fetch, then the
+        host's branches.  `frame` is Features, or an image pair for a graph
+        that runs the front-end."""
+        const = step_constants(self.device)
+        ok_imu = self._imu_delta_ok
+        # the lost streak stays a host int: this loop's one fetch is
+        # report.packed (it carries the pose for the trajectory), and the
+        # streak follows from its `ok` with no second fetch, so the step's
+        # device streak and flags (slam_scan's) are not read here
+        step = graph(
+            self.prev, frame, self.m, self.T_wc, self.velocity,
+            imu_upload(self._imu_delta_w, self.device) if ok_imu
+            else const["no_imu"], const["true" if ok_imu else "false"],
+            self.frames_since_kf, const["zero"], self.intr)
+        feats = frame if step.feats is None else step.feats
+        report, lm_idx, lm_ok = step.report, step.lm_idx, step.lm_ok
+        self._imu_delta_ok = False    # consume the prior (one per packet)
+        self.T_wc = report.T_wc
+        self.velocity = step.velocity
+        self.prev = feats
+        self.frames_since_kf = step.since_kf
         # ONE device->host fetch per frame: every scheduler decision rides
         # report.packed
         pk = report.packed.cpu().numpy()
@@ -514,7 +642,7 @@ class Slam:
                 self._loop_consist, mesh=self.mesh, device=self.device)
             self.m, self.T_wc = up.m, up.T_wc
             self.ba_edges_dropped += up.ba_dropped
-            self.frames_since_kf = 0
+            self.frames_since_kf = const["one"]     # 1 after this keyframe
             self._loop_prev_uid = up.loop_prev_uid
             self._loop_consist = up.loop_consist
             self.num_loops += up.looped
@@ -529,7 +657,6 @@ class Slam:
             np.linalg.inv(self._ref_pose_np).astype(np.float32)
             @ self.trajectory[-1])
         self.frame_idx += 1
-        self.frames_since_kf += 1
         return report
 
     def result(self) -> SlamOutput:

@@ -2,13 +2,15 @@
 
 Counterpart of `jetracer_orbslam2_tpu/models/slam_scan.py`.  There the whole
 system is one compiled `lax.scan` with `lax.cond` picking the keyframe and
-relocalization branches on the device.  Eager PyTorch has neither: here
-`slam_scan` is a Python loop over the stack, and every `lax.cond` is a host
-branch on flags fetched ONCE per frame in one packed tensor (`tracked`,
-`need_kf`, `try_reloc`), plus the one packed fetch a keyframe makes
-(`slam.keyframe_update`).  Only the branch taken is computed.  Frames, map,
-poses and the per-frame outputs stay on the device; the caller fetches the
-outputs once.
+relocalization branches on the device.  Here `slam_scan` is a Python loop
+over the stack: a frame's tracking half (the front-end, `track_and_associate`
+and the flags, `slam.tracking_step`) is one replay of a CUDA graph captured
+once a run (`utils/step_graph.StepGraph`, carried in the state), and every
+`lax.cond` is a host branch on flags fetched ONCE per frame in one packed
+tensor (`tracked`, `need_kf`, `try_reloc`), plus the one packed fetch a
+keyframe makes (`slam.keyframe_update`).  Only the branch taken is computed,
+eagerly.  Frames, map, poses and the per-frame outputs stay on the device;
+the caller fetches the outputs once.
 
 The math, thresholds, gating and the trajectory convention (frames ride their
 reference keyframe's optimized pose) are `models/slam.py`'s, and the RANSAC
@@ -36,6 +38,7 @@ from jetracer_orbslam2_torch.models.stereo import frontend_stereo
 from jetracer_orbslam2_torch.ops import geometry as geo
 from jetracer_orbslam2_torch.utils.device import as_f32, resolve_device
 from jetracer_orbslam2_torch.utils.precision import set_exact_f32
+from jetracer_orbslam2_torch.utils.step_graph import StepGraph
 
 Tensor = torch.Tensor
 
@@ -55,6 +58,7 @@ class ScanState(NamedTuple):
     loop_consist: Tensor    # () int32 consecutive-detection streak
     generator: torch.Generator  # RANSAC draws (the JAX state's base_key)
     ba_edges_dropped: int = 0   # host count: edges the sharded BA dropped
+    graph: Optional[StepGraph] = None  # the run's tracking graph, carried
 
 
 class ScanOutput(NamedTuple):
@@ -131,24 +135,42 @@ def _skip(state: ScanState) -> tuple:
             geo.pose_inverse(ref_pose) @ state.T_wc, state.T_wc, no, False)
 
 
-def _step(state: ScanState, gray, depth, imu, intrinsics,
-          cfg: SystemConfig, mesh=None) -> tuple[ScanState, tuple]:
-    """One SLAM frame.  imu: (delta_w (3,), ok host bool).  Returns the new
-    state and the frame's output row, whose last entry (`is_kf`) is a host
-    bool.  mesh: see `slam_scan`."""
+def frame_extract(cfg: SystemConfig, dev):
+    """`_features` as the `extract` of `slam.tracking_step`."""
+    return lambda first, second, intr: _features(first, second, intr, cfg, dev)
+
+
+def tracking_graph(state: ScanState, cfg: SystemConfig) -> StepGraph:
+    """The state's tracking graph when it was made for this configuration
+    and generator; else a new one (captured at its second call)."""
     dev = state.T_wc.device
-    feats = _features(gray, depth, intrinsics, cfg, dev)
+    return slam_mod.tracking_graph(state.generator, cfg, frame_extract(cfg, dev),
+                                   key=(cfg, dev), carried=state.graph)
+
+
+def _step(state: ScanState, gray, depth, imu, intrinsics,
+          cfg: SystemConfig, mesh=None,
+          graph: Optional[StepGraph] = None) -> tuple[ScanState, tuple]:
+    """One SLAM frame.  imu: (delta_w (3,) device tensor or None, ok host
+    bool).  Returns the new state and the frame's output row, whose last
+    entry (`is_kf`) is a host bool.  mesh: see `slam_scan`.  graph: the
+    tracking graph (`tracking_graph(state, cfg)` when None)."""
+    dev = state.T_wc.device
+    if graph is None:
+        graph = tracking_graph(state, cfg)
+    const = slam_mod.step_constants(dev)
     imu_delta_w, imu_ok = imu
-    res, lm_idx, lm_ok, report = slam_mod.track_and_associate(
-        state.prev, feats, state.m, state.T_wc, state.velocity,
-        imu_delta_w, imu_ok, state.frames_since_kf, intrinsics,
-        state.generator, cfg, device=dev)
-    T_wc, velocity, tracked = res.T_wc, res.velocity, report.tracked_ok
-    lost_streak = torch.where(tracked, 0, state.lost_streak + 1).to(torch.int32)
-    try_reloc = (~tracked) & (lost_streak >= cfg.reloc.after_frames)
+    step = graph(
+        state.prev, (gray, depth), state.m, state.T_wc, state.velocity,
+        imu_delta_w if imu_ok else const["no_imu"],
+        const["true" if imu_ok else "false"], state.frames_since_kf,
+        state.lost_streak, intrinsics)
+    feats, report = step.feats, step.report
+    lm_idx, lm_ok = step.lm_idx, step.lm_ok
+    T_wc, velocity, tracked = report.T_wc, step.velocity, report.tracked_ok
+    lost_streak = step.lost_streak
     # the frame's ONE fetch: what the host branches on
-    _, need_kf, try_reloc = torch.stack(
-        [tracked, report.need_kf, try_reloc]).cpu().tolist()
+    _, need_kf, try_reloc = step.flags.cpu().tolist()
 
     num_relocs = state.num_relocs
     if try_reloc:
@@ -161,7 +183,7 @@ def _step(state: ScanState, gray, depth, imu, intrinsics,
 
     m, ref_slot, num_loops = state.m, state.ref_slot, state.num_loops
     lp_uid, lp_cons = state.loop_prev_uid, state.loop_consist
-    frames_since_kf = state.frames_since_kf + 1
+    frames_since_kf = step.since_kf
     dropped = state.ba_edges_dropped
     if need_kf:
         up = slam_mod.keyframe_update(
@@ -180,7 +202,7 @@ def _step(state: ScanState, gray, depth, imu, intrinsics,
         frame_idx=state.frame_idx + 1, ref_slot=ref_slot,
         num_loops=num_loops, num_relocs=num_relocs,
         loop_prev_uid=lp_uid, loop_consist=lp_cons,
-        generator=state.generator, ba_edges_dropped=dropped,
+        generator=state.generator, ba_edges_dropped=dropped, graph=graph,
     )
     return new_state, (loop_mod._row(m.kf_frame_id, ref_slot),
                        geo.pose_inverse(ref_pose) @ T_wc, T_wc, tracked, need_kf)
@@ -231,13 +253,14 @@ def slam_scan(
     if imu_delta_w is not None:
         imu_delta_w = as_f32(imu_delta_w, dev)
     rows = []
+    graph = tracking_graph(state, cfg) if n else None
     for i in range(n):
         if not live[i]:
             rows.append(_skip(state))
             continue
         imu = (imu_delta_w[i] if imu_ok[i] else None, imu_ok[i])
         state, row = _step(state, grays[i], depths[i], imu, intrinsics, cfg,
-                           mesh)
+                           mesh, graph)
         rows.append(row)
     if n == 0:
         f32 = dict(dtype=torch.float32, device=dev)
@@ -308,8 +331,8 @@ class ChunkedSlam:
 
     def flush(self) -> Optional[ScanOutput]:
         """Run the buffered frames through the scan.  A ragged tail is simply
-        a shorter chunk: eager execution has no fixed-shape program to pad
-        for."""
+        a shorter chunk: the tracking graph holds one frame's step, so a
+        chunk's length is no shape of it."""
         if not self._pending_g:
             return None
         g, d = torch.stack(self._pending_g), torch.stack(self._pending_d)

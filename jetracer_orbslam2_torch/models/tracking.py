@@ -8,7 +8,8 @@ T_w_curr = T_w_prev @ T_prev_curr.
 
 RANSAC is not a loop: all `iters` minimal 3-point hypotheses are solved in
 one batched quaternion Kabsch, scored in one (iters, K) residual matrix, and
-the winner refit on its inliers with two exact SVD Kabsch solves.  Random
+the winner refit on its inliers with two exact Kabsch solves (`geo.kabsch`:
+the K5 kernel on the card, the SVD route on the CPU).  Random
 draws come from an explicit `torch.Generator` (the JAX package's
 `jax.random.categorical` stream cannot be reproduced); tests inject the
 sample indices instead.  Nothing here reads a value back to the host.
@@ -234,8 +235,8 @@ def icp(
     Returns (T, mean_err) with dst ~= T @ src.  A fixed number of
     iterations, each a masked (Ns, Nd) distance matrix, the first nearest
     neighbour (`first_argmin`, the JAX tie order) and a weighted `kabsch`
-    refit.  The loop reads nothing back to the host; on a CUDA device the
-    SVD inside `kabsch` waits for the card, as it does everywhere.
+    refit.  The loop reads nothing back to the host: on a CUDA device the
+    refit is the K5 kernel, which makes the host wait for nothing.
     """
     T = (torch.eye(4, dtype=src.dtype, device=src.device) if T_init is None
          else T_init)

@@ -41,6 +41,7 @@ import torch
 
 from jetracer_orbslam2_torch.models.backend import ba
 from jetracer_orbslam2_torch.utils import cuda_build
+from jetracer_orbslam2_torch.utils.step_graph import note_launch
 
 Tensor = torch.Tensor
 
@@ -202,7 +203,7 @@ def fused_normal_schur(poses_flat: Tensor, points: Tensor, obs: Tensor,
         torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"ba_assemble kernel launch failed: cudaError {err}")
-    fused_normal_schur.launches += 1
+    note_launch(fused_normal_schur)
     return Hpp, GhG, bp, rhs_gh, hll_inv, bl
 
 
@@ -228,7 +229,7 @@ def fused_backsub(poses_flat: Tensor, points: Tensor, obs: Tensor,
         torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"ba_backsub kernel launch failed: cudaError {err}")
-    fused_backsub.launches += 1
+    note_launch(fused_backsub)
     return dxl
 
 

@@ -30,6 +30,7 @@ import torch
 
 from jetracer_orbslam2_torch.ops import fast, nms
 from jetracer_orbslam2_torch.utils import cuda_build
+from jetracer_orbslam2_torch.utils.step_graph import note_launch
 
 Tensor = torch.Tensor
 
@@ -136,7 +137,7 @@ def fast_nms_pyramid(levels, thresholds, arc_length: int = 12,
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"fast_nms kernel launch failed: cudaError {err}")
-    fast_nms_pyramid.launches += 1
+    note_launch(fast_nms_pyramid)
     return outs
 
 

@@ -37,6 +37,7 @@ from jetracer_orbslam2_torch.ops import patches
 from jetracer_orbslam2_torch.ops.nms import Keypoints
 from jetracer_orbslam2_torch.utils import cuda_build
 from jetracer_orbslam2_torch.utils.consts import const_table
+from jetracer_orbslam2_torch.utils.step_graph import note_launch
 
 Tensor = torch.Tensor
 
@@ -117,7 +118,7 @@ def patch_gather(canvas: Tensor, ys: Tensor, xs: Tensor, patch_size: int) -> Ten
                  canvas.shape[0], canvas.shape[1], k, int(patch_size), stream)
     if err != 0:
         raise RuntimeError(f"patch_gather kernel launch failed: cudaError {err}")
-    patch_gather.launches += 1
+    note_launch(patch_gather)
     return out
 
 
@@ -209,7 +210,7 @@ def extract_patches_fused(levels: List[Tensor], kp: Keypoints,
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"patch_levels kernel launch failed: cudaError {err}")
-    extract_patches_fused.launches += 1
+    note_launch(extract_patches_fused)
     return out
 
 

@@ -339,7 +339,7 @@ def kabsch_quat(src: Tensor, dst: Tensor, weights: Tensor | None = None,
     sqrt(tr K^2)) and the eigenvector from the adjugate of K - lambda I:
     closed-form, branch-free, elementwise arithmetic over the batch.
     Returns a PROPER rotation by construction.  Used for RANSAC hypothesis
-    batches; winners are refit with the exact SVD `kabsch`.
+    batches; winners are refit with the exact `kabsch`.
     """
     mu_s, mu_d, H = _centered_correlation(src, dst, weights)
 
@@ -406,16 +406,12 @@ def kabsch(src: Tensor, dst: Tensor, weights: Tensor | None = None) -> Tensor:
     """Weighted rigid transform T (4,4) minimizing ||T@src - dst||^2.
 
     src, dst: (N, 3); weights: (N,) nonnegative (mask doubles as weight).
-    Batched over leading dims if present.  SVD factors differ in sign between
-    libraries and devices; only the resulting transform is defined.
+    Batched over leading dims if present.  CUDA tensors go through the K5
+    kernel (`ops/fused_rigid.rigid_fit`: no host wait, so a frame step that
+    refits can be captured into a CUDA graph); CPU tensors through its plain
+    version, the SVD route.  SVD factors differ in sign between libraries and
+    devices; only the resulting transform is defined.
     """
-    mu_s, mu_d, H = _centered_correlation(src, dst, weights)
-    U, _, Vt = torch.linalg.svd(H)
-    V = Vt.transpose(-1, -2)
-    Ut = U.transpose(-1, -2)
-    # det flip guard: R = V diag(1, 1, det) U^T
-    det = torch.sign(torch.linalg.det(V @ Ut))
-    V_fixed = torch.cat([V[..., :, :2], V[..., :, 2:] * det[..., None, None]], -1)
-    R = V_fixed @ Ut
-    t = mu_d[..., 0, :] - (R @ mu_s[..., 0, :, None])[..., 0]
-    return pose_from_rt(R, t)
+    from jetracer_orbslam2_torch.ops import fused_rigid
+
+    return fused_rigid.rigid_fit(src, dst, weights)

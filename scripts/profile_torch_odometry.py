@@ -8,16 +8,19 @@ adjustment, or its SLAM loop, on the GPU.
     python3 scripts/profile_torch_odometry.py --stereo
 
 Renders a 640x480 synthetic sequence on the card, warms the loop up, then
-runs `odometry_scan` over `--frames` frames under `torch.profiler` with the
-device's activities only and prints the device-busy and idle share of that
-pass: device time and wall time come from the same pass, and the untraced
-wall time of the same frames stands beside them.  A second pass over
+runs `odometry_scan` (one replay of its captured step a frame) over
+`--frames` frames under `torch.profiler` with the device's activities only
+and prints the device-busy and idle share of that pass: device time and wall
+time come from the same pass, and the untraced wall time of the same frames
+stands beside them; then the same for the eager step loop (`odometry_step`
+a frame), and the graph's captures and replays.  A second pass over
 `--table-frames` frames traces host and device and prints the top operators
 by host time and by device time.  With `--sync-debug` it first prints the
 host's cost of one eager call of the FAST+NMS wrapper (a frame's one call,
-and the one-level call per level shape), the lines of the port that make
-the host wait for the device, and the number of ATen ops each function
-issues in one frame.
+and the one-level call per level shape), then, for one frame of the eager
+step and one of the graphed scan, the lines of the port that make the host
+wait for the device and the number of ATen ops each function issues (the
+eager step's count is comparable with a frame's ops before the graph).
 
 With `--ba` it profiles `bundle_adjust` instead, on the synthetic problem of 8
 poses x `--landmarks` landmarks, 10 LM iterations, by the fused route (the
@@ -27,8 +30,10 @@ and idle share of a device-traced one.
 With `--slam` it profiles the SLAM loop (`slam_scan`) on the gated lap (126
 frames of 240x180, 3 levels, 512 keypoints, depth noise 2 % z^2): the host
 waits and the ATen ops of one plain frame and of one keyframe frame, their
-wall time, then the wall time of an untraced pass over the lap and the
-device-busy and idle share of a device-traced one.
+wall time, each with the tracking step replayed from its graph and run
+eagerly, then the wall time of an untraced pass over the lap and the
+device-busy and idle share of a device-traced one, graphed and eager, and
+the graph's captures and replays.
 With `--stereo` it does the same for the stereo SLAM loop on the arc of
 `chip_smoke.py` phase 18 (120 stereo pairs of 640x480, 4 levels, 1,024
 keypoints, two FAST thresholds), after the host waits and ATen ops of one
@@ -39,6 +44,7 @@ Needs a CUDA device; imports torch and the port only.
 from __future__ import annotations
 
 import argparse
+import functools
 import os
 import subprocess
 import sys
@@ -237,6 +243,7 @@ def profile_slam(rows: int, stereo: bool = False) -> None:
             *seq.depth.shape).astype(np.float32)).to(seq.gray.device)
         firsts, depth = seq.gray, seq.depth * (1.0 + 0.02 * seq.depth * rnd)
     intr = seq.intrinsics
+    dev = intr.device
     no_imu = (None, False)
     loop_name = "stereo SLAM loop" if stereo else "SLAM loop"
 
@@ -260,6 +267,21 @@ def profile_slam(rows: int, stereo: bool = False) -> None:
         final, out = ss.slam_scan(state, firsts[1:], depth[1:], intr, cfg)
         torch.cuda.synchronize()
         return final, out, time.perf_counter() - t0
+
+    def eager_step(state):
+        return functools.partial(slam_mod.tracking_step, state.generator,
+                                 cfg=cfg, extract=ss.frame_extract(cfg, dev))
+
+    def eager_pass():
+        """The lap through `_step` with the eager tracking step."""
+        state = ss.init_scan_state(firsts[0], depth[0], intr, cfg)
+        step = eager_step(state)
+        t0 = time.perf_counter()
+        for i in range(1, n):
+            state, _ = ss._step(state, firsts[i], depth[i], no_imu, intr, cfg,
+                                None, step)
+        torch.cuda.synchronize()
+        return state, time.perf_counter() - t0
 
     lap_pass()                                           # build + warm
     # walk the lap once, keeping the state before one plain frame and before
@@ -293,39 +315,55 @@ def profile_slam(rows: int, stereo: bool = False) -> None:
           flush=True)
 
     for kind, (st, i, gen) in examples.items():
-        def one():
-            st.generator.set_state(gen)
-            out = ss._step(st, firsts[i], depth[i], no_imu, intr, cfg)
-            torch.cuda.synchronize()
-            return out
+        for route in ("graphed", "eager"):
+            graph = st.graph if route == "graphed" else eager_step(st)
 
-        def timed():
-            t0 = time.perf_counter()
-            one()
-            return time.perf_counter() - t0
+            def one():
+                st.generator.set_state(gen)
+                out = ss._step(st, firsts[i], depth[i], no_imu, intr, cfg,
+                               None, graph)
+                torch.cuda.synchronize()
+                return out
 
-        what = f"one {kind} of the {loop_name} (frame {i})"
-        report_syncs(one, what)
-        report_op_counts(one, rows, what)
-        print(f"{what}: {min(timed() for _ in range(5)) * 1e3:.2f} ms wall "
-              f"(host clock + sync, best of 5)", flush=True)
+            def timed():
+                t0 = time.perf_counter()
+                one()
+                return time.perf_counter() - t0
 
-    _, out, plain_wall = lap_pass()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        final, out, wall = lap_pass()
-    on_device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    dev_s = sum(e.self_device_time_total for e in on_device) / 1e6
-    launches = sum(e.count for e in on_device)
+            what = f"one {kind} of the {loop_name} (frame {i}, {route} step)"
+            report_syncs(one, what)
+            report_op_counts(one, rows, what)
+            print(f"{what}: {min(timed() for _ in range(5)) * 1e3:.2f} ms wall "
+                  f"(host clock + sync, best of 5)", flush=True)
+
     frames = n - 1
-    print(f"{loop_name}, {frames} frames of {w}x{h} ({int(out.is_kf.sum())} "
-          f"keyframes, {int(final.num_loops)} loops): device-traced pass wall "
-          f"{wall / frames * 1e3:.3f} ms/frame, device busy "
-          f"{dev_s / frames * 1e3:.3f} ms/frame = {dev_s / wall:.1%} of that pass "
-          f"(idle {1 - dev_s / wall:.1%}); {launches / frames:.0f} device "
-          f"kernels+copies per frame; the untraced pass before it: "
-          f"{plain_wall / frames * 1e3:.3f} ms/frame = "
-          f"{frames / plain_wall:.1f} frames/s (idle "
-          f"{1 - dev_s / plain_wall:.1%})", flush=True)
+    for route in ("graphed", "eager"):
+        if route == "graphed":
+            _, out, plain_wall = lap_pass()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                final, out, wall = lap_pass()
+            keyframes = int(out.is_kf.sum())
+            graph = (f"; its graph: {final.graph.captures} capture, "
+                     f"{final.graph.replays} replays, "
+                     f"{final.graph.eager_calls} eager call")
+        else:
+            _, plain_wall = eager_pass()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                final, wall = eager_pass()
+            keyframes, graph = int(final.m.num_kf) - 1, ""
+        on_device = [e for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA]
+        dev_s = sum(e.self_device_time_total for e in on_device) / 1e6
+        launches = sum(e.count for e in on_device)
+        print(f"{loop_name}, {route} tracking step, {frames} frames of {w}x{h} "
+              f"({keyframes} keyframes inserted, {int(final.num_loops)} loops): "
+              f"device-traced pass wall {wall / frames * 1e3:.3f} ms/frame, "
+              f"device busy {dev_s / frames * 1e3:.3f} ms/frame = "
+              f"{dev_s / wall:.1%} of that pass (idle {1 - dev_s / wall:.1%}); "
+              f"{launches / frames:.0f} device kernels+copies per frame; the "
+              f"untraced pass before it: {plain_wall / frames * 1e3:.3f} "
+              f"ms/frame = {frames / plain_wall:.1f} frames/s (idle "
+              f"{1 - dev_s / plain_wall:.1%}){graph}", flush=True)
 
 
 def main(argv=None) -> int:
@@ -359,7 +397,8 @@ def main(argv=None) -> int:
 
     from jetracer_orbslam2_torch.config import FrontendConfig, TrackingConfig
     from jetracer_orbslam2_torch.io.synthetic import generate_sequence
-    from jetracer_orbslam2_torch.models.odometry import init_state, odometry_scan
+    from jetracer_orbslam2_torch.models.odometry import (
+        init_state, odometry_scan, odometry_step)
     from jetracer_orbslam2_torch.utils.device import resolve_device
 
     dev = resolve_device(None)
@@ -383,24 +422,44 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     one = slice(warm + 1, warm + 2)
 
-    if args.sync_debug:
-        report_wrapper_host_cost(seq.gray[0], fcfg)
-        report_syncs(lambda: odometry_scan(
-            state, seq.gray[one], seq.depth[one], seq.intrinsics, fcfg, tcfg))
-        report_op_counts(lambda: odometry_scan(
-            state, seq.gray[one], seq.depth[one], seq.intrinsics, fcfg, tcfg),
-            args.rows)
-
     gen_state = state.generator.get_state()
 
-    def window(frames: int):
-        """The same `frames` frames from the same state, timed on the host's
+    def eager_frame():
+        state.generator.set_state(gen_state)
+        odometry_step(state, seq.gray[warm + 1], seq.depth[warm + 1],
+                      seq.intrinsics, fcfg, tcfg)
+
+    def graphed_frame():
+        state.generator.set_state(gen_state)
+        odometry_scan(state, seq.gray[one], seq.depth[one], seq.intrinsics,
+                      fcfg, tcfg)
+
+    if args.sync_debug:
+        report_wrapper_host_cost(seq.gray[0], fcfg)
+        for what, fn in (("one frame of the eager step (odometry_step)",
+                          eager_frame),
+                         ("one frame of odometry_scan (a graph replay)",
+                          graphed_frame)):
+            report_syncs(fn, what)
+            report_op_counts(fn, args.rows, what)
+
+    def window(frames: int, eager: bool = False):
+        """The same `frames` frames from the same state (the scan replays
+        the state's graph, or the eager step loop), timed on the host's
         clock up to the final synchronisation."""
         state.generator.set_state(gen_state)
         t0 = time.perf_counter()
-        out = odometry_scan(state, seq.gray[warm + 1:warm + 1 + frames],
-                            seq.depth[warm + 1:warm + 1 + frames],
-                            seq.intrinsics, fcfg, tcfg)
+        if eager:
+            st, oks = state, []
+            for i in range(warm + 1, warm + 1 + frames):
+                st, res = odometry_step(st, seq.gray[i], seq.depth[i],
+                                        seq.intrinsics, fcfg, tcfg)
+                oks.append(res.tracked_ok)
+            out = (st, None, torch.stack(oks))
+        else:
+            out = odometry_scan(state, seq.gray[warm + 1:warm + 1 + frames],
+                                seq.depth[warm + 1:warm + 1 + frames],
+                                seq.intrinsics, fcfg, tcfg)
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
@@ -409,21 +468,29 @@ def main(argv=None) -> int:
 
     # the idle share: device time and wall time of ONE pass, traced on the
     # device side only (tracing the host's ops as well would stretch the wall)
-    _, plain_wall = window(n)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        (_, _, ok), wall = window(n)
-    on_device = device_events(prof)
-    dev_s = sum(e.self_device_time_total for e in on_device) / 1e6
-    launches = sum(e.count for e in on_device)
-    print(f"{n} frames, device-traced pass: wall {wall / n * 1e3:.3f} ms/frame, "
-          f"device busy {dev_s / n * 1e3:.3f} ms/frame = {dev_s / wall:.1%} of "
-          f"that pass (idle {1 - dev_s / wall:.1%}); "
-          f"{launches / n:.0f} device kernels+copies per frame; "
-          f"tracked {int(ok.sum())}/{n}; the untraced pass before it: "
-          f"{plain_wall / n * 1e3:.3f} ms/frame, of which the same device time "
-          f"is {dev_s / plain_wall:.1%} (idle {1 - dev_s / plain_wall:.1%}) - "
-          f"tracing stretches the wall, so the two idle shares bracket the "
-          f"loop's own", flush=True)
+    for route in ("graphed", "eager"):
+        eager = route == "eager"
+        _, plain_wall = window(n, eager)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            (final, _, ok), wall = window(n, eager)
+        on_device = device_events(prof)
+        dev_s = sum(e.self_device_time_total for e in on_device) / 1e6
+        launches = sum(e.count for e in on_device)
+        graph = "" if eager else (
+            f"; the scan's graph: {final.graph.captures} capture, "
+            f"{final.graph.replays} replays, {final.graph.eager_calls} eager "
+            "call over the warm-up and every pass so far")
+        print(f"{n} frames, {route} step, device-traced pass: wall "
+              f"{wall / n * 1e3:.3f} ms/frame, device busy "
+              f"{dev_s / n * 1e3:.3f} ms/frame = {dev_s / wall:.1%} of "
+              f"that pass (idle {1 - dev_s / wall:.1%}); "
+              f"{launches / n:.0f} device kernels+copies per frame; "
+              f"tracked {int(ok.sum())}/{n}; the untraced pass before it: "
+              f"{plain_wall / n * 1e3:.3f} ms/frame, of which the same device "
+              f"time is {dev_s / plain_wall:.1%} (idle "
+              f"{1 - dev_s / plain_wall:.1%}) - tracing stretches the wall, "
+              f"so the two idle shares bracket the loop's own{graph}",
+              flush=True)
 
     # the operator tables: host and device activities over a few frames
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:

@@ -42,7 +42,8 @@ def test_port_sources_name_no_jax_import():
                 "runtime/pipeline.py", "runtime/liveness.py", "runtime/bson.py",
                 "runtime/telemetry.py", "runtime/checkpoint.py",
                 "ops/overlay.py", "utils/timing.py", "parallel/mesh.py",
-                "parallel/ba_sharded.py", "parallel/distributed_worker.py"):
+                "parallel/ba_sharded.py", "parallel/distributed_worker.py",
+                "ops/fused_rigid.py", "utils/step_graph.py"):
         assert f"jetracer_orbslam2_torch/{new}" in names
     for path in files:
         assert not _FORBIDDEN.search(path.read_text()), path
@@ -72,7 +73,8 @@ for name in ("models.stereo", "io.datasets", "io.native_loader",
              "runtime.pipeline", "runtime.liveness", "runtime.bson",
              "runtime.telemetry", "runtime.checkpoint", "ops.overlay",
              "utils.timing", "parallel.mesh", "parallel.ba_sharded",
-             "parallel.distributed_worker"):
+             "parallel.distributed_worker", "ops.fused_rigid",
+             "utils.step_graph"):
     assert "jetracer_orbslam2_torch." + name in sys.modules, name
 import chip_smoke
 leaked = [m for m in sys.modules
@@ -211,7 +213,10 @@ def test_ba_kernel_source_and_wrapper_contract():
         assert banned not in src, banned
     wrapper = (PORT / "ops" / "fused_ba.py").read_text()
     assert "torch.compile" not in wrapper and "import triton" not in wrapper
-    assert wrapper.count(".launches += 1") == 2
+    # each wrapper counts its launch once, through step_graph.note_launch
+    # (eager, or as a node of a captured step graph)
+    assert wrapper.count("note_launch(fused_normal_schur)") == 1
+    assert wrapper.count("note_launch(fused_backsub)") == 1
 
 
 def test_set_exact_f32():
@@ -420,7 +425,9 @@ def test_patch_kernel_source_and_wrapper_contract():
         assert banned not in src, banned
     wrapper = (PORT / "ops" / "fused_patches.py").read_text()
     assert "torch.compile" not in wrapper and "import triton" not in wrapper
-    assert wrapper.count(".launches += 1") == 2         # one per entry
+    # one count per entry, through step_graph.note_launch
+    assert wrapper.count("note_launch(patch_gather)") == 1
+    assert wrapper.count("note_launch(extract_patches_fused)") == 1
     assert "except" not in wrapper
     frontend = (PORT / "models" / "frontend.py").read_text()
     assert "fused_patches.extract_patches_fused(" in frontend
@@ -443,6 +450,32 @@ def test_patch_kernel_source_and_wrapper_contract():
             frontend_gray_depth(g, g, np.float32([50, 50, 32, 24]),
                                 FrontendConfig(height=48, width=64, num_levels=1),
                                 device="cuda")
+
+
+def test_rigid_fit_source_and_wrapper_contract():
+    """K5 is CUDA C++ with a plain C interface, built at first use; its sums
+    take no float atomics (a replay repeats bit for bit) and no library call;
+    the wrapper counts its launch once, leaves the CPU to the SVD route and
+    falls back to nothing; `geometry.kabsch` goes through it."""
+    from jetracer_orbslam2_torch.ops import fused_rigid
+
+    path = cuda_build.library_path("rigid_fit")
+    assert re.fullmatch(r"rigid_fit-[0-9a-f]{16}\.so", path.name)
+    src = (PORT / "csrc" / "rigid_fit.cu").read_text()
+    assert 'extern "C" int rigid_fit_launch(' in src
+    for banned in ("torch/extension.h", "#include <ATen", "atomicAdd",
+                   "cublas", "cusolver"):
+        assert banned not in src, banned
+    wrapper = (PORT / "ops" / "fused_rigid.py").read_text()
+    assert "torch.compile" not in wrapper and "import triton" not in wrapper
+    assert wrapper.count("note_launch(rigid_fit)") == 1
+    assert "except" not in wrapper
+    geometry = (PORT / "ops" / "geometry.py").read_text()
+    assert "fused_rigid.rigid_fit(" in geometry
+    assert "linalg.svd" not in geometry
+    meta = torch.zeros((4, 3), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_rigid.rigid_fit(meta, meta)
 
 
 def test_kernel_library_is_keyed_by_source_hash():
