@@ -43,8 +43,8 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
                   window origins; two launches bit-identical
    4 semantics    tie orders and CPU/GPU agreement of the front-end
    5 main path    whole-sequence odometry: ATE, tracked fraction, kernel
-                  launches (K1 and K4 once a frame, K5 twice a tracked
-                  frame, no canvas packed);
+                  launches (K1 and K4 once a frame, K5 once a tracked
+                  frame: the refit pair in one launch, no canvas packed);
                   --chunked 32 on the same frames gives the same poses; a
                   second, warm run is timed
    6 K1 time      the empty-kernel launch floor; device time of the one
@@ -103,8 +103,9 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
                   --telemetry with a client + --checkpoint, D --resume from
                   C's map (30 frames), then B and A again; A, B, C agree to
                   the pose (torch.equal), ATE < 10 cm, K1/K4 once a frame,
-                  K2 = K3 = 10 x keyframe updates, no watchdog stall, every
-                  frame pinned, host waits a frame equal in A and B and at
+                  K2 = K3 = 10 x keyframe updates, K5 >= 2 a tracked frame,
+                  no watchdog stall, every frame pinned, host waits a frame
+                  equal in A and B and at
                   most one more a frame in C's publish, every telemetry
                   document the viewer's fields at 640x480, the checkpoint's
                   keyframes; overlay_keypoints card vs CPU; ms a frame,
@@ -119,23 +120,30 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
                   --mesh 1, whole and --chunked 8, against the meshless runs:
                   exit 0 on cuda:0, keyframes, loops, relocs, poses and
                   tracked flags equal, ATE < 10 cm, tracked >= 0.95, K1 = K4
-                  = frames, K2 = K3 = 10 x keyframe updates, mesh_devices 1,
-                  ba_edges_dropped 0; (d) the distributed worker twice on
+                  = frames, K2 = K3 = 10 x keyframe updates, K5 >= 2 a
+                  tracked frame, mesh_devices 1, ba_edges_dropped 0; (d)
+                  the distributed worker twice on
                   this card over gloo (2,048 landmarks a rank): ranks
                   bit-identical, poses 5e-3 and points 2e-2 of (a), cost
                   below 0.2 x initial, K2 = K3 = 10 a rank; ms per iteration
-  22 graphs       (a) K5 (rigid_fit) vs its plain version, the SVD route:
-                  rotation entries and translations (of the points' scale)
-                  within 1e-5 at B 1 and 8, N 1,024, 0/1 weights, no
-                  weights, all weights 0 (exactly the identity), coplanar
-                  points; a proper rotation on collinear points; relaunch
-                  and two graph replays torch.equal; its time, the plain
-                  route's and the bound; (b) the eager odometry_step over
+  22 graphs       (a) K5's two entries vs their plain versions, the SVD
+                  route: rigid_fit's rotation entries and translations (of
+                  the points' scale) within 1e-5 at B 1 and 8, N 1,024, 0/1
+                  weights, no weights, all weights 0 (exactly the
+                  identity), coplanar points; a proper rotation on
+                  collinear points; rigid_refit's T within 1e-5 and its
+                  weights and count equal (but for points within 1e-6 of
+                  the gate, counted) at B 1 and 8, a gate a point and one
+                  for all; relaunch and two graph replays torch.equal; the
+                  times of both entries, of the two-call route (one
+                  graph), of the plain routes, and the bounds; the split:
+                  the reduction alone, the factorisation alone, both; (b)
+                  the eager odometry_step over
                   the 120 frames under set_sync_debug_mode("error"); (c)
                   odometry_scan's graph against the eager step loop: poses
                   and flags torch.equal, ATE < 10 cm, tracked >= 0.95, one
                   capture, frames - 2 replays after one eager warm-up frame,
-                  K1 = K4 = frames and K5 = 2 x tracked frames by nodes x
+                  K1 = K4 = frames and K5 = tracked frames by nodes x
                   replays; (d) slam_scan and Slam (the tracking graph)
                   against their eager tracking steps: poses, flags,
                   keyframes, loops equal, one host wait a plain frame, the
@@ -176,8 +184,9 @@ SLAM_FAST_MIN_THRESHOLD = 7.0   # the SLAM path's second FAST threshold
 N_FRAMES = 120
 N_PHASES = 22
 GRAPHS_TITLE = (
-    "graphs: (a) K5 (rigid_fit) vs the SVD route, (b) the eager odometry_step "
-    "with no host wait, (c) odometry_scan's CUDA graph vs the eager step "
+    "graphs: (a) K5 (rigid_fit, rigid_refit) vs the SVD route, (b) the eager "
+    "odometry_step with no host wait, (c) odometry_scan's CUDA graph vs the "
+    "eager step "
     "loop, (d) slam_scan's and Slam's tracking graph vs their eager steps, "
     "also through a forced tracking loss, "
     f"(e) ms a frame and device-busy share in turns; {N_FRAMES} frames of "
@@ -494,9 +503,9 @@ def phase_main_path(argv, args, source, dev):
     with counting_calls() as calls:
         report, poses = run._run_odometry(args, source, dev)
     launches = fused_fast.fast_nms_pyramid.launches
-    if fused_rigid.rigid_fit.launches != 2 * (n - 1):
+    if fused_rigid.rigid_fit.launches != n - 1:
         raise SystemExit(f"FAIL: rigid_fit launches {fused_rigid.rigid_fit.launches}"
-                         f" != {2 * (n - 1)} (two RANSAC refits a tracked frame)")
+                         f" != {n - 1} (one RANSAC refit pair a tracked frame)")
     if fused_patches.extract_patches_fused.launches != n:
         raise SystemExit(f"FAIL: extract_patches_fused launches "
                          f"{fused_patches.extract_patches_fused.launches} != {n}")
@@ -1489,15 +1498,25 @@ def _kernel_counters() -> dict:
             "rigid_fit": fused_rigid.rigid_fit}
 
 
+def _k5_short(launches: dict, tracked_frames: int) -> str | None:
+    """Why K5's launches fall short on a SLAM run, or None: at least 2 a
+    tracked frame (the RANSAC refit pair and the map refit pair, one launch
+    each; relocalization and loop verification add more, as the data
+    decides)."""
+    k5 = launches["rigid_fit"]
+    if k5 < 2 * tracked_frames:
+        return f"rigid_fit launched {k5} times, at least {2 * tracked_frames} expected"
+    return None
+
+
 def _without_k5(launches: dict, tracked_frames: int, what: str) -> dict:
-    """K1-K4's launches; fails unless K5 ran at least 4 times a tracked SLAM
-    frame (two RANSAC refits, two map refits; relocalization and loop
-    verification add more, as the data decides)."""
+    """K1-K4's launches; fails unless K5 ran at least 2 times a tracked SLAM
+    frame (`_k5_short`)."""
+    short = _k5_short(launches, tracked_frames)
+    if short:
+        raise SystemExit(f"FAIL: {what}: {short}")
     rest = dict(launches)
-    k5 = rest.pop("rigid_fit")
-    if k5 < 4 * tracked_frames:
-        raise SystemExit(f"FAIL: {what}: rigid_fit launched {k5} times, at "
-                         f"least {4 * tracked_frames} expected")
+    rest.pop("rigid_fit")
     return rest
 
 
@@ -2633,6 +2652,8 @@ def phase_runtime(dev) -> dict:
             if not (r["launches"]["fused_normal_schur"] == r["launches"]["fused_backsub"]
                     == want_ba):
                 bad.append(f"{name}: K2/K3 launches {r['launches']} != {want_ba}")
+            if short := _k5_short(r["launches"], r["frames"] - 1):
+                bad.append(f"{name}: {short}")
             if r["frames_pinned"] != r["frames_copied"] or r["frames_copied"] != r["frames"]:
                 bad.append(f"{name}: {r['frames_pinned']} of {r['frames_copied']} "
                            "frames came pinned")
@@ -2910,6 +2931,8 @@ def _mesh_cli(dev) -> tuple[dict, dict]:
             want = 10 * r["keyframes_inserted"]
             if not (k["fused_normal_schur"] == k["fused_backsub"] == want > 0):
                 bad.append(f"{name} {what}: K2/K3 launches {k}, {want} expected")
+            if short := _k5_short(k, N_FRAMES - 1):
+                bad.append(f"{name} {what}: {short}")
         if rm.get("mesh_devices") != 1 or rm.get("ba_edges_dropped") != 0:
             bad.append(f"{name}: mesh_devices {rm.get('mesh_devices')}, "
                        f"ba_edges_dropped {rm.get('ba_edges_dropped')}")
@@ -3058,8 +3081,12 @@ def _rigid_problems(b: int, n: int, seed: int, dev, kinds=None):
 
 def _replayed(fn):
     """Two replays of `fn` captured into a CUDA graph (after a warm-up on
-    the capture stream); returns both outputs."""
+    the capture stream); returns both outputs (a tensor, or a tuple of
+    them)."""
     import torch
+
+    def copy(out):
+        return tuple(x.clone() for x in out) if isinstance(out, tuple) else out.clone()
 
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -3070,15 +3097,165 @@ def _replayed(fn):
     with torch.cuda.graph(graph):
         out = fn()
     graph.replay()
-    first = out.clone()
+    first = copy(out)
     graph.replay()
     torch.cuda.synchronize()
-    return first, out.clone()
+    return first, copy(out)
 
 
-def _phase_k5(dev, floor_ms: float) -> dict:
-    """(a) K5 against the SVD route on the card, relaunch and graph replay
-    bit for bit, its time beside the plain route's and the bound."""
+def _same(a, b) -> bool:
+    """torch.equal over a tensor or a tuple of tensors."""
+    import torch
+
+    if isinstance(a, tuple):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+    return torch.equal(a, b)
+
+
+def _pose_errors(got, plain, src, dst) -> tuple[float, float, float]:
+    """(worst rotation entry, worst translation relative to the points'
+    scale, that scale) of `got` against `plain`, (B, 4, 4) each."""
+    scale = max(1.0, float(src.abs().max()), float(dst.abs().max()))
+    err_r = float((got[:, :3, :3] - plain[:, :3, :3]).abs().max())
+    err_t = float((got[:, :3, 3] - plain[:, :3, 3]).abs().max()) / scale
+    return err_r, err_t, scale
+
+
+def _refit_problems(b: int, n: int, seed: int, dev, kinds=None,
+                    per_point_gate: bool = True):
+    """`_rigid_problems` with a fifth of each dst moved by up to 0.5 m (the
+    outliers the gate drops) and a gate: a point's own, 5 cm + 0.2 % z^2
+    (ransac_kabsch's quadratic gate), or 5 cm for all (the map refit's)."""
+    import numpy as np
+    import torch
+
+    src, dst, w = _rigid_problems(b, n, seed, dev, kinds)
+    rng = np.random.default_rng(seed + 100)
+    moved = (rng.random((b, n)) < 0.2)[..., None]
+    shift = rng.uniform(-0.5, 0.5, (b, n, 3)) * moved
+    dst = dst + torch.from_numpy(shift.astype(np.float32)).to(dev)
+    gate = 0.05 + 0.002 * dst[..., 2] ** 2 if per_point_gate else 0.05
+    return src, dst, w, gate
+
+
+# the split of a K5 launch: csrc/rigid_fit.cu's own functions in two more
+# kernels, built for phase 22 (a) only: the load and the reduction alone
+# (writing the 16 moments), and the factorisation alone (one thread, the
+# moments read from device memory, the pose written)
+K5_SPLIT_SOURCE = r"""
+#include "rigid_fit.cu"
+
+namespace {
+
+__global__ void __launch_bounds__(THREADS)
+k5_reduce_only(const float* __restrict__ src, const float* __restrict__ dst,
+               const float* __restrict__ weights, double* __restrict__ out, int n) {
+    extern __shared__ __align__(16) float sm[];
+    __shared__ double part[WARPS * NMOM];
+    const long long b = blockIdx.x;
+    const int n3 = 3 * n, off_d = round4(n3);
+    float* ss = sm;
+    float* sd = sm + off_d;
+    float* sw = sm + 2 * off_d;
+    stage(ss, src + b * n3, n3);
+    stage(sd, dst + b * n3, n3);
+    stage(sw, weights + b * n, n);
+    commit_stage();
+    wait_stage<0>();
+    double v[NMOM];
+    for (int k = 0; k < NMOM; ++k) v[k] = 0.0;
+    for (int i = threadIdx.x; i < n; i += THREADS)
+        accumulate(v, sw[i], ss + 3 * i, sd + 3 * i);
+    reduce_moments(v, part);
+    if (threadIdx.x != 0) return;
+    double m[NMOM];
+    totals(part, m);
+    for (int k = 0; k < NMOM; ++k) out[b * NMOM + k] = m[k];
+}
+
+__global__ void __launch_bounds__(THREADS)
+k5_factor_only(const double* __restrict__ moments, float* __restrict__ out) {
+    if (threadIdx.x != 0) return;
+    const long long b = blockIdx.x;
+    double m[NMOM], R[3][3], t[3];
+    for (int k = 0; k < NMOM; ++k) m[k] = moments[b * NMOM + k];
+    solve(m, R, t);
+    write_pose(out + b * 16, R, t);
+}
+
+}  // namespace
+
+extern "C" int k5_reduce_launch(const float* src, const float* dst,
+                                const float* w, double* out, int batch, int n,
+                                void* stream) {
+    k5_reduce_only<<<batch, THREADS, smem_bytes(n, 1),
+                     static_cast<cudaStream_t>(stream)>>>(src, dst, w, out, n);
+    return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int k5_factor_launch(const double* moments, float* out, int batch,
+                                void* stream) {
+    k5_factor_only<<<batch, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+        moments, out);
+    return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def _k5_split(src, dst, w) -> dict:
+    """Device us a launch of K5's reduction alone, factorisation alone and
+    both (rigid_fit itself), in turns, on these problems."""
+    import ctypes
+    import torch
+    from jetracer_orbslam2_torch.ops import fused_rigid
+    from jetracer_orbslam2_torch.utils import cuda_build
+
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    source = cuda_build.BUILD_DIR / "k5_split.cu"
+    source.write_text(K5_SPLIT_SOURCE)
+    lib_path = cuda_build.BUILD_DIR / "k5_split.so"
+    subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-I",
+                    str(cuda_build.CSRC_DIR), "-o", str(lib_path), str(source)],
+                   check=True, capture_output=True, text=True, timeout=300)
+    lib = ctypes.CDLL(str(lib_path))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    reduce_fn, factor_fn = lib.k5_reduce_launch, lib.k5_factor_launch
+    reduce_fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr]
+    factor_fn.argtypes = [ptr, ptr, i32, ptr]
+    reduce_fn.restype = factor_fn.restype = i32
+    b, n = src.shape[0], src.shape[1]
+    moments = torch.empty((b, 16), dtype=torch.float64, device=src.device)
+    pose = torch.empty((b, 4, 4), dtype=torch.float32, device=src.device)
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def reduce_only():
+        if reduce_fn(src.data_ptr(), dst.data_ptr(), w.data_ptr(),
+                     moments.data_ptr(), b, n, stream()) != 0:
+            raise SystemExit("FAIL: K5's split reduction did not launch")
+
+    def factor_only():
+        if factor_fn(moments.data_ptr(), pose.data_ptr(), b, stream()) != 0:
+            raise SystemExit("FAIL: K5's split factorisation did not launch")
+
+    reduce_only()
+    factor_only()
+    full = fused_rigid.rigid_fit(src, dst, w)
+    torch.cuda.synchronize()
+    if not torch.equal(pose, full):
+        raise SystemExit("FAIL: K5's split kernels disagree with rigid_fit")
+    both = lambda: fused_rigid.rigid_fit(src, dst, w)  # noqa: E731
+    times = {"reduction_us": [], "factorisation_us": [], "both_us": []}
+    for _ in range(2):
+        for key, fn in (("both_us", both), ("reduction_us", reduce_only),
+                        ("factorisation_us", factor_only)):
+            times[key].append(time_launches(fn, reps=20, batch=20) * 1e3)
+    return times
+
+
+def _k5_fit_cases(dev) -> tuple[list, float]:
+    """rigid_fit against the SVD route: rows and the worst error."""
     import torch
     from jetracer_orbslam2_torch.ops import fused_rigid
 
@@ -3100,15 +3277,13 @@ def _phase_k5(dev, floor_ms: float) -> dict:
         plain = fused_rigid.rigid_fit_reference(src, dst, w)
         replays = _replayed(fit)
         torch.cuda.synchronize()
-        scale = max(1.0, float(src.abs().max()), float(dst.abs().max()))
-        err_r = float((got[:, :3, :3] - plain[:, :3, :3]).abs().max())
-        err_t = float((got[:, :3, 3] - plain[:, :3, 3]).abs().max()) / scale
+        err_r, err_t, scale = _pose_errors(got, plain, src, dst)
         bits = (torch.equal(got, again) and torch.equal(got, replays[0])
                 and torch.equal(got, replays[1]))
         rows.append({"case": label, "rotation_err": err_r,
                      "translation_err_rel": err_t, "bit_identical": bits})
-        say(f"  K5 {label}: rotation {err_r:.2e}, translation {err_t:.2e} of "
-            f"scale {scale:.1f} (tol {K5_TOL:g}); relaunch and two graph "
+        say(f"  K5 fit {label}: rotation {err_r:.2e}, translation {err_t:.2e} "
+            f"of scale {scale:.1f} (tol {K5_TOL:g}); relaunch and two graph "
             f"replays torch.equal: {bits}")
         worst = max(worst, err_r, err_t)
         if not (err_r <= K5_TOL and err_t <= K5_TOL and bits):
@@ -3126,36 +3301,195 @@ def _phase_k5(dev, floor_ms: float) -> dict:
     det = float(torch.linalg.det(R))
     fit_err = float(((src[0].double() @ R.T + T[:3, 3]) - dst[0].double())
                     .norm(dim=-1)[w[0] > 0].max())
-    say(f"  K5 collinear points: |R R^T - I| {ortho:.2e}, det R {det:.9f}, "
+    say(f"  K5 fit collinear points: |R R^T - I| {ortho:.2e}, det R {det:.9f}, "
         f"worst fit residual {fit_err * 100:.2f} cm (noise 1 cm)")
     if not (ortho <= K5_TOL and abs(det - 1.0) <= K5_TOL and fit_err < 0.06):
         raise SystemExit("FAIL: K5 on collinear points gave no proper fit")
+    return rows, worst
 
-    # time at the refits' shape: B 1, N 1,024, 0/1 weights
-    src, dst, w = _rigid_problems(1, K5_POINTS, 0, dev)
-    ms = time_launches(lambda: fused_rigid.rigid_fit(src, dst, w), reps=20,
-                       batch=20)
-    # the plain route waits on the host inside torch.linalg.svd, so it cannot
-    # be captured: CUDA events around 10 eager calls, median of 10
-    plain_ms = _median_event_ms(
-        lambda: [fused_rigid.rigid_fit_reference(src, dst, w)
-                 for _ in range(10)], reps=10, per_run=10)
-    n_bytes = K5_POINTS * 7 * 4 + 16 * 4
-    # per point: 7 sums, then 6 differences, 3 products, 9 multiply-adds;
-    # the 3 x 3 factorisation about 1,000 more
-    n_ops = K5_POINTS * (7 + 6 + 3 + 18) + 1000
+
+def _k5_refit_cases(dev) -> tuple[list, float]:
+    """rigid_refit against its plain version (two SVD fits and the ops
+    between them): T2 within K5_TOL, w2 and n equal but for points whose
+    residual at the plain T1 lies within 1e-6 of the gate (relative),
+    counted; relaunch and two graph replays torch.equal."""
+    import numpy as np
+    import torch
+    from jetracer_orbslam2_torch.ops import fused_rigid
+    from jetracer_orbslam2_torch.ops.geometry import transform_points
+
+    cases = [
+        ("B 1, a gate a point, keep 0/1", 1, None, True, False),
+        ("B 1, one gate, keep = w x (0.5, 1]", 1, None, False, True),
+        ("B 8: 6 random, all weights 0, coplanar; a gate a point", 8,
+         ["random"] * 6 + ["zero", "coplanar"], True, False),
+    ]
+    worst = 0.0
+    rows = []
+    for seed, (label, b, kinds, per_point, scaled) in enumerate(cases, 20):
+        src, dst, w1, gate = _refit_problems(b, K5_POINTS, seed, dev, kinds,
+                                             per_point)
+        keep = (w1 > 0).float()
+        if scaled:
+            rng = np.random.default_rng(seed)
+            keep = w1 * torch.from_numpy(
+                rng.uniform(0.5, 1.0, w1.shape).astype(np.float32)).to(dev)
+        refit = lambda: fused_rigid.rigid_refit(  # noqa: E731
+            src, dst, w1, keep, gate)
+        got, again = refit(), refit()
+        plain = fused_rigid.rigid_refit_reference(src, dst, w1, keep, gate)
+        replays = _replayed(refit)
+        torch.cuda.synchronize()
+        err_r, err_t, scale = _pose_errors(got[0], plain[0], src, dst)
+        # residuals at the plain route's first fit, against the gate
+        T1 = fused_rigid.rigid_fit_reference(src, dst, w1)
+        resid = torch.linalg.norm(transform_points(T1, src) - dst, dim=-1)
+        g = gate if isinstance(gate, torch.Tensor) else torch.full_like(resid, gate)
+        near = (resid - g).abs() <= 1e-6 * g
+        differ = got[1] != plain[1]
+        excused = int((differ & near).sum())
+        unexcused = int((differ & ~near).sum())
+        count_ok = (torch.equal(got[2], torch.count_nonzero(got[1], dim=-1).int())
+                    and (excused > 0 or torch.equal(got[2], plain[2])))
+        bits = (_same(got, again) and _same(got, replays[0])
+                and _same(got, replays[1]))
+        rows.append({"case": label, "rotation_err": err_r,
+                     "translation_err_rel": err_t, "w2_differ_near_gate": excused,
+                     "w2_differ": unexcused, "kept": plain[2].tolist(),
+                     "bit_identical": bits})
+        say(f"  K5 refit {label}: rotation {err_r:.2e}, translation {err_t:.2e} "
+            f"of scale {scale:.1f} (tol {K5_TOL:g}); w2 differs at {unexcused} "
+            f"points, at {excused} within 1e-6 of the gate; n "
+            f"{got[2].tolist()} (plain {plain[2].tolist()}) of {K5_POINTS}; "
+            f"relaunch and two graph replays torch.equal: {bits}")
+        worst = max(worst, err_r, err_t)
+        if not (err_r <= K5_TOL and err_t <= K5_TOL and bits and count_ok
+                and unexcused == 0):
+            raise SystemExit(f"FAIL: K5 refit at {label}")
+    # the wrappers' checks on the card: float32 only, N within MAX_POINTS
+    src, dst, w1, _ = _refit_problems(1, 8, 0, dev)
+    big = torch.zeros((fused_rigid.MAX_POINTS + 1, 3), device=dev)
+    refusals = [
+        (TypeError, fused_rigid.rigid_refit,
+         (src.double(), dst.double(), w1.double(), w1.double(), 0.05)),
+        (TypeError, fused_rigid.rigid_refit, (src, dst, w1, w1.double(), 0.05)),
+        (ValueError, fused_rigid.rigid_refit, (big, big, big[:, 0], big[:, 0], 0.05)),
+        (ValueError, fused_rigid.rigid_fit, (big, big)),
+    ]
+    refused = 0
+    for err, entry, args in refusals:
+        try:
+            entry(*args)
+        except err:
+            refused += 1
+    say(f"  K5 refuses float64 on the card and {fused_rigid.MAX_POINTS + 1} "
+        f"points a problem: {refused} of {len(refusals)} calls refused")
+    if refused != len(refusals):
+        raise SystemExit("FAIL: K5 took an input its wrappers must refuse")
+    return rows, worst
+
+
+def _k5_bounds(b: int, refit: bool) -> tuple[float, str, int, int]:
+    """(bound ms, what bounds it, bytes, f32 operations) of one K5 launch of
+    b problems of K5_POINTS pairs: each input read once, each output written
+    once.  A fit reads src, dst, weights (28 B a point) and writes 64 B; per
+    point 7 sums, 9 multiply-adds, 3 products; the 3 x 3 factorisation
+    about 1,000 more.  The refit also reads keep and a gate a point and
+    writes w2 and n (40 B a point); it does two fits and, per point, the
+    residual at T1 (9 multiply-adds, 3 differences, a norm, the gate)."""
+    per_fit = K5_POINTS * (7 + 18 + 3) + 1000
+    if refit:
+        n_bytes = b * (K5_POINTS * 40 + 64 + 4)
+        n_ops = b * (2 * per_fit + K5_POINTS * (18 + 3 + 6 + 2))
+    else:
+        n_bytes = b * (K5_POINTS * 28 + 64)
+        n_ops = b * per_fit
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = n_ops / F32_OPS_PER_S * 1e3
-    out = {"cases": rows, "max_err": worst, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": max(bytes_ms, ops_ms),
-           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "bytes": n_bytes, "ops": n_ops, "floor_ms": floor_ms,
-           "library_ms": None}
-    say(f"  K5 at B 1, N {K5_POINTS}: {ms * 1e3:.2f} us a launch (floor "
-        f"{floor_ms * 1e3:.2f}); plain route (SVD, one host wait) "
-        f"{plain_ms * 1e3:.2f} us a call; bound {out['bound_ms'] * 1e3:.4f} us "
-        f"({out['bound_by']}: {n_bytes} B, {n_ops} f32 ops)")
-    return out
+    return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations",
+            n_bytes, n_ops)
+
+
+def _phase_k5(dev, floor_ms: float) -> dict:
+    """(a) K5's two entries against their plain versions (the SVD route) on
+    the card, relaunch and graph replay bit for bit; the times of both
+    entries at B 1 and 8 beside the two-call route (one graph), the plain
+    routes and the bounds; the split of a fit."""
+    import torch
+    from jetracer_orbslam2_torch.ops import fused_rigid
+    from jetracer_orbslam2_torch.ops.geometry import transform_points
+
+    fit_rows, fit_worst = _k5_fit_cases(dev)
+    refit_rows, refit_worst = _k5_refit_cases(dev)
+
+    timed = {}
+    for b in (1, 8):
+        src, dst, w1, gate = _refit_problems(b, K5_POINTS, b, dev)
+        keep = (w1 > 0).float()
+
+        def two_calls():
+            T1 = fused_rigid.rigid_fit(src, dst, w1)
+            err = torch.linalg.norm(transform_points(T1, src) - dst, dim=-1)
+            w2 = keep * (err < gate)
+            return (fused_rigid.rigid_fit(src, dst, w2), w2,
+                    torch.count_nonzero(w2, dim=-1).to(torch.int32))
+
+        fit = lambda: fused_rigid.rigid_fit(src, dst, w1)  # noqa: E731
+        refit = lambda: fused_rigid.rigid_refit(  # noqa: E731
+            src, dst, w1, keep, gate)
+        row = {"fit_us": [], "refit_us": [], "two_call_us": []}
+        # in turns: fit, refit, two calls, two calls, refit, fit
+        for key, fn in (("fit_us", fit), ("refit_us", refit),
+                        ("two_call_us", two_calls), ("two_call_us", two_calls),
+                        ("refit_us", refit), ("fit_us", fit)):
+            row[key].append(time_launches(fn, reps=20, batch=20) * 1e3)
+        # the plain routes wait on the host inside torch.linalg.svd, so they
+        # cannot be captured: CUDA events around 10 eager calls, median of 10
+        row["fit_plain_us"] = _median_event_ms(
+            lambda: [fused_rigid.rigid_fit_reference(src, dst, w1)
+                     for _ in range(10)], reps=10, per_run=10) * 1e3
+        row["refit_plain_us"] = _median_event_ms(
+            lambda: [fused_rigid.rigid_refit_reference(src, dst, w1, keep, gate)
+                     for _ in range(10)], reps=10, per_run=10) * 1e3
+        for entry, is_refit in (("fit", False), ("refit", True)):
+            bound, by, n_bytes, n_ops = _k5_bounds(b, is_refit)
+            row[f"{entry}_bound_us"] = bound * 1e3
+            row[f"{entry}_bound_by"] = by
+            row[f"{entry}_bytes"], row[f"{entry}_ops"] = n_bytes, n_ops
+        timed[f"B {b}"] = row
+        say(f"  K5 at B {b}, N {K5_POINTS} (us a launch, in turns): fit "
+            f"{row['fit_us'][0]:.2f} / {row['fit_us'][1]:.2f}, refit "
+            f"{row['refit_us'][0]:.2f} / {row['refit_us'][1]:.2f}, the two-call "
+            f"route as one graph {row['two_call_us'][0]:.2f} / "
+            f"{row['two_call_us'][1]:.2f}; floor {floor_ms * 1e3:.2f}; plain "
+            f"routes (SVD, host waits) fit {row['fit_plain_us']:.1f}, refit "
+            f"{row['refit_plain_us']:.1f} a call; bounds fit "
+            f"{row['fit_bound_us']:.4f} ({row['fit_bound_by']}: "
+            f"{row['fit_bytes']} B, {row['fit_ops']} f32 ops), refit "
+            f"{row['refit_bound_us']:.4f} ({row['refit_bound_by']}: "
+            f"{row['refit_bytes']} B, {row['refit_ops']} f32 ops)")
+
+    src, dst, w = _rigid_problems(1, K5_POINTS, 0, dev)
+    split = _k5_split(src, dst, w)
+    say("  K5 split at B 1, N {} (us a launch, two turns): the load and "
+        "reduction alone {}, the factorisation alone {}, both (rigid_fit) {}"
+        .format(K5_POINTS, *(" / ".join(f"{x:.2f}" for x in split[k])
+                             for k in ("reduction_us", "factorisation_us",
+                                       "both_us"))))
+
+    one = timed["B 1"]
+    return {"cases": fit_rows, "refit_cases": refit_rows,
+            "max_err": max(fit_worst, refit_worst),
+            "ms": statistics.median(one["refit_us"]) / 1e3,
+            "plain_ms": one["refit_plain_us"] / 1e3,
+            "bound_ms": one["refit_bound_us"] / 1e3,
+            "bound_by": one["refit_bound_by"],
+            "fit_ms": statistics.median(one["fit_us"]) / 1e3,
+            "fit_plain_ms": one["fit_plain_us"] / 1e3,
+            "fit_bound_ms": one["fit_bound_us"] / 1e3,
+            "two_call_ms": statistics.median(one["two_call_us"]) / 1e3,
+            "times": timed, "split": split, "floor_ms": floor_ms,
+            "library_ms": None}
 
 
 def _count_waits(fn):
@@ -3293,7 +3627,7 @@ def _graph_odometry(gray, depth, intr, gt, fcfg, tcfg, dev) -> dict:
         raise SystemExit(f"FAIL: graphed odometry ATE {rmse} / tracked "
                          f"{report['tracked_frac']}")
     want = {"fast_nms_pyramid": n, "extract_patches_fused": n,
-            "rigid_fit": 2 * (n - 1)}
+            "rigid_fit": n - 1}
     got = {k: launches[k] for k in want}
     if (graph.captures, graph.replays, graph.eager_calls) != (1, n - 2, 1) \
             or got != want:
@@ -3560,7 +3894,7 @@ def main(argv: list[str]) -> int:
     fused_fast._launcher()
     fused_ba._launchers()
     fused_patches._library()
-    fused_rigid._launcher()
+    fused_rigid._launchers()
     say(f"  four libraries built and loaded in {time.perf_counter() - t0:.2f} s")
     for name in sources:
         print_build(name)
@@ -3784,6 +4118,7 @@ def main(argv: list[str]) -> int:
     k5 = graphs["k5"]
     kernels.append({
         "name": "rigid_fit",
+        "entries": ["rigid_fit", "rigid_refit"],
         "route": "cuda",
         "source": "jetracer_orbslam2_torch/csrc/rigid_fit.cu",
         "replaces": "jetracer_orbslam2_tpu/ops/geometry.py:397",
@@ -3798,18 +4133,33 @@ def main(argv: list[str]) -> int:
         "bound_by": k5["bound_by"],
         "library_ms": None,
         "floor_ms": k5["floor_ms"],
+        "fit_ms": k5["fit_ms"],
+        "fit_plain_ms": k5["fit_plain_ms"],
+        "fit_bound_ms": k5["fit_bound_ms"],
+        "two_call_ms": k5["two_call_ms"],
         "numbers_are": "K5 has no Pallas counterpart: it replaces the SVD of "
                        "kabsch (jnp.linalg.svd in the JAX package, "
                        "torch.linalg.svd with a host wait as the plain "
-                       "version); per launch at B 1, N 1,024 (a refit); "
-                       "max_abs_err is the worst rotation entry or translation "
-                       "relative to the points' scale against the plain "
-                       "route; plain_ms is the SVD route per eager call "
-                       "(its host wait included); launches are the runtime "
-                       "path's (phase 20 run C), odometry_path_launches "
-                       "phase 22's graphed odometry_scan's, slam_path_launches "
-                       "phase 13's, stereo_path_launches phase 18's",
+                       "version); two entries counted together, rigid_fit "
+                       "(one fit) and rigid_refit (fit, gate, fit: the "
+                       "refit pair of ransac_kabsch and of the SLAM map "
+                       "refit); ms, plain_ms, bound_ms are rigid_refit's per "
+                       "launch at B 1, N 1,024 (every launch of the odometry "
+                       "and plain SLAM frames is one), fit_* rigid_fit's, "
+                       "two_call_ms the route the refit replaced (two fit "
+                       "launches and the ops between, one graph); "
+                       "max_abs_err is the worst rotation entry or "
+                       "translation relative to the points' scale against "
+                       "the plain route; plain_ms is the SVD route per eager "
+                       "call (its host waits included); launches are the "
+                       "runtime path's (phase 20 run C), "
+                       "odometry_path_launches phase 22's graphed "
+                       "odometry_scan's, slam_path_launches phase 13's, "
+                       "stereo_path_launches phase 18's",
         "cases": k5["cases"],
+        "refit_cases": k5["refit_cases"],
+        "times": k5["times"],
+        "split": k5["split"],
     })
     seconds = round(time.perf_counter() - t_start, 1)
     say(json.dumps({"main_path": report, "card": card, "seconds": seconds}))

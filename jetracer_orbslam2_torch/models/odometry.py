@@ -7,10 +7,11 @@ loop on the device.  Here `odometry_step` is the eager step, and
 captured once, replayed once a frame (`utils/step_graph.StepGraph`; the
 first tracked frame runs eagerly and warms up, on the CPU every frame runs
 eagerly through the graph's buffers).  No step reads a value back to the
-host: the rigid refits are the K5 kernel on the card (`geo.kabsch`), so a
-frame makes the host wait for nothing, and results are fetched once per scan
-or chunk.  RANSAC draws come from one `torch.Generator` carried in the state,
-advanced once per tracked frame, in a replay exactly as in an eager step.
+host: the rigid refit pair is one K5 launch on the card
+(`fused_rigid.rigid_refit`), so a frame makes the host wait for nothing, and
+results are fetched once per scan or chunk.  RANSAC draws come from one
+`torch.Generator` carried in the state, advanced once per tracked frame, in
+a replay exactly as in an eager step.
 """
 
 from __future__ import annotations

@@ -12,8 +12,9 @@ Counterpart of `jetracer_orbslam2_tpu/models/slam.py`.
     stay eager host branches, taken on the frame's one packed fetch.
   * The host loop is a thin scheduler: it reads back one packed tensor per
     frame and one per keyframe and picks which functions to run.  No other
-    place reads a value from the device: on the card `geo.kabsch` is the K5
-    kernel, which waits for nothing (its SVD route runs on the CPU only).
+    place reads a value from the device: on the card the rigid refits are
+    the K5 kernel (`fused_rigid`), which waits for nothing (its SVD route
+    runs on the CPU only).
   * Local BA runs over a fixed-size keyframe window against the full
     fixed-capacity landmark table with masked observations.
 
@@ -41,6 +42,7 @@ from jetracer_orbslam2_torch.models.backend.map import (
     MapState, _features_to, _map_to)
 from jetracer_orbslam2_torch.models.frontend import Features, frontend_gray_depth
 from jetracer_orbslam2_torch.models.odometry import make_generator
+from jetracer_orbslam2_torch.ops import fused_rigid
 from jetracer_orbslam2_torch.ops import geometry as geo
 from jetracer_orbslam2_torch.utils.device import as_f32, resolve_device
 from jetracer_orbslam2_torch.utils.precision import set_exact_f32
@@ -194,15 +196,13 @@ def track_and_associate(
     # and associated landmark world positions (drift containment).  One
     # trimmed re-fit makes the plain Kabsch robust to association outliers
     # without a full RANSAC (the associations are already descriptor- and
-    # window-gated).
+    # window-gated): fit, drop residuals of 2 x the RANSAC gate, fit again,
+    # one K5 launch on the card.
     pts_w = m.lm_pos[lm_idx.long()]                     # (K, 3) world
     w = (lm_ok & curr.has_point).to(torch.float32)
-    T0 = geo.kabsch(curr.points, pts_w, w)              # world <- camera
-    resid = torch.linalg.norm(
-        geo.transform_points(T0, curr.points[None])[0] - pts_w, dim=-1)
-    w_trim = w * (resid < 2.0 * cfg.tracking.ransac_inlier_thresh)
-    enough = torch.sum(w_trim) >= cfg.tracking.min_inliers
-    T_ref = geo.kabsch(curr.points, pts_w, w_trim)
+    T_ref, w_trim, n_trim = fused_rigid.rigid_refit(    # world <- camera
+        curr.points, pts_w, w, w, 2.0 * cfg.tracking.ransac_inlier_thresh)
+    enough = n_trim >= cfg.tracking.min_inliers
     # motion-only reprojection polish against the MAP: landmark positions
     # are BA-refined, and pixel measurements are unbiased where 3D depth
     # noise grows as z^2, so the final pose minimizes reprojection of the

@@ -8,9 +8,9 @@ T_w_curr = T_w_prev @ T_prev_curr.
 
 RANSAC is not a loop: all `iters` minimal 3-point hypotheses are solved in
 one batched quaternion Kabsch, scored in one (iters, K) residual matrix, and
-the winner refit on its inliers with two exact Kabsch solves (`geo.kabsch`:
-the K5 kernel on the card, the SVD route on the CPU).  Random
-draws come from an explicit `torch.Generator` (the JAX package's
+the winner refit on its inliers with two exact Kabsch solves
+(`fused_rigid.rigid_refit`: one K5 launch on the card, the SVD route on the
+CPU).  Random draws come from an explicit `torch.Generator` (the JAX package's
 `jax.random.categorical` stream cannot be reproduced); tests inject the
 sample indices instead.  Nothing here reads a value back to the host.
 """
@@ -23,6 +23,7 @@ import torch
 
 from jetracer_orbslam2_torch.config import TrackingConfig
 from jetracer_orbslam2_torch.models.frontend import Features
+from jetracer_orbslam2_torch.ops import fused_rigid
 from jetracer_orbslam2_torch.ops import geometry as geo
 from jetracer_orbslam2_torch.ops import match as match_ops
 from jetracer_orbslam2_torch.utils.ties import first_argmax, first_argmin
@@ -128,16 +129,13 @@ def ransac_kabsch(
     inl = (err < tz[None]) & has_w
     score = torch.sum(inl, dim=1)
     _, best = first_argmax(score, 0)
-    # refine on the best hypothesis' inliers, then recompute inliers once more
+    # refine on the best hypothesis' inliers, recompute the inliers at that
+    # fit and refine once more: one K5 launch on the card
     # index_select, not inl[best]: indexing with a 0-dim tensor reads it
     # back to the host
     w1 = inl.index_select(0, best.reshape(1))[0].to(src.dtype)
-    T1 = geo.kabsch(src, dst, w1)
-    err1 = torch.linalg.norm(geo.transform_points(T1, src[None])[0] - dst, dim=-1)
-    inl1 = (err1 < tz) & has_w
-    w2 = inl1.to(src.dtype)
-    T2 = geo.kabsch(src, dst, w2)
-    n = torch.sum(inl1).to(torch.int32)
+    T2, w2, n = fused_rigid.rigid_refit(src, dst, w1, has_w.to(src.dtype), tz)
+    inl1 = w2 > 0
     ok = n >= min_inliers
     eye = torch.eye(4, dtype=src.dtype, device=src.device)
     return RansacResult(T=torch.where(ok, T2, eye), inliers=inl1,
