@@ -29,8 +29,9 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
    1 device       a CUDA device must be present; prints the card's name and
                   power limit as nvidia-smi gives them
    2 build        nvcc compiles csrc/fast_nms.cu, csrc/ba_fused.cu,
-                  csrc/patch_gather.cu and csrc/rigid_fit.cu side by side;
-                  prints seconds and ptxas' notes
+                  csrc/patch_gather.cu, csrc/rigid_fit.cu and
+                  csrc/pose_polish.cu side by side; prints seconds and
+                  ptxas' notes
    3 K1, K4 check fast_nms kernel vs plain version, torch.equal: the one-level
                   call at every shape, the batched call (every level of a
                   pyramid, one or two thresholds, one launch) on frame 0's
@@ -43,8 +44,9 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
                   window origins; two launches bit-identical
    4 semantics    tie orders and CPU/GPU agreement of the front-end
    5 main path    whole-sequence odometry: ATE, tracked fraction, kernel
-                  launches (K1 and K4 once a frame, K5 once a tracked
-                  frame: the refit pair in one launch, no canvas packed);
+                  launches (K1 and K4 once a frame, K5 and K6 once a
+                  tracked frame: the refit pair in one launch, the polish in
+                  one launch; no canvas packed);
                   --chunked 32 on the same frames gives the same poses; a
                   second, warm run is timed
    6 K1 time      the empty-kernel launch floor; device time of the one
@@ -75,7 +77,8 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
   13 SLAM path    slam_scan over 1,200 frames of 640x480, three laps, map of
                   128 keyframe slots / 16,384 landmarks / 65,536 observations:
                   tracked fraction, loops, ATE, every kernel's launch count
-                  (no canvas packed); frames/s of the run
+                  (K6 twice a stepped frame: the tracker's and the map's
+                  polish; no canvas packed); frames/s of the run
   14 lifecycle    three laps at 240x180 with 32 keyframe slots: keyframes are
                   culled and their slots recycled, tracking holds to the end
   15 CLI          run.main at its default mode (slam), whole and --chunked 8
@@ -104,7 +107,7 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
                   C's map (30 frames), then B and A again; A, B, C agree to
                   the pose (torch.equal), ATE < 10 cm, K1/K4 once a frame,
                   K2 = K3 = 10 x keyframe updates, K5 >= 2 a tracked frame,
-                  no watchdog stall, every frame pinned, host waits a frame
+                  K6 = 2 a stepped frame, no watchdog stall, every frame pinned, host waits a frame
                   equal in A and B and at
                   most one more a frame in C's publish, every telemetry
                   document the viewer's fields at 640x480, the checkpoint's
@@ -121,7 +124,8 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
                   exit 0 on cuda:0, keyframes, loops, relocs, poses and
                   tracked flags equal, ATE < 10 cm, tracked >= 0.95, K1 = K4
                   = frames, K2 = K3 = 10 x keyframe updates, K5 >= 2 a
-                  tracked frame, mesh_devices 1, ba_edges_dropped 0; (d)
+                  tracked frame, K6 = 2 a stepped frame, mesh_devices 1,
+                  ba_edges_dropped 0; (d)
                   the distributed worker twice on
                   this card over gloo (2,048 landmarks a rank): ranks
                   bit-identical, poses 5e-3 and points 2e-2 of (a), cost
@@ -135,29 +139,45 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
                   weights and count equal (but for points within 1e-6 of
                   the gate, counted) at B 1 and 8, a gate a point and one
                   for all; relaunch and two graph replays torch.equal; the
-                  times of both entries, of the two-call route (one
-                  graph), of the plain routes, and the bounds; the split:
-                  the reduction alone, the factorisation alone, both; (b)
+                  same bars above the shared-memory path (N 6,145 at B 1,
+                  8,192 and 16,384 at B 1 and 8, the streamed path) with
+                  their times and bounds; run.main --max-keypoints 8192 in
+                  odometry and slam mode on 24 frames; the times of both
+                  entries, of the two-call route (one graph), of the plain
+                  routes, and the bounds; the split: the reduction alone,
+                  the factorisation alone, both; (b)
                   the eager odometry_step over
                   the 120 frames under set_sync_debug_mode("error"); (c)
                   odometry_scan's graph against the eager step loop: poses
                   and flags torch.equal, ATE < 10 cm, tracked >= 0.95, one
                   capture, frames - 2 replays after one eager warm-up frame,
-                  K1 = K4 = frames and K5 = tracked frames by nodes x
+                  K1 = K4 = frames and K5 = K6 = tracked frames by nodes x
                   replays; (d) slam_scan and Slam (the tracking graph)
                   against their eager tracking steps: poses, flags,
                   keyframes, loops equal, one host wait a plain frame, the
                   same graph counts; the same equalities on the arc's first
                   60 frames with frames 30-33 blank, where both relocalize
                   (>= 1 reloc each); (e) ms a frame graphed and eager in
-                  turns, and each one's device-busy share over frames 40-79
+                  turns, and each one's device-busy share and device kernels
+                  and copies a frame over frames 40-79
+  23 K6           pose_polish vs its plain version (the Gauss-Newton loop
+                  of tracking.refine_pose_reprojection before K6): rotation
+                  entries and translations (of the points' scale) within
+                  1e-5 at B 1 and 8, K 1,024; K 8,192 (read from memory each
+                  step); all weights 0 (exactly T0); no depth rows; 20 %
+                  outliers; the problems of the first 40 frames of the
+                  odometry run as one batch; non-positive Cholesky pivots
+                  counted; relaunch and two graph replays torch.equal; the
+                  time a launch, the plain version's, the floor and the
+                  bound; the graphed odometry frame's device kernels and
+                  copies and busy ms beside those before K6
 Launch counts: a wrapper counts one when it launches its kernel, and a
 replay of a captured frame step counts each kernel node of the graph once
 (`utils/step_graph.note_launch`), so "once a frame" holds either way.
 Kernel times are CUDA events around a replayed CUDA graph of launches.  Then
 the paths' reports (the stereo path's and the datasets' on one line, the
 runtime's on one, the sharded phase's on one), one JSON line
-`{"kernels": [...]}` (K1-K5; launches: the runtime path's, phase 20 run C;
+`{"kernels": [...]}` (K1-K6; launches: the runtime path's, phase 20 run C;
 sharded_path_launches the --mesh 1 CLI run's, phase 21c), and as the last
 line `{"ok": true, "device": {...}}`.
 
@@ -182,7 +202,7 @@ F32_OPS_PER_S = 67e12
 FAST_THRESHOLD, FAST_ARC, FAST_BORDER = 13.0, 12, 19
 SLAM_FAST_MIN_THRESHOLD = 7.0   # the SLAM path's second FAST threshold
 N_FRAMES = 120
-N_PHASES = 22
+N_PHASES = 23
 GRAPHS_TITLE = (
     "graphs: (a) K5 (rigid_fit, rigid_refit) vs the SVD route, (b) the eager "
     "odometry_step with no host wait, (c) odometry_scan's CUDA graph vs the "
@@ -493,19 +513,27 @@ def phase_main_path(argv, args, source, dev):
     import numpy as np
     import torch
     from jetracer_orbslam2_torch import run
-    from jetracer_orbslam2_torch.ops import fused_fast, fused_patches, fused_rigid
+    from jetracer_orbslam2_torch.ops import (
+        fused_fast, fused_patches, fused_polish, fused_rigid)
 
     n, gt = source.n, source.gt
     fused_fast.fast_nms_pyramid.launches = 0
     fused_patches.extract_patches_fused.launches = 0
     fused_patches.patch_gather.launches = 0
     fused_rigid.rigid_fit.launches = 0
+    fused_polish.pose_polish.launches = 0
     with counting_calls() as calls:
         report, poses = run._run_odometry(args, source, dev)
     launches = fused_fast.fast_nms_pyramid.launches
     if fused_rigid.rigid_fit.launches != n - 1:
         raise SystemExit(f"FAIL: rigid_fit launches {fused_rigid.rigid_fit.launches}"
                          f" != {n - 1} (one RANSAC refit pair a tracked frame)")
+    if fused_polish.pose_polish.launches != n - 1:
+        raise SystemExit(f"FAIL: pose_polish launches "
+                         f"{fused_polish.pose_polish.launches} != {n - 1} (one "
+                         "polish a stepped frame, tracked or not)")
+    say(f"  K5 and K6: rigid_fit and pose_polish launched {n - 1} times each "
+        "(one a stepped frame)")
     if fused_patches.extract_patches_fused.launches != n:
         raise SystemExit(f"FAIL: extract_patches_fused launches "
                          f"{fused_patches.extract_patches_fused.launches} != {n}")
@@ -1488,35 +1516,41 @@ def phase_patch_kernel_time(pyramid, kp, floor_ms: float) -> dict:
 
 def _kernel_counters() -> dict:
     from jetracer_orbslam2_torch.ops import (
-        fused_ba, fused_fast, fused_patches, fused_rigid)
+        fused_ba, fused_fast, fused_patches, fused_polish, fused_rigid)
 
     return {"fast_nms_pyramid": fused_fast.fast_nms_pyramid,
             "extract_patches_fused": fused_patches.extract_patches_fused,
             "patch_gather": fused_patches.patch_gather,
             "fused_normal_schur": fused_ba.fused_normal_schur,
             "fused_backsub": fused_ba.fused_backsub,
-            "rigid_fit": fused_rigid.rigid_fit}
+            "rigid_fit": fused_rigid.rigid_fit,
+            "pose_polish": fused_polish.pose_polish}
 
 
-def _k5_short(launches: dict, tracked_frames: int) -> str | None:
-    """Why K5's launches fall short on a SLAM run, or None: at least 2 a
-    tracked frame (the RANSAC refit pair and the map refit pair, one launch
-    each; relocalization and loop verification add more, as the data
-    decides)."""
-    k5 = launches["rigid_fit"]
-    if k5 < 2 * tracked_frames:
-        return f"rigid_fit launched {k5} times, at least {2 * tracked_frames} expected"
+def _k5_k6_short(launches: dict, stepped_frames: int) -> str | None:
+    """Why K5's or K6's launches are off on a SLAM run, or None.  K5: at
+    least 2 a stepped frame (the RANSAC refit pair and the map refit pair,
+    one launch each; relocalization and loop verification add more, as the
+    data decides).  K6: exactly 2 a stepped frame (`track_rgbd`'s polish,
+    which runs whether or not the frame tracks, and the map polish of
+    `track_and_associate`, map_polish_iters 5; no other caller)."""
+    k5, k6 = launches["rigid_fit"], launches["pose_polish"]
+    if k5 < 2 * stepped_frames:
+        return f"rigid_fit launched {k5} times, at least {2 * stepped_frames} expected"
+    if k6 != 2 * stepped_frames:
+        return f"pose_polish launched {k6} times, {2 * stepped_frames} expected"
     return None
 
 
-def _without_k5(launches: dict, tracked_frames: int, what: str) -> dict:
-    """K1-K4's launches; fails unless K5 ran at least 2 times a tracked SLAM
-    frame (`_k5_short`)."""
-    short = _k5_short(launches, tracked_frames)
+def _without_k5_k6(launches: dict, stepped_frames: int, what: str) -> dict:
+    """K1-K4's launches; fails unless K5 and K6 ran as a SLAM run's
+    stepped frames call them (`_k5_k6_short`)."""
+    short = _k5_k6_short(launches, stepped_frames)
     if short:
         raise SystemExit(f"FAIL: {what}: {short}")
     rest = dict(launches)
     rest.pop("rigid_fit")
+    rest.pop("pose_polish")
     return rest
 
 
@@ -1703,7 +1737,7 @@ def phase_slam_path(dev) -> tuple[dict, dict]:
     ms = start.elapsed_time(stop)
     inserted = int(out.is_kf.sum())
     m = final.m
-    k1_k4 = _without_k5(launches, LONG_FRAMES - 1, "SLAM path")
+    k1_k4 = _without_k5_k6(launches, LONG_FRAMES - 1, "SLAM path")
     report = {
         "frames": LONG_FRAMES, "shape": [480, 640], "levels": 4, "keypoints": 1024,
         "map_capacity": [LONG_KEYFRAMES, int(m.lm_valid.shape[0]),
@@ -1955,7 +1989,7 @@ def phase_stereo_check(dev) -> dict:
     say(f"  launches of one frontend_stereo call (under "
         f"set_sync_debug_mode('error'), no host wait): {json.dumps(per_call)}")
     want = {"fast_nms_pyramid": STEREO_K1_PER_FRAME, "extract_patches_fused": 2,
-            "rigid_fit": 0,
+            "rigid_fit": 0, "pose_polish": 0,
             "patch_gather": 0, "fused_normal_schur": 0, "fused_backsub": 0}
     if per_call != want:
         raise SystemExit(f"FAIL: frontend_stereo launched {per_call}, expected {want}")
@@ -2031,7 +2065,7 @@ def phase_stereo_path(dev) -> dict:
                 "extract_patches_fused": 2 * STEREO_FRAMES, "patch_gather": 0,
                 "fused_normal_schur": 10 * inserted,
                 "fused_backsub": 10 * inserted}
-        k1_k4 = _without_k5(launches, STEREO_FRAMES - 1, f"stereo {name}")
+        k1_k4 = _without_k5_k6(launches, STEREO_FRAMES - 1, f"stereo {name}")
         if k1_k4 != want or any(calls.values()):
             raise SystemExit(f"FAIL: stereo {name} launches {launches} (calls "
                              f"{calls}), expected {want}")
@@ -2652,7 +2686,7 @@ def phase_runtime(dev) -> dict:
             if not (r["launches"]["fused_normal_schur"] == r["launches"]["fused_backsub"]
                     == want_ba):
                 bad.append(f"{name}: K2/K3 launches {r['launches']} != {want_ba}")
-            if short := _k5_short(r["launches"], r["frames"] - 1):
+            if short := _k5_k6_short(r["launches"], r["frames"] - 1):
                 bad.append(f"{name}: {short}")
             if r["frames_pinned"] != r["frames_copied"] or r["frames_copied"] != r["frames"]:
                 bad.append(f"{name}: {r['frames_pinned']} of {r['frames_copied']} "
@@ -2931,7 +2965,7 @@ def _mesh_cli(dev) -> tuple[dict, dict]:
             want = 10 * r["keyframes_inserted"]
             if not (k["fused_normal_schur"] == k["fused_backsub"] == want > 0):
                 bad.append(f"{name} {what}: K2/K3 launches {k}, {want} expected")
-            if short := _k5_short(k, N_FRAMES - 1):
+            if short := _k5_k6_short(k, N_FRAMES - 1):
                 bad.append(f"{name} {what}: {short}")
         if rm.get("mesh_devices") != 1 or rm.get("ba_edges_dropped") != 0:
             bad.append(f"{name}: mesh_devices {rm.get('mesh_devices')}, "
@@ -3271,23 +3305,10 @@ def _k5_fit_cases(dev) -> tuple[list, float]:
     rows = []
     for seed, (label, b, kinds, no_w) in enumerate(cases):
         src, dst, w = _rigid_problems(b, K5_POINTS, seed, dev, kinds)
-        w = None if no_w else w
-        fit = lambda: fused_rigid.rigid_fit(src, dst, w)  # noqa: E731
-        got, again = fit(), fit()
-        plain = fused_rigid.rigid_fit_reference(src, dst, w)
-        replays = _replayed(fit)
-        torch.cuda.synchronize()
-        err_r, err_t, scale = _pose_errors(got, plain, src, dst)
-        bits = (torch.equal(got, again) and torch.equal(got, replays[0])
-                and torch.equal(got, replays[1]))
-        rows.append({"case": label, "rotation_err": err_r,
-                     "translation_err_rel": err_t, "bit_identical": bits})
-        say(f"  K5 fit {label}: rotation {err_r:.2e}, translation {err_t:.2e} "
-            f"of scale {scale:.1f} (tol {K5_TOL:g}); relaunch and two graph "
-            f"replays torch.equal: {bits}")
-        worst = max(worst, err_r, err_t)
-        if not (err_r <= K5_TOL and err_t <= K5_TOL and bits):
-            raise SystemExit(f"FAIL: K5 at {label}")
+        row = _check_fit(label, src, dst, None if no_w else w)
+        got = row.pop("got")
+        rows.append(row)
+        worst = max(worst, row["rotation_err"], row["translation_err_rel"])
         if kinds and "zero" in kinds:
             i = kinds.index("zero")
             if not torch.equal(got[i], torch.eye(4, device=dev)):
@@ -3308,15 +3329,80 @@ def _k5_fit_cases(dev) -> tuple[list, float]:
     return rows, worst
 
 
-def _k5_refit_cases(dev) -> tuple[list, float]:
+def _check_fit(label: str, src, dst, w) -> dict:
+    """rigid_fit against the SVD route on these problems: rotation entries
+    and translations (of the points' scale) within K5_TOL, a relaunch and
+    two graph replays torch.equal.  Returns the case's row."""
+    import torch
+    from jetracer_orbslam2_torch.ops import fused_rigid
+
+    fit = lambda: fused_rigid.rigid_fit(src, dst, w)  # noqa: E731
+    got, again = fit(), fit()
+    plain = fused_rigid.rigid_fit_reference(src, dst, w)
+    replays = _replayed(fit)
+    torch.cuda.synchronize()
+    err_r, err_t, scale = _pose_errors(got, plain, src, dst)
+    bits = (torch.equal(got, again) and torch.equal(got, replays[0])
+            and torch.equal(got, replays[1]))
+    say(f"  K5 fit {label}: rotation {err_r:.2e}, translation {err_t:.2e} "
+        f"of scale {scale:.1f} (tol {K5_TOL:g}); relaunch and two graph "
+        f"replays torch.equal: {bits}")
+    if not (err_r <= K5_TOL and err_t <= K5_TOL and bits):
+        raise SystemExit(f"FAIL: K5 at {label}")
+    return {"case": label, "points": src.shape[-2], "rotation_err": err_r,
+            "translation_err_rel": err_t, "bit_identical": bits, "got": got}
+
+
+def _check_refit(label: str, src, dst, w1, keep, gate) -> dict:
     """rigid_refit against its plain version (two SVD fits and the ops
     between them): T2 within K5_TOL, w2 and n equal but for points whose
     residual at the plain T1 lies within 1e-6 of the gate (relative),
-    counted; relaunch and two graph replays torch.equal."""
-    import numpy as np
+    counted; relaunch and two graph replays torch.equal.  Returns the
+    case's row."""
     import torch
     from jetracer_orbslam2_torch.ops import fused_rigid
     from jetracer_orbslam2_torch.ops.geometry import transform_points
+
+    refit = lambda: fused_rigid.rigid_refit(  # noqa: E731
+        src, dst, w1, keep, gate)
+    got, again = refit(), refit()
+    plain = fused_rigid.rigid_refit_reference(src, dst, w1, keep, gate)
+    replays = _replayed(refit)
+    torch.cuda.synchronize()
+    err_r, err_t, scale = _pose_errors(got[0], plain[0], src, dst)
+    # residuals at the plain route's first fit, against the gate
+    T1 = fused_rigid.rigid_fit_reference(src, dst, w1)
+    resid = torch.linalg.norm(transform_points(T1, src) - dst, dim=-1)
+    g = gate if isinstance(gate, torch.Tensor) else torch.full_like(resid, gate)
+    near = (resid - g).abs() <= 1e-6 * g
+    differ = got[1] != plain[1]
+    excused = int((differ & near).sum())
+    unexcused = int((differ & ~near).sum())
+    count_ok = (torch.equal(got[2], torch.count_nonzero(got[1], dim=-1).int())
+                and (excused > 0 or torch.equal(got[2], plain[2])))
+    bits = (_same(got, again) and _same(got, replays[0])
+            and _same(got, replays[1]))
+    n = src.shape[-2]
+    say(f"  K5 refit {label}: rotation {err_r:.2e}, translation {err_t:.2e} "
+        f"of scale {scale:.1f} (tol {K5_TOL:g}); w2 differs at {unexcused} "
+        f"points, at {excused} within 1e-6 of the gate; n "
+        f"{got[2].tolist()} (plain {plain[2].tolist()}) of {n}; "
+        f"relaunch and two graph replays torch.equal: {bits}")
+    if not (err_r <= K5_TOL and err_t <= K5_TOL and bits and count_ok
+            and unexcused == 0):
+        raise SystemExit(f"FAIL: K5 refit at {label}")
+    return {"case": label, "points": n, "rotation_err": err_r,
+            "translation_err_rel": err_t, "w2_differ_near_gate": excused,
+            "w2_differ": unexcused, "kept": plain[2].tolist(),
+            "bit_identical": bits}
+
+
+def _k5_refit_cases(dev) -> tuple[list, float]:
+    """`_check_refit` at B 1 and 8, N K5_POINTS; then the wrappers' checks
+    on the card.  Returns rows and the worst error."""
+    import numpy as np
+    import torch
+    from jetracer_orbslam2_torch.ops import fused_rigid
 
     cases = [
         ("B 1, a gate a point, keep 0/1", 1, None, True, False),
@@ -3334,47 +3420,16 @@ def _k5_refit_cases(dev) -> tuple[list, float]:
             rng = np.random.default_rng(seed)
             keep = w1 * torch.from_numpy(
                 rng.uniform(0.5, 1.0, w1.shape).astype(np.float32)).to(dev)
-        refit = lambda: fused_rigid.rigid_refit(  # noqa: E731
-            src, dst, w1, keep, gate)
-        got, again = refit(), refit()
-        plain = fused_rigid.rigid_refit_reference(src, dst, w1, keep, gate)
-        replays = _replayed(refit)
-        torch.cuda.synchronize()
-        err_r, err_t, scale = _pose_errors(got[0], plain[0], src, dst)
-        # residuals at the plain route's first fit, against the gate
-        T1 = fused_rigid.rigid_fit_reference(src, dst, w1)
-        resid = torch.linalg.norm(transform_points(T1, src) - dst, dim=-1)
-        g = gate if isinstance(gate, torch.Tensor) else torch.full_like(resid, gate)
-        near = (resid - g).abs() <= 1e-6 * g
-        differ = got[1] != plain[1]
-        excused = int((differ & near).sum())
-        unexcused = int((differ & ~near).sum())
-        count_ok = (torch.equal(got[2], torch.count_nonzero(got[1], dim=-1).int())
-                    and (excused > 0 or torch.equal(got[2], plain[2])))
-        bits = (_same(got, again) and _same(got, replays[0])
-                and _same(got, replays[1]))
-        rows.append({"case": label, "rotation_err": err_r,
-                     "translation_err_rel": err_t, "w2_differ_near_gate": excused,
-                     "w2_differ": unexcused, "kept": plain[2].tolist(),
-                     "bit_identical": bits})
-        say(f"  K5 refit {label}: rotation {err_r:.2e}, translation {err_t:.2e} "
-            f"of scale {scale:.1f} (tol {K5_TOL:g}); w2 differs at {unexcused} "
-            f"points, at {excused} within 1e-6 of the gate; n "
-            f"{got[2].tolist()} (plain {plain[2].tolist()}) of {K5_POINTS}; "
-            f"relaunch and two graph replays torch.equal: {bits}")
-        worst = max(worst, err_r, err_t)
-        if not (err_r <= K5_TOL and err_t <= K5_TOL and bits and count_ok
-                and unexcused == 0):
-            raise SystemExit(f"FAIL: K5 refit at {label}")
-    # the wrappers' checks on the card: float32 only, N within MAX_POINTS
+        row = _check_refit(label, src, dst, w1, keep, gate)
+        rows.append(row)
+        worst = max(worst, row["rotation_err"], row["translation_err_rel"])
+    # the wrappers' checks on the card: float32 only
     src, dst, w1, _ = _refit_problems(1, 8, 0, dev)
-    big = torch.zeros((fused_rigid.MAX_POINTS + 1, 3), device=dev)
     refusals = [
         (TypeError, fused_rigid.rigid_refit,
          (src.double(), dst.double(), w1.double(), w1.double(), 0.05)),
         (TypeError, fused_rigid.rigid_refit, (src, dst, w1, w1.double(), 0.05)),
-        (ValueError, fused_rigid.rigid_refit, (big, big, big[:, 0], big[:, 0], 0.05)),
-        (ValueError, fused_rigid.rigid_fit, (big, big)),
+        (TypeError, fused_rigid.rigid_fit, (src.double(), dst.double())),
     ]
     refused = 0
     for err, entry, args in refusals:
@@ -3382,27 +3437,121 @@ def _k5_refit_cases(dev) -> tuple[list, float]:
             entry(*args)
         except err:
             refused += 1
-    say(f"  K5 refuses float64 on the card and {fused_rigid.MAX_POINTS + 1} "
-        f"points a problem: {refused} of {len(refusals)} calls refused")
+    say(f"  K5 refuses float64 on the card: {refused} of {len(refusals)} "
+        "calls refused")
     if refused != len(refusals):
         raise SystemExit("FAIL: K5 took an input its wrappers must refuse")
     return rows, worst
 
 
-def _k5_bounds(b: int, refit: bool) -> tuple[float, str, int, int]:
+# K5 above its shared-memory path (fused_rigid.MAX_POINTS = 6,144): the first
+# N past it (B 1), then N 8,192 and 16,384 at B 1 and 8 (the streamed path)
+K5_LARGE = ((6145, (1,)), (8192, (1, 8)), (16384, (1, 8)))
+
+
+def _k5_large(dev) -> tuple[list, list, float]:
+    """rigid_fit and rigid_refit past MAX_POINTS, against the SVD route with
+    phase 22 (a)'s bars; the us a launch at N 8,192 and 16,384 beside the
+    bounds counted from the bytes.  Returns (check rows, time rows, the
+    worst error)."""
+    from jetracer_orbslam2_torch.ops import fused_rigid
+
+    if K5_LARGE[0][0] != fused_rigid.MAX_POINTS + 1:
+        raise SystemExit(f"FAIL: K5_LARGE starts at {K5_LARGE[0][0]}, not "
+                         f"MAX_POINTS + 1 = {fused_rigid.MAX_POINTS + 1}")
+    rows, times, worst = [], [], 0.0
+    for n, batches in K5_LARGE:
+        for b in batches:
+            src, dst, w = _rigid_problems(b, n, 40 + b, dev)
+            fit_row = _check_fit(f"B {b}, N {n}", src, dst, w)
+            fit_row.pop("got")
+            src, dst, w1, gate = _refit_problems(b, n, 50 + b, dev)
+            keep = (w1 > 0).float()
+            refit_row = _check_refit(f"B {b}, N {n}, a gate a point", src, dst,
+                                     w1, keep, gate)
+            rows += [fit_row, refit_row]
+            worst = max(worst, fit_row["rotation_err"],
+                        fit_row["translation_err_rel"],
+                        refit_row["rotation_err"], refit_row["translation_err_rel"])
+            if n == K5_LARGE[0][0]:
+                continue
+            fit = lambda: fused_rigid.rigid_fit(src, dst, w1)  # noqa: E731
+            refit = lambda: fused_rigid.rigid_refit(  # noqa: E731
+                src, dst, w1, keep, gate)
+            row = {"points": n, "batch": b, "fit_us": [], "refit_us": []}
+            for key, fn in (("fit_us", fit), ("refit_us", refit),
+                            ("refit_us", refit), ("fit_us", fit)):
+                row[key].append(time_launches(fn, reps=20, batch=20) * 1e3)
+            for entry, is_refit in (("fit", False), ("refit", True)):
+                bound, by, n_bytes, n_ops = _k5_bounds(b, is_refit, n)
+                row[f"{entry}_bound_us"] = bound * 1e3
+                row[f"{entry}_bound_by"] = by
+                row[f"{entry}_bytes"], row[f"{entry}_ops"] = n_bytes, n_ops
+            times.append(row)
+            say(f"  K5 at B {b}, N {n} (streamed path; us a launch, in turns): "
+                f"fit {row['fit_us'][0]:.2f} / {row['fit_us'][1]:.2f}, refit "
+                f"{row['refit_us'][0]:.2f} / {row['refit_us'][1]:.2f}; bounds "
+                f"fit {row['fit_bound_us']:.4f} ({row['fit_bound_by']}: "
+                f"{row['fit_bytes']} B), refit {row['refit_bound_us']:.4f} "
+                f"({row['refit_bound_by']}: {row['refit_bytes']} B)")
+    return rows, times, worst
+
+
+# run.main at a keypoint budget above MAX_POINTS: frames of each run
+K5_CLI_FRAMES, K5_CLI_KEYPOINTS = 24, 8192
+
+
+def _k5_cli_many_keypoints() -> list:
+    """run.main --synthetic 24 --max-keypoints 8192 in odometry and slam
+    mode: exit 0 on cuda:0, K5 launched at least once a tracked stepped
+    frame, K6 once a stepped frame (odometry) or twice (slam); the ATE is
+    printed, not gated."""
+    rows = []
+    for mode in ("odometry", "slam"):
+        argv = ["--synthetic", str(K5_CLI_FRAMES), "--max-keypoints",
+                str(K5_CLI_KEYPOINTS), "--mode", mode]
+        _reset_counters()
+        code, report = _cli(argv)
+        launches = _read_counters()
+        frames = report.get("frames", 0)
+        # tracked_frac counts frame 0, which bootstraps and is not stepped
+        tracked = round(report.get("tracked_frac", 0.0) * frames) - 1
+        per_frame = 1 if mode == "odometry" else 2
+        row = {"argv": argv, "exit": code, "report": report,
+               "launches": launches, "tracked_stepped_frames": tracked}
+        rows.append(row)
+        say(f"  K5 run.main({argv}) -> {code}: ATE {report.get('ate_rmse_m')} m "
+            f"(printed, not gated), tracked {report.get('tracked_frac')}, "
+            f"K5 {launches['rigid_fit']}, K6 {launches['pose_polish']} launches")
+        bad = []
+        if code != 0 or report.get("device") != "cuda:0" or frames != K5_CLI_FRAMES:
+            bad.append(f"exit {code} on {report.get('device')}, {frames} frames")
+        if launches["rigid_fit"] < max(tracked, 1):
+            bad.append(f"K5 launched {launches['rigid_fit']} times for "
+                       f"{tracked} tracked frames")
+        if launches["pose_polish"] != per_frame * (frames - 1):
+            bad.append(f"K6 launched {launches['pose_polish']} times, "
+                       f"{per_frame * (frames - 1)} expected")
+        if bad:
+            raise SystemExit(f"FAIL: run.main --max-keypoints "
+                             f"{K5_CLI_KEYPOINTS} --mode {mode}: {'; '.join(bad)}")
+    return rows
+
+
+def _k5_bounds(b: int, refit: bool, n: int = K5_POINTS) -> tuple[float, str, int, int]:
     """(bound ms, what bounds it, bytes, f32 operations) of one K5 launch of
-    b problems of K5_POINTS pairs: each input read once, each output written
+    b problems of n pairs: each input read once, each output written
     once.  A fit reads src, dst, weights (28 B a point) and writes 64 B; per
     point 7 sums, 9 multiply-adds, 3 products; the 3 x 3 factorisation
     about 1,000 more.  The refit also reads keep and a gate a point and
     writes w2 and n (40 B a point); it does two fits and, per point, the
     residual at T1 (9 multiply-adds, 3 differences, a norm, the gate)."""
-    per_fit = K5_POINTS * (7 + 18 + 3) + 1000
+    per_fit = n * (7 + 18 + 3) + 1000
     if refit:
-        n_bytes = b * (K5_POINTS * 40 + 64 + 4)
-        n_ops = b * (2 * per_fit + K5_POINTS * (18 + 3 + 6 + 2))
+        n_bytes = b * (n * 40 + 64 + 4)
+        n_ops = b * (2 * per_fit + n * (18 + 3 + 6 + 2))
     else:
-        n_bytes = b * (K5_POINTS * 28 + 64)
+        n_bytes = b * (n * 28 + 64)
         n_ops = b * per_fit
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = n_ops / F32_OPS_PER_S * 1e3
@@ -3412,7 +3561,8 @@ def _k5_bounds(b: int, refit: bool) -> tuple[float, str, int, int]:
 
 def _phase_k5(dev, floor_ms: float) -> dict:
     """(a) K5's two entries against their plain versions (the SVD route) on
-    the card, relaunch and graph replay bit for bit; the times of both
+    the card, relaunch and graph replay bit for bit, at N 1,024 and past the
+    shared-memory path; run.main with 8,192 keypoints; the times of both
     entries at B 1 and 8 beside the two-call route (one graph), the plain
     routes and the bounds; the split of a fit."""
     import torch
@@ -3421,6 +3571,8 @@ def _phase_k5(dev, floor_ms: float) -> dict:
 
     fit_rows, fit_worst = _k5_fit_cases(dev)
     refit_rows, refit_worst = _k5_refit_cases(dev)
+    large_rows, large_times, large_worst = _k5_large(dev)
+    cli_rows = _k5_cli_many_keypoints()
 
     timed = {}
     for b in (1, 8):
@@ -3479,7 +3631,9 @@ def _phase_k5(dev, floor_ms: float) -> dict:
 
     one = timed["B 1"]
     return {"cases": fit_rows, "refit_cases": refit_rows,
-            "max_err": max(fit_worst, refit_worst),
+            "large_cases": large_rows, "large_times": large_times,
+            "cli_many_keypoints": cli_rows,
+            "max_err": max(fit_worst, refit_worst, large_worst),
             "ms": statistics.median(one["refit_us"]) / 1e3,
             "plain_ms": one["refit_plain_us"] / 1e3,
             "bound_ms": one["refit_bound_us"] / 1e3,
@@ -3508,7 +3662,8 @@ def _count_waits(fn):
 
 
 def _device_busy(fn) -> tuple:
-    """(wall s, device-busy s) of one pass of `fn` traced on the device side."""
+    """(wall s, device-busy s, device kernels and copies) of one pass of `fn`
+    traced on the device side."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3519,9 +3674,9 @@ def _device_busy(fn) -> tuple:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev_s = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA) / 1e6
-    return wall, dev_s
+    on_device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_s = sum(e.self_device_time_total for e in on_device) / 1e6
+    return wall, dev_s, sum(e.count for e in on_device)
 
 
 def _timed(fn) -> float:
@@ -3532,6 +3687,19 @@ def _timed(fn) -> float:
     fn()
     torch.cuda.synchronize()
     return time.perf_counter() - t0
+
+
+def _graphed_window(gray, depth, intr, fcfg, tcfg, dev) -> tuple:
+    """`_device_busy` of frames BUSY of a graphed odometry_scan in steady
+    state: the graph captured and replayed on frames 1 to BUSY[0] - 1
+    first."""
+    from jetracer_orbslam2_torch.models import odometry as odo
+
+    st = odo.init_state(gray[0], depth[0], intr, fcfg, tcfg, device=dev)
+    st, _, _ = odo.odometry_scan(st, gray[1:BUSY[0]], depth[1:BUSY[0]], intr,
+                                 fcfg, tcfg)
+    return _device_busy(lambda: odo.odometry_scan(  # noqa: E731
+        st, gray[BUSY[0]:BUSY[1]], depth[BUSY[0]:BUSY[1]], intr, fcfg, tcfg))
 
 
 def _graph_odometry(gray, depth, intr, gt, fcfg, tcfg, dev) -> dict:
@@ -3580,11 +3748,7 @@ def _graph_odometry(gray, depth, intr, gt, fcfg, tcfg, dev) -> dict:
             and torch.equal(runs["eager"][0], ref[0]))
     rmse = float(ate(poses.cpu(), torch.as_tensor(gt)).rmse)
 
-    # the device-busy share over frames BUSY of a run in steady state (the
-    # graph captured and replayed before the window)
-    st = odo.init_state(gray[0], depth[0], intr, fcfg, tcfg, device=dev)
-    st_g, _, _ = odo.odometry_scan(st, gray[1:BUSY[0]], depth[1:BUSY[0]], intr,
-                                   fcfg, tcfg)
+    # the device-busy share over frames BUSY of a run in steady state
     st_e = odo.init_state(gray[0], depth[0], intr, fcfg, tcfg, device=dev)
     for i in range(1, BUSY[0]):
         st_e, _ = odo.odometry_step(st_e, gray[i], depth[i], intr, fcfg, tcfg)
@@ -3594,12 +3758,8 @@ def _graph_odometry(gray, depth, intr, gt, fcfg, tcfg, dev) -> dict:
         for i in range(*BUSY):
             st, _ = odo.odometry_step(st, gray[i], depth[i], intr, fcfg, tcfg)
 
-    def graphed_window():
-        odo.odometry_scan(st_g, gray[BUSY[0]:BUSY[1]], depth[BUSY[0]:BUSY[1]],
-                          intr, fcfg, tcfg)
-
     busy = {"eager": _device_busy(eager_window),
-            "graphed": _device_busy(graphed_window)}
+            "graphed": _graphed_window(gray, depth, intr, fcfg, tcfg, dev)}
     window = BUSY[1] - BUSY[0]
     report = {
         "frames": n, "ate_rmse_m": rmse,
@@ -3613,6 +3773,7 @@ def _graph_odometry(gray, depth, intr, gt, fcfg, tcfg, dev) -> dict:
                          for k, v in walls.items()},
         "device_busy_ms_per_frame": {k: b[1] / window * 1e3
                                      for k, b in busy.items()},
+        "device_kernels_per_frame": {k: b[2] / window for k, b in busy.items()},
         "traced_ms_per_frame": {k: b[0] / window * 1e3 for k, b in busy.items()},
         "idle_share": {k: 1 - b[1] / b[0] for k, b in busy.items()},
         "turns": "eager, graphed, graphed, eager over every frame; then "
@@ -3627,7 +3788,7 @@ def _graph_odometry(gray, depth, intr, gt, fcfg, tcfg, dev) -> dict:
         raise SystemExit(f"FAIL: graphed odometry ATE {rmse} / tracked "
                          f"{report['tracked_frac']}")
     want = {"fast_nms_pyramid": n, "extract_patches_fused": n,
-            "rigid_fit": n - 1}
+            "rigid_fit": n - 1, "pose_polish": n - 1}
     got = {k: launches[k] for k in want}
     if (graph.captures, graph.replays, graph.eager_calls) != (1, n - 2, 1) \
             or got != want:
@@ -3792,6 +3953,7 @@ def _graph_slam(gray, depth, intr, gt, cfg, dev) -> dict:
                          for k, v in walls.items()},
         "device_busy_ms_per_frame": {k: b[1] / window * 1e3
                                      for k, b in busy.items()},
+        "device_kernels_per_frame": {k: b[2] / window for k, b in busy.items()},
         "traced_ms_per_frame": {k: b[0] / window * 1e3 for k, b in busy.items()},
         "idle_share": {k: 1 - b[1] / b[0] for k, b in busy.items()},
         "turns": "eager, graphed, graphed, eager over every frame; then "
@@ -3819,7 +3981,7 @@ def _graph_slam(gray, depth, intr, gt, cfg, dev) -> dict:
     if launches["fast_nms_pyramid"] != n or launches["extract_patches_fused"] != n:
         raise SystemExit(f"FAIL: SLAM graph launches {launches}: K1 = K4 = {n} "
                          "expected")
-    _without_k5(launches, n - 1, "SLAM graph")
+    _without_k5_k6(launches, n - 1, "SLAM graph")
     if any(not v or max(v) != 1 or min(v) != 1 for v in plain.values()):
         raise SystemExit(f"FAIL: host waits of a plain SLAM frame: {plain} "
                          "(one expected: the packed fetch)")
@@ -3843,6 +4005,345 @@ def phase_graphs(source, args, dev, floor_ms: float) -> dict:
     slam = _graph_slam(gray, depth, source.intr, source.gt,
                        SystemConfig(frontend=fcfg), dev)
     return {"k5": k5, "odometry": odometry, "slam": slam}
+
+
+# ---------------------------------------------------------------------------
+# phase 23: K6, the reprojection polish as one kernel
+# ---------------------------------------------------------------------------
+
+# K6 against its plain version: rotation entries within K6_TOL, translations
+# within K6_TOL of the points' scale (the plain version sums in f32 and
+# solves by LU, the kernel sums in f64 and solves by Cholesky)
+K6_TOL = 1e-5
+K6_ITERS, K6_HUBER = 5, 2.0         # the polish's defaults: 5 steps, 2 px
+# fewer steps, where each step still moves T by far more than K6_TOL: a
+# kernel that ran a step too few or in another order fails these
+K6_SHORT_ITERS = (1, 2)
+K6_POINTS = 1024
+K6_CAPTURED_FRAMES = 40             # the odometry run's first frames
+
+
+def _polish_problems(b: int, k: int, seed: int, intr, dev, kind: str = "random"):
+    """b polish problems of k points, from a numpy seed: points 0.8-8 m in
+    front of the destination camera and inside its 640x480 image, seen from
+    a source pose a small motion away (X_src); their pixels with 0.5 px
+    noise, depths with 1 %.z^2 noise and a sixth of them missing; 0/1
+    weights (70 % ones); T0 the true motion perturbed (RANSAC's estimate).
+    kind: "random", "zero" (all weights 0), "no_depth" (every z_dst 0),
+    "outliers" (a fifth of the pixels moved 10-50 px).  Returns (T0, X, uv,
+    z, w) on `dev`, batched."""
+    import numpy as np
+    import torch
+
+    fx, fy, cx, cy = (float(v) for v in intr.cpu())
+    rng = np.random.default_rng(seed)
+    T0 = np.zeros((b, 4, 4))
+    X = np.empty((b, k, 3))
+    uv = np.empty((b, k, 2))
+    z = np.empty((b, k))
+    for i in range(b):
+        R, t = _rotation(rng, 0.03), rng.normal(0.0, 0.05, 3)
+        depth = rng.uniform(0.8, 8.0, k)
+        pix = np.stack([rng.uniform(0, 640, k), rng.uniform(0, 480, k)], -1)
+        P = np.stack([(pix[:, 0] - cx) / fx * depth,
+                      (pix[:, 1] - cy) / fy * depth, depth], -1)
+        X[i] = (P - t) @ R                                 # R^T (P - t)
+        uv[i] = pix + rng.normal(0.0, 0.5, (k, 2))
+        z[i] = depth + rng.normal(0.0, 0.01, k) * depth ** 2
+        z[i, rng.random(k) < 1 / 6] = 0.0
+        dR, dt = _rotation(rng, 0.01), rng.normal(0.0, 0.02, 3)
+        T0[i, :3, :3] = dR @ R
+        T0[i, :3, 3] = dR @ t + dt
+        T0[i, 3, 3] = 1.0
+    w = (rng.random((b, k)) < 0.7).astype(np.float64)
+    if kind == "zero":
+        w[:] = 0.0
+    elif kind == "no_depth":
+        z[:] = 0.0
+    elif kind == "outliers":
+        moved = rng.random((b, k)) < 0.2
+        shift = rng.uniform(10.0, 50.0, (b, k, 2)) * rng.choice([-1.0, 1.0], (b, k, 2))
+        uv[moved] += shift[moved]
+    f = lambda x: torch.from_numpy(x.astype(np.float32)).to(dev)  # noqa: E731
+    return f(T0), f(X), f(uv), f(z), f(w)
+
+
+def _check_polish(label: str, problem, intr, iters: int = K6_ITERS) -> dict:
+    """pose_polish against pose_polish_reference on these problems, `iters`
+    steps: rotation entries and translations (of the points' scale) within
+    K6_TOL, a relaunch and two graph replays torch.equal, the steps whose
+    Cholesky met a non-positive pivot counted.  Returns the case's row (with
+    "got")."""
+    import torch
+    from jetracer_orbslam2_torch.ops import fused_polish
+
+    T0, X, uv, z, w = problem
+    singular = torch.zeros(T0.shape[:1], dtype=torch.int32, device=T0.device)
+    polish = lambda: fused_polish.pose_polish(  # noqa: E731
+        T0, X, uv, z, w, intr, iters, K6_HUBER)
+    got = fused_polish.pose_polish(T0, X, uv, z, w, intr, iters, K6_HUBER,
+                                   singular=singular)
+    again = polish()
+    plain = fused_polish.pose_polish_reference(T0, X, uv, z, w, intr, iters,
+                                               K6_HUBER)
+    replays = _replayed(polish)
+    torch.cuda.synchronize()
+    err_r, err_t, scale = _pose_errors(got, plain, X, X)
+    bits = (torch.equal(got, again) and torch.equal(got, replays[0])
+            and torch.equal(got, replays[1]))
+    bad_steps = int(singular.sum())
+    finite = bool(torch.isfinite(got).all())
+    say(f"  K6 {label}: rotation {err_r:.2e}, translation {err_t:.2e} of scale "
+        f"{scale:.1f} (tol {K6_TOL:g}); non-positive Cholesky pivots in "
+        f"{bad_steps} of {T0.shape[0] * iters} steps; relaunch and two "
+        f"graph replays torch.equal: {bits}")
+    if not (err_r <= K6_TOL and err_t <= K6_TOL and bits and finite):
+        raise SystemExit(f"FAIL: K6 at {label}")
+    return {"case": label, "batch": T0.shape[0], "points": X.shape[1],
+            "iters": iters, "rotation_err": err_r, "translation_err_rel": err_t,
+            "singular_steps": bad_steps, "bit_identical": bits, "got": got}
+
+
+def _k6_bounds(b: int, k: int) -> tuple[float, str, int, int]:
+    """(bound ms, what bounds it, bytes, operations) of one K6 launch of b
+    problems of k points: each input read once (T0 64 B, 28 B a point, the
+    intrinsics 16 B), the output written once (64 B).  Per point and step:
+    the transform (18), projection, residual, norm and Huber weight (about
+    25), the Jacobian's nonzero entries (about 20), and the sums of H's 21
+    upper entries and b's 6 over J's structural nonzeros (5, 5 and 3 in its
+    three rows): 13 weight products and 36 + 13 multiply-adds, 111; 174 in
+    all.  Per step the Cholesky, two solves and se3_exp, about 600."""
+    n_bytes = b * (k * 28 + 64 + 64) + 16
+    n_ops = b * K6_ITERS * (k * 174 + 600)
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / F32_OPS_PER_S * 1e3
+    return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations",
+            n_bytes, n_ops)
+
+
+def _captured_polish_problems(frames, intr, fcfg, dev):
+    """The polish problems of the odometry run over `frames` (the eager
+    `odometry_step` of phase 22's arc), stacked as one batch: (T0, X, uv,
+    z, w)."""
+    import torch
+    from jetracer_orbslam2_torch.config import TrackingConfig
+    from jetracer_orbslam2_torch.models import odometry as odo
+    from jetracer_orbslam2_torch.models import tracking
+
+    tcfg = TrackingConfig()
+    captured = []
+    plain_call = tracking.refine_pose_reprojection
+
+    def record(*a, **kw):
+        if len(a) != 6 or kw:
+            raise SystemExit(f"FAIL: track_rgbd's polish call changed: {len(a)} "
+                             f"arguments, {sorted(kw)}")
+        captured.append(tuple(x.clone() for x in a[:5]))
+        return plain_call(*a, **kw)
+
+    st = odo.init_state(frames[0][0], frames[0][1], intr, fcfg, tcfg, device=dev)
+    tracking.refine_pose_reprojection = record
+    try:
+        for g, d, *_ in frames[1:]:
+            st, _ = odo.odometry_step(st, g, d, intr, fcfg, tcfg)
+    finally:
+        tracking.refine_pose_reprojection = plain_call
+    return tuple(torch.stack(x) for x in zip(*captured))
+
+
+# K6's register path against its streamed path at the same K: the kernel of
+# csrc/pose_polish.cu that reads the points from memory on every step,
+# launched at a K the wrapper gives to the register path
+K6_STREAMED_SOURCE = r"""
+#include "pose_polish.cu"
+
+extern "C" int k6_streamed_launch(const float* T0, const float* X,
+                                  const float* uv, const float* zd,
+                                  const float* w, const float* intr, float* out,
+                                  int batch, int k, int iters, float huber,
+                                  void* stream) {
+    pose_polish_kernel<false><<<batch, THREADS, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+        T0, X, uv, zd, w, intr, out, nullptr, k, iters, huber);
+    return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def _k6_streamed(problem, intr) -> dict:
+    """Device us a launch of K6 with the points in registers (pose_polish)
+    and read from memory on every step, in turns, on this problem; fails
+    unless the two give the same bits."""
+    import ctypes
+    import torch
+    from jetracer_orbslam2_torch.ops import fused_polish
+    from jetracer_orbslam2_torch.utils import cuda_build
+
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    source = cuda_build.BUILD_DIR / "k6_streamed.cu"
+    source.write_text(K6_STREAMED_SOURCE)
+    lib_path = cuda_build.BUILD_DIR / "k6_streamed.so"
+    subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-I",
+                    str(cuda_build.CSRC_DIR), "-o", str(lib_path), str(source)],
+                   check=True, capture_output=True, text=True, timeout=300)
+    fn = ctypes.CDLL(str(lib_path)).k6_streamed_launch
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [ptr] * 7 + [i32, i32, i32, ctypes.c_float, ptr]
+    fn.restype = i32
+    T0, X, uv, z, w = problem
+    out = torch.empty_like(T0)
+
+    def streamed():
+        if fn(*(x.data_ptr() for x in (T0, X, uv, z, w, intr, out)), T0.shape[0],
+              X.shape[1], K6_ITERS, K6_HUBER,
+              torch.cuda.current_stream().cuda_stream) != 0:
+            raise SystemExit("FAIL: K6's streamed kernel did not launch")
+
+    registers = lambda: fused_polish.pose_polish(  # noqa: E731
+        T0, X, uv, z, w, intr, K6_ITERS, K6_HUBER)
+    streamed()
+    same = torch.equal(out, registers())
+    if not same:
+        raise SystemExit("FAIL: K6's register and streamed paths differ")
+    times = {"registers_us": [], "streamed_us": []}
+    for key, f in (("registers_us", registers), ("streamed_us", streamed),
+                   ("streamed_us", streamed), ("registers_us", registers)):
+        times[key].append(time_launches(f, reps=20, batch=20) * 1e3)
+    return times
+
+
+def phase_polish(source, args, dev, floor_ms: float) -> dict:
+    """Phase 23: K6 against its plain version on synthetic problems and on
+    the odometry run's own, at 5 steps and at 1 and 2; its time, the plain
+    version's, the floor and the bound, its register path against its
+    streamed path; the graphed odometry frame's nodes and busy ms with K6
+    and with the plain version, in turns."""
+    import itertools
+    import torch
+    from jetracer_orbslam2_torch import run
+    from jetracer_orbslam2_torch.config import TrackingConfig
+    from jetracer_orbslam2_torch.models import tracking
+    from jetracer_orbslam2_torch.ops import fused_polish
+
+    intr = source.intr
+    cases = [
+        ("B 1, K 1,024", 1, K6_POINTS, "random"),
+        ("B 8, K 1,024", 8, K6_POINTS, "random"),
+        ("B 1, K 8,192 (points read from memory each step)", 1, 8192, "random"),
+        ("B 1, all weights 0", 1, K6_POINTS, "zero"),
+        ("B 1, no depth rows", 1, K6_POINTS, "no_depth"),
+        ("B 1, 20 % outliers", 1, K6_POINTS, "outliers"),
+    ]
+    rows, problems = [], {}
+    for seed, (label, b, k, kind) in enumerate(cases, 60):
+        problem = _polish_problems(b, k, seed, intr, dev, kind)
+        problems[label] = problem
+        row = _check_polish(label, problem, intr)
+        got = row.pop("got")
+        if kind == "zero" and not torch.equal(got, problem[0]):
+            raise SystemExit("FAIL: K6 with all weights 0 did not return T0")
+        rows.append(row)
+    frames = list(itertools.islice(source.frames(), BUSY[1]))
+    fcfg = run._frontend_cfg(args, source.hw, source.cal)
+    real = _captured_polish_problems(frames[:K6_CAPTURED_FRAMES], intr, fcfg, dev)
+    real_label = (f"the first {K6_CAPTURED_FRAMES} frames' problems of the "
+                  f"odometry run as one batch (B {real[0].shape[0]}, K "
+                  f"{real[1].shape[1]})")
+    row = _check_polish(real_label, real, intr)
+    got = row.pop("got")
+    alone = torch.stack([fused_polish.pose_polish(
+        *(x[i] for x in real), intr, K6_ITERS, K6_HUBER)
+        for i in range(real[0].shape[0])])
+    row["rows_equal_alone"] = torch.equal(alone, got)
+    if not row["rows_equal_alone"]:
+        raise SystemExit("FAIL: K6's batch rows differ from one launch a problem")
+    rows.append(row)
+    for iters in K6_SHORT_ITERS:
+        for label, problem in ((cases[0][0], problems[cases[0][0]]),
+                               (real_label, real)):
+            row = _check_polish(f"{label}, {iters} step(s)", problem, intr, iters)
+            row.pop("got")
+            rows.append(row)
+    worst = max(max(r["rotation_err"], r["translation_err_rel"]) for r in rows)
+    say(f"  K6: worst error {worst:.2e} (tol {K6_TOL:g}); non-positive "
+        f"Cholesky pivots in {sum(r['singular_steps'] for r in rows)} steps "
+        "over every case; each batch row equal to its problem alone")
+
+    times = {}
+    for label in cases[0][0], cases[1][0], cases[2][0]:
+        T0, X, uv, z, w = problems[label]
+        kernel = lambda: fused_polish.pose_polish(  # noqa: E731
+            T0, X, uv, z, w, intr, K6_ITERS, K6_HUBER)
+        plain = lambda: [fused_polish.pose_polish_reference(  # noqa: E731
+            T0, X, uv, z, w, intr, K6_ITERS, K6_HUBER) for _ in range(10)]
+        row = {"us": [], "plain_us": []}
+        # in turns: kernel, plain, plain, kernel
+        for key, fn in (("us", kernel), ("plain_us", plain), ("plain_us", plain),
+                        ("us", kernel)):
+            if key == "us":
+                row[key].append(time_launches(fn, reps=20, batch=20) * 1e3)
+            else:
+                row[key].append(_median_event_ms(fn, reps=10, per_run=10) * 1e3)
+        bound, by, n_bytes, n_ops = _k6_bounds(T0.shape[0], X.shape[1])
+        row.update(bound_us=bound * 1e3, bound_by=by, bytes=n_bytes, ops=n_ops,
+                   floor_us=floor_ms * 1e3)
+        times[label] = row
+        say(f"  K6 at {label} (us a launch, in turns): {row['us'][0]:.2f} / "
+            f"{row['us'][1]:.2f}; the plain version {row['plain_us'][0]:.1f} / "
+            f"{row['plain_us'][1]:.1f} a call (CUDA events around 10 eager "
+            f"calls); floor {floor_ms * 1e3:.2f}; bound {row['bound_us']:.4f} "
+            f"({by}: {n_bytes} B, {n_ops} ops)")
+
+    # the split of a launch at B 1, K 1,024: no step (the launch, the load,
+    # the write), one step, five; then the same launch with the points read
+    # from memory on every step
+    one = times[cases[0][0]]
+    T0, X, uv, z, w = problems[cases[0][0]]
+    steps = {}
+    for iters in (0, 1, K6_ITERS):
+        steps[iters] = time_launches(lambda: fused_polish.pose_polish(  # noqa: E731
+            T0, X, uv, z, w, intr, iters, K6_HUBER), reps=20, batch=20) * 1e3
+    one["steps_us"] = steps
+    say(f"  K6 split at {cases[0][0]} (us a launch): 0 steps {steps[0]:.2f}, "
+        f"1 step {steps[1]:.2f}, {K6_ITERS} steps {steps[K6_ITERS]:.2f}")
+    one["paths"] = _k6_streamed(problems[cases[0][0]], intr)
+    say(f"  K6 at {cases[0][0]}, points in registers against read from "
+        f"memory each step (us a launch, in turns, the same bits): "
+        f"{' / '.join(f'{v:.2f}' for v in one['paths']['registers_us'])} "
+        f"against {' / '.join(f'{v:.2f}' for v in one['paths']['streamed_us'])}")
+
+    # the graphed odometry frame over frames BUSY, with K6 and with the plain
+    # version in its place, in turns
+    gray = torch.stack([f[0] for f in frames])
+    depth = torch.stack([f[1] for f in frames])
+    tcfg = TrackingConfig()
+    kernel_call = tracking.refine_pose_reprojection
+    frame = {"kernel": [], "plain": []}
+    for key in ("kernel", "plain", "plain", "kernel"):
+        if key == "plain":
+            tracking.refine_pose_reprojection = fused_polish.pose_polish_reference
+        try:
+            frame[key].append(_graphed_window(gray, depth, intr, fcfg, tcfg, dev))
+        finally:
+            tracking.refine_pose_reprojection = kernel_call
+    window = BUSY[1] - BUSY[0]
+    odometry_frame = {
+        k: {"device_kernels_per_frame": [b[2] / window for b in v],
+            "device_busy_ms_per_frame": [b[1] / window * 1e3 for b in v]}
+        for k, v in frame.items()}
+    say(f"  graphed odometry frame (frames {BUSY[0]}-{BUSY[1] - 1}, in turns): "
+        "with K6 " + ", ".join(
+            f"{n:.1f} device kernels and copies, busy {ms:.3f} ms"
+            for n, ms in zip(*odometry_frame["kernel"].values()))
+        + "; with the plain polish " + ", ".join(
+            f"{n:.1f}, busy {ms:.3f} ms"
+            for n, ms in zip(*odometry_frame["plain"].values())))
+    return {"cases": rows, "max_err": worst, "times": times,
+            "ms": statistics.median(one["us"]) / 1e3,
+            "plain_ms": statistics.median(one["plain_us"]) / 1e3,
+            "bound_ms": one["bound_us"] / 1e3, "bound_by": one["bound_by"],
+            "floor_ms": floor_ms, "library_ms": None,
+            "odometry_frame": odometry_frame}
 
 
 def print_build(name: str) -> None:
@@ -3872,7 +4373,7 @@ def main(argv: list[str]) -> int:
     # the port under test; absent in a directory that holds only this script
     import jetracer_orbslam2_torch
     from jetracer_orbslam2_torch.ops import (
-        fused_ba, fused_fast, fused_patches, fused_rigid)
+        fused_ba, fused_fast, fused_patches, fused_polish, fused_rigid)
     from jetracer_orbslam2_torch.utils import cuda_build
     from jetracer_orbslam2_torch.utils.device import resolve_device
     from jetracer_orbslam2_torch.utils.precision import set_exact_f32
@@ -3889,13 +4390,14 @@ def main(argv: list[str]) -> int:
 
     phase(2, "build (one nvcc per source, started together)")
     t0 = time.perf_counter()
-    sources = ["fast_nms", "ba_fused", "patch_gather", "rigid_fit"]
+    sources = ["fast_nms", "ba_fused", "patch_gather", "rigid_fit", "pose_polish"]
     cuda_build.build_libraries(sources)
     fused_fast._launcher()
     fused_ba._launchers()
     fused_patches._library()
     fused_rigid._launchers()
-    say(f"  four libraries built and loaded in {time.perf_counter() - t0:.2f} s")
+    fused_polish._launcher()
+    say(f"  five libraries built and loaded in {time.perf_counter() - t0:.2f} s")
     for name in sources:
         print_build(name)
 
@@ -4005,6 +4507,11 @@ def main(argv: list[str]) -> int:
 
         phase(22, GRAPHS_TITLE)
         graphs = phase_graphs(source, args, dev, floor_ms)
+
+        phase(23, "K6 (pose_polish) vs its plain version, its time (CUDA "
+                  "events around a replayed CUDA graph of 20 launches, median "
+                  "of 20), the graphed odometry frame's nodes")
+        polish = phase_polish(source, args, dev, floor_ms)
     torch.cuda.synchronize()
 
     k1 = times["odometry"]
@@ -4158,8 +4665,45 @@ def main(argv: list[str]) -> int:
                        "stereo_path_launches phase 18's",
         "cases": k5["cases"],
         "refit_cases": k5["refit_cases"],
+        "large_cases": k5["large_cases"],
+        "large_times": k5["large_times"],
         "times": k5["times"],
         "split": k5["split"],
+    })
+    kernels.append({
+        "name": "pose_polish",
+        "route": "cuda",
+        "source": "jetracer_orbslam2_torch/csrc/pose_polish.cu",
+        "replaces": "jetracer_orbslam2_tpu/models/tracking.py:59",
+        "launches": runtime_launches["pose_polish"],
+        "odometry_path_launches": graphs["odometry"]["launches"]["pose_polish"],
+        "slam_path_launches": slam_launches["pose_polish"],
+        "stereo_path_launches": stereo_launches["pose_polish"],
+        "max_abs_err": polish["max_err"],
+        "ms": polish["ms"],
+        "plain_ms": polish["plain_ms"],
+        "bound_ms": polish["bound_ms"],
+        "bound_by": polish["bound_by"],
+        "library_ms": None,
+        "floor_ms": polish["floor_ms"],
+        "numbers_are": "K6 has no Pallas counterpart: it replaces the JAX "
+                       "package's lax.scan of 5 Gauss-Newton steps "
+                       "(refine_pose_reprojection, models/tracking.py:59-105), "
+                       "which XLA fuses inside the jitted frame step; ms, "
+                       "plain_ms, bound_ms per launch at B 1, K 1,024, 5 "
+                       "steps (every launch of the main path is one); "
+                       "max_abs_err is the worst rotation entry or "
+                       "translation relative to the points' scale against "
+                       "the plain version (the loop of small PyTorch ops it "
+                       "replaced, CUDA events around 10 eager calls); no "
+                       "single PyTorch call computes a Gauss-Newton polish; "
+                       "launches are the runtime path's (phase 20 run C, "
+                       "two a stepped frame), odometry_path_launches phase "
+                       "22's graphed odometry_scan's, slam_path_launches "
+                       "phase 13's, stereo_path_launches phase 18's",
+        "cases": polish["cases"],
+        "times": polish["times"],
+        "odometry_frame": polish["odometry_frame"],
     })
     seconds = round(time.perf_counter() - t_start, 1)
     say(json.dumps({"main_path": report, "card": card, "seconds": seconds}))
@@ -4173,6 +4717,7 @@ def main(argv: list[str]) -> int:
     say(json.dumps({"runtime": runtime_report["summary"], "card": card}))
     say(json.dumps({"sharded": sharded_report, "card": card}))
     say(json.dumps({"graphs": graphs, "card": card}))
+    say(json.dumps({"polish": polish, "card": card}))
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

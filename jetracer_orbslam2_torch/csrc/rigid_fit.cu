@@ -60,10 +60,20 @@
 // (world points tens of metres out, spread over metres), far below the
 // 1e-5 the kernel is held to.
 //
-// Layout: one block of 128 threads a problem, B blocks.  Shared memory:
-// src and dst (12 N bytes each, rounded up to 16) and the weights (4 N
-// bytes); the refit's w1, keep and a gate a point (12 N bytes).  N <= MAX_N
-// = 6144 (221,184 bytes, within the 227 KB a block may take).
+// Layout: one block of 128 threads a problem, B blocks.  Two paths, chosen
+// by N at the launch, with the same arithmetic in the same order:
+//   - N <= MAX_N = 6144 (the staged path): the problem in shared memory, src
+//     and dst (12 N bytes each, rounded up to 16) and the weights (4 N
+//     bytes); the refit's w1, keep and a gate a point (12 N bytes): 221,184
+//     bytes at MAX_N, within the 227 KB a block may take;
+//   - N > MAX_N (the streamed path): no copy; each pass reads the points
+//     from global memory a tile of 128 points at a time, thread i taking
+//     points i, i + 128, ...: the fit's moments in one pass, the refit's
+//     first fit in one and its residual gate with the second fit's moments
+//     in a second, which reads the points again instead of keeping them.
+//     The reduction is the staged path's (thread, warp shuffle tree, warps
+//     in warp order, no atomics), so relaunches and replays repeat bit for
+//     bit at any N.
 
 #include <cuda_runtime.h>
 
@@ -74,7 +84,7 @@ namespace {
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
 constexpr int NMOM = 16;           // moments of one fit
-constexpr int MAX_N = 6144;        // points a problem (9 floats each in smem)
+constexpr int MAX_N = 6144;        // points of the staged path (9 floats each in smem)
 constexpr int NEWTON_MAX = 50;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -367,26 +377,35 @@ __device__ __forceinline__ void write_pose(float* o, const double (&R)[3][3],
     o[15] = 1.0f;
 }
 
+// kStaged: the problem is first copied into shared memory (N <= MAX_N);
+// otherwise every pass reads it from global memory (the streamed path).
+template <bool kStaged>
 __global__ void __launch_bounds__(THREADS)
 rigid_fit_kernel(const float* __restrict__ src, const float* __restrict__ dst,
                  const float* __restrict__ weights, float* __restrict__ out, int n) {
     extern __shared__ __align__(16) float sm[];
     __shared__ double part[WARPS * NMOM];
     const long long b = blockIdx.x;
-    const int n3 = 3 * n, off_d = round4(n3);
-    float* ss = sm;
-    float* sd = sm + off_d;
-    float* sw = sm + 2 * off_d;
-    stage(ss, src + b * n3, n3);
-    stage(sd, dst + b * n3, n3);
-    if (weights) stage(sw, weights + b * n, n);
-    commit_stage();
-    wait_stage<0>();
+    const int n3 = 3 * n;
+    const float* ss = src + b * n3;
+    const float* sd = dst + b * n3;
+    const float* sw = weights ? weights + b * n : nullptr;
+    if (kStaged) {
+        const int off_d = round4(n3);
+        stage(sm, ss, n3);
+        stage(sm + off_d, sd, n3);
+        if (sw) stage(sm + 2 * off_d, sw, n);
+        commit_stage();
+        wait_stage<0>();
+        ss = sm;
+        sd = sm + off_d;
+        if (sw) sw = sm + 2 * off_d;
+    }
 
     double v[NMOM];
     for (int k = 0; k < NMOM; ++k) v[k] = 0.0;
     for (int i = threadIdx.x; i < n; i += THREADS)
-        accumulate(v, weights ? sw[i] : 1.0f, ss + 3 * i, sd + 3 * i);
+        accumulate(v, sw ? sw[i] : 1.0f, ss + 3 * i, sd + 3 * i);
     reduce_moments(v, part);
     if (threadIdx.x != 0) return;
     double m[NMOM], R[3][3], t[3];
@@ -395,6 +414,7 @@ rigid_fit_kernel(const float* __restrict__ src, const float* __restrict__ dst,
     write_pose(out + b * 16, R, t);
 }
 
+template <bool kStaged>
 __global__ void __launch_bounds__(THREADS)
 rigid_refit_kernel(const float* __restrict__ src, const float* __restrict__ dst,
                    const float* __restrict__ w1, const float* __restrict__ keep,
@@ -406,22 +426,31 @@ rigid_refit_kernel(const float* __restrict__ src, const float* __restrict__ dst,
     __shared__ int cpart[WARPS];
     __shared__ float T1[12];
     const long long b = blockIdx.x;
-    const int n3 = 3 * n, off_d = round4(n3);
-    const int off_w = 2 * off_d, off_k = off_w + round4(n);
-    float* ss = sm;
-    float* sd = sm + off_d;
-    float* sw = sm + off_w;
-    float* sk = sm + off_k;
-    float* sg = sm + off_k + round4(n);
-    // the points and w1 first; keep and the gate arrive during the first fit
-    stage(ss, src + b * n3, n3);
-    stage(sd, dst + b * n3, n3);
-    stage(sw, w1 + b * n, n);
-    commit_stage();
-    stage(sk, keep + b * n, n);
-    if (gate) stage(sg, gate + b * n, n);
-    commit_stage();
-    wait_stage<1>();
+    const int n3 = 3 * n;
+    const float* ss = src + b * n3;
+    const float* sd = dst + b * n3;
+    const float* sw = w1 + b * n;
+    const float* sk = keep + b * n;
+    const float* sg = gate ? gate + b * n : nullptr;
+    if (kStaged) {
+        const int off_d = round4(n3);
+        const int off_w = 2 * off_d, off_k = off_w + round4(n);
+        // the points and w1 first; keep and the gate arrive during the
+        // first fit
+        stage(sm, ss, n3);
+        stage(sm + off_d, sd, n3);
+        stage(sm + off_w, sw, n);
+        commit_stage();
+        stage(sm + off_k, sk, n);
+        if (sg) stage(sm + off_k + round4(n), sg, n);
+        commit_stage();
+        wait_stage<1>();
+        ss = sm;
+        sd = sm + off_d;
+        sw = sm + off_w;
+        sk = sm + off_k;
+        if (sg) sg = sm + off_k + round4(n);
+    }
 
     // the first fit, rounded to f32 as the two-call route hands it on
     double v[NMOM];
@@ -438,9 +467,13 @@ rigid_refit_kernel(const float* __restrict__ src, const float* __restrict__ dst,
             T1[4 * i + 3] = (float)t[i];
         }
     }
-    wait_stage<0>();
+    if (kStaged)
+        wait_stage<0>();
+    else
+        __syncthreads();
 
-    // residuals at T1 in f32, the gate, the second fit's moments
+    // residuals at T1 in f32, the gate, the second fit's moments (the
+    // streamed path reads the points a second time here)
     float T[12];
     for (int k = 0; k < 12; ++k) T[k] = T1[k];
     float* wo = w2 + b * n;
@@ -454,7 +487,7 @@ rigid_refit_kernel(const float* __restrict__ src, const float* __restrict__ dst,
             e[r] = (s[0] * T[4 * r] + s[1] * T[4 * r + 1] + s[2] * T[4 * r + 2] +
                     T[4 * r + 3]) - d[r];
         const float err = sqrtf(e[0] * e[0] + e[1] * e[1] + e[2] * e[2]);
-        const float g = gate ? sg[i] : gate_value;
+        const float g = sg ? sg[i] : gate_value;
         const float wk = sk[i] * (err < g ? 1.0f : 0.0f);
         wo[i] = wk;
         c += wk != 0.0f;
@@ -473,38 +506,45 @@ rigid_refit_kernel(const float* __restrict__ src, const float* __restrict__ dst,
     count[b] = total;
 }
 
+// 3 N floats a problem must index within an int
 bool valid(int batch, int n) {
-    return batch >= 0 && n >= 0 && n <= MAX_N;
+    return batch >= 0 && n >= 0 && n <= (0x7fffffff / 3);
 }
 
 }  // namespace
 
-// Lets both kernels take the dynamic shared memory of MAX_N points (above
-// the default 48 KB).  Called once, when the library is loaded, outside any
-// stream capture.  Returns the cudaError.
+// Lets the staged kernels take the dynamic shared memory of MAX_N points
+// (above the default 48 KB); the streamed ones take none.  Called once, when
+// the library is loaded, outside any stream capture.  Returns the cudaError.
 extern "C" int rigid_fit_setup() {
     const int bytes = smem_bytes(MAX_N, 3);
     cudaError_t err = cudaFuncSetAttribute(
-        rigid_fit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        rigid_fit_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err == cudaSuccess)
-        err = cudaFuncSetAttribute(rigid_refit_kernel,
+        err = cudaFuncSetAttribute(rigid_refit_kernel<true>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     return static_cast<int>(err);
 }
 
-// weights may be null (every weight 1).  Returns the launch's cudaError.
+// weights may be null (every weight 1).  Any N: N <= MAX_N takes the staged
+// path, a larger N the streamed one.  Returns the launch's cudaError.
 extern "C" int rigid_fit_launch(const float* src, const float* dst,
                                 const float* weights, float* out, int batch,
                                 int n, void* stream) {
     if (!valid(batch, n)) return static_cast<int>(cudaErrorInvalidValue);
     if (batch == 0) return 0;
-    rigid_fit_kernel<<<batch, THREADS, smem_bytes(n, weights ? 1 : 0),
-                       static_cast<cudaStream_t>(stream)>>>(src, dst, weights, out, n);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (n <= MAX_N)
+        rigid_fit_kernel<true><<<batch, THREADS, smem_bytes(n, weights ? 1 : 0), s>>>(
+            src, dst, weights, out, n);
+    else
+        rigid_fit_kernel<false><<<batch, THREADS, 0, s>>>(src, dst, weights, out, n);
     return static_cast<int>(cudaGetLastError());
 }
 
 // gate may be null: every point's gate is gate_value.  out (B, 4, 4) is the
-// second fit, w2 (B, N) its weights, count (B,) int32 their nonzeros.
+// second fit, w2 (B, N) its weights, count (B,) int32 their nonzeros.  Any
+// N, as rigid_fit_launch.
 extern "C" int rigid_refit_launch(const float* src, const float* dst,
                                   const float* w1, const float* keep,
                                   const float* gate, float gate_value, float* out,
@@ -512,8 +552,12 @@ extern "C" int rigid_refit_launch(const float* src, const float* dst,
                                   void* stream) {
     if (!valid(batch, n)) return static_cast<int>(cudaErrorInvalidValue);
     if (batch == 0) return 0;
-    rigid_refit_kernel<<<batch, THREADS, smem_bytes(n, gate ? 3 : 2),
-                         static_cast<cudaStream_t>(stream)>>>(
-        src, dst, w1, keep, gate, gate_value, out, w2, count, n);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (n <= MAX_N)
+        rigid_refit_kernel<true><<<batch, THREADS, smem_bytes(n, gate ? 3 : 2), s>>>(
+            src, dst, w1, keep, gate, gate_value, out, w2, count, n);
+    else
+        rigid_refit_kernel<false><<<batch, THREADS, 0, s>>>(
+            src, dst, w1, keep, gate, gate_value, out, w2, count, n);
     return static_cast<int>(cudaGetLastError());
 }

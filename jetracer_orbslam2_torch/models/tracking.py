@@ -10,7 +10,8 @@ RANSAC is not a loop: all `iters` minimal 3-point hypotheses are solved in
 one batched quaternion Kabsch, scored in one (iters, K) residual matrix, and
 the winner refit on its inliers with two exact Kabsch solves
 (`fused_rigid.rigid_refit`: one K5 launch on the card, the SVD route on the
-CPU).  Random draws come from an explicit `torch.Generator` (the JAX package's
+CPU), then polished on the reprojection (`fused_polish.pose_polish`: one K6
+launch on the card).  Random draws come from an explicit `torch.Generator` (the JAX package's
 `jax.random.categorical` stream cannot be reproduced); tests inject the
 sample indices instead.  Nothing here reads a value back to the host.
 """
@@ -23,7 +24,7 @@ import torch
 
 from jetracer_orbslam2_torch.config import TrackingConfig
 from jetracer_orbslam2_torch.models.frontend import Features
-from jetracer_orbslam2_torch.ops import fused_rigid
+from jetracer_orbslam2_torch.ops import fused_polish, fused_rigid
 from jetracer_orbslam2_torch.ops import geometry as geo
 from jetracer_orbslam2_torch.ops import match as match_ops
 from jetracer_orbslam2_torch.utils.ties import first_argmax, first_argmin
@@ -54,41 +55,11 @@ def refine_pose_reprojection(
 ) -> Tensor:
     """Motion-only Gauss-Newton: refine T (dst <- src) so that the known 3D
     points X_src project onto their measured pixels uv_dst (plus a depth
-    row anchoring scale where z_dst > 0), with IRLS Huber weights."""
-    fx, fy = intrinsics[0], intrinsics[1]
-    zero = torch.zeros_like(z_dst)
-    wz_row = torch.where(z_dst > 1e-3, fx / torch.clamp_min(z_dst, 0.1), zero)
-    eye3 = torch.eye(3, dtype=X_src.dtype, device=X_src.device)
-    eye6 = torch.eye(6, dtype=X_src.dtype, device=X_src.device)
-    I3 = eye3.expand(X_src.shape[0], 3, 3)
-
-    T = T0
-    for _ in range(iters):
-        p = geo.transform_points(T, X_src[None])[0]        # (K, 3)
-        x, y, z = p[:, 0], p[:, 1], p[:, 2]
-        iz = 1.0 / torch.clamp_min(z, 1e-6)
-        u = fx * x * iz + intrinsics[2]
-        v = fy * y * iz + intrinsics[3]
-        r = torch.stack([u - uv_dst[:, 0], v - uv_dst[:, 1],
-                         wz_row * (z - z_dst)], -1)        # (K, 3)
-        wk = w * (z > 1e-3)
-        # IRLS Huber on the pixel norm
-        n = torch.linalg.norm(r, dim=-1)
-        wk = wk * torch.clamp_max(huber_px / torch.clamp_min(n, 1e-9), 1.0)
-        J_proj = torch.stack([
-            torch.stack([fx * iz, zero, -fx * x * iz * iz], -1),
-            torch.stack([zero, fy * iz, -fy * y * iz * iz], -1),
-            torch.stack([zero, zero, wz_row], -1),
-        ], 1)                                              # (K, 3, 3)
-        J_pose = torch.cat([I3, -geo.hat(p)], -1)          # (K, 3, 6)
-        J = J_proj @ J_pose                                # (K, 3, 6)
-        Jw = J * wk[:, None, None]
-        H = torch.einsum("kri,krj->ij", Jw, J) + 1e-6 * eye6
-        b = -torch.einsum("kri,kr->i", Jw, r)
-        # solve_ex: no error check, so no host sync inside the frame loop
-        dx = torch.linalg.solve_ex(H, b).result
-        T = geo.se3_exp(dx) @ T
-    return T
+    row anchoring scale where z_dst > 0), with IRLS Huber weights.  One K6
+    launch on the card (`fused_polish.pose_polish`), the plain version on
+    the CPU."""
+    return fused_polish.pose_polish(T0, X_src, uv_dst, z_dst, w, intrinsics,
+                                    iters, huber_px)
 
 
 def ransac_kabsch(

@@ -18,9 +18,10 @@ replaces no TPU kernel: the JAX package calls `jnp.linalg.svd` here, outside
 any Pallas kernel.
 
 The CUDA source is `jetracer_orbslam2_torch/csrc/rigid_fit.cu`: one block a
-problem loads the points into shared memory once, sums 16 moments in f64 in
-one fixed-order reduction (no atomics, so a relaunch and a graph replay give
-the same bits), and one thread finds the rotation as the top eigenvector of
+problem loads the points into shared memory once (up to MAX_POINTS pairs;
+above, it reads them from global memory on each pass), sums 16 moments in
+f64 in one fixed-order reduction (no atomics, so a relaunch and a graph
+replay give the same bits), and one thread finds the rotation as the top eigenvector of
 Horn's 4 x 4 matrix (Newton on its characteristic quartic with a convergence
 exit, then an adjugate row) and writes T.
 
@@ -43,9 +44,11 @@ from jetracer_orbslam2_torch.utils.step_graph import note_launch
 Tensor = torch.Tensor
 
 _LIB_NAME = "rigid_fit"
-# points a problem on the card: src, dst and the per-point weights, keep and
-# gate in one block's shared memory (36 bytes a point, 221,184 bytes at the
-# limit); csrc/rigid_fit.cu's MAX_N
+# the limit of the kernel's staged path (csrc/rigid_fit.cu's MAX_N): up to
+# MAX_POINTS pairs a problem, src, dst and the per-point weights, keep and
+# gate are copied into one block's shared memory (36 bytes a point, 221,184
+# bytes at the limit); a larger N takes the streamed path, which reads them
+# from global memory on each pass.  Not a limit of the wrappers.
 MAX_POINTS = 6144
 
 _ptrs: dict[str, object] = {}
@@ -53,7 +56,8 @@ _ptrs: dict[str, object] = {}
 
 def _launchers():
     """(rigid_fit_launch, rigid_refit_launch), the library built and set up
-    (its kernels allowed MAX_POINTS' shared memory) at the first call."""
+    (the staged kernels allowed MAX_POINTS' shared memory) at the first
+    call."""
     if not _ptrs:
         lib = cuda_build.load_library(_LIB_NAME)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
@@ -99,7 +103,8 @@ def rigid_refit_reference(src: Tensor, dst: Tensor, w1: Tensor, keep: Tensor,
 
 def _check(src: Tensor, dst: Tensor, **per_point) -> None:
     """src and dst (..., N, 3) alike, each of `per_point` None or (..., N),
-    all on src's device, float32 on the card, N within MAX_POINTS there."""
+    all on src's device, float32 on the card, the card the current CUDA
+    device."""
     if src.dim() < 2 or src.shape[-1] != 3 or dst.shape != src.shape:
         raise ValueError(f"src and dst must be (..., N, 3) alike, got "
                          f"{tuple(src.shape)} and {tuple(dst.shape)}")
@@ -122,9 +127,6 @@ def _check(src: Tensor, dst: Tensor, **per_point) -> None:
         if src.device.index != torch.cuda.current_device():
             raise ValueError(f"src lives on {src.device}, the current CUDA "
                              f"device is {torch.cuda.current_device()}")
-        if src.shape[-2] > MAX_POINTS:
-            raise ValueError(f"{src.shape[-2]} points a problem; the kernel "
-                             f"holds at most {MAX_POINTS} in shared memory")
 
 
 def _flat(x: Tensor | None, n: int, width: int = 0) -> Tensor | None:
@@ -149,9 +151,10 @@ def rigid_fit(src: Tensor, dst: Tensor, weights: Tensor | None = None) -> Tensor
     """(..., N, 3) src, dst and (..., N) weights (None: all 1) -> (..., 4, 4)
     T minimizing sum w ||T @ src - dst||^2, a proper rotation.
 
-    CUDA tensors (float32, N <= MAX_POINTS): ONE kernel launch on the current
-    stream (no sync, output from `torch.empty`); raises if it does not build,
-    load or launch.  CPU tensors: the plain version.
+    CUDA tensors (float32, any N: shared memory up to MAX_POINTS, streamed
+    above): ONE kernel launch on the current stream (no sync, output from
+    `torch.empty`); raises if it does not build, load or launch.  CPU
+    tensors: the plain version.
     """
     _check(src, dst, weights=weights)
     if src.device.type == "cpu":
@@ -174,9 +177,9 @@ def rigid_refit(src: Tensor, dst: Tensor, w1: Tensor, keep: Tensor,
     gate (..., N) or a number.  Returns T2 (..., 4, 4), w2 (..., N) and the
     count of nonzero w2, (...) int32.
 
-    CUDA tensors (float32, N <= MAX_POINTS): ONE kernel launch on the current
-    stream, T1 rounded to float32 between the fits as the two-call route
-    hands it on; raises if it does not build, load or launch.  CPU tensors:
+    CUDA tensors (float32, any N): ONE kernel launch on the current stream,
+    T1 rounded to float32 between the fits as the two-call route hands it
+    on; raises if it does not build, load or launch.  CPU tensors:
     the plain version.
     """
     if not (isinstance(w1, Tensor) and isinstance(keep, Tensor)):

@@ -109,6 +109,18 @@ def test_rigid_refit_batched_matches_jax():
                            frac[b], gate[b], T[b], "random")
 
 
+def test_rigid_refit_many_points_matches_jax():
+    """N 8,192, above the kernel's shared-memory path (MAX_POINTS): the
+    wrapper takes any N, and the plain route agrees with the JAX package's
+    refit sequence there too."""
+    n_points = 8192
+    assert n_points > fused_rigid.MAX_POINTS
+    src, dst, w1, frac, gate, T = _problem(11, "random", count=n_points)
+    got = fused_rigid.rigid_refit(t(src), t(dst), t(w1), t(frac), t(gate))
+    assert got[1].shape == (n_points,)
+    _check_against_jax(got, src, dst, w1, frac, gate, T, "random")
+
+
 def test_rigid_refit_plain_route_is_the_two_call_route():
     """On the CPU the refit is bit for bit the sequence `ransac_kabsch` and
     the map refit ran before it was one call."""

@@ -43,7 +43,8 @@ def test_port_sources_name_no_jax_import():
                 "runtime/telemetry.py", "runtime/checkpoint.py",
                 "ops/overlay.py", "utils/timing.py", "parallel/mesh.py",
                 "parallel/ba_sharded.py", "parallel/distributed_worker.py",
-                "ops/fused_rigid.py", "utils/step_graph.py"):
+                "ops/fused_rigid.py", "utils/step_graph.py",
+                "ops/fused_polish.py"):
         assert f"jetracer_orbslam2_torch/{new}" in names
     for path in files:
         assert not _FORBIDDEN.search(path.read_text()), path
@@ -74,7 +75,7 @@ for name in ("models.stereo", "io.datasets", "io.native_loader",
              "runtime.telemetry", "runtime.checkpoint", "ops.overlay",
              "utils.timing", "parallel.mesh", "parallel.ba_sharded",
              "parallel.distributed_worker", "ops.fused_rigid",
-             "utils.step_graph"):
+             "utils.step_graph", "ops.fused_polish"):
     assert "jetracer_orbslam2_torch." + name in sys.modules, name
 import chip_smoke
 leaked = [m for m in sys.modules
