@@ -29,9 +29,9 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
    1 device       a CUDA device must be present; prints the card's name and
                   power limit as nvidia-smi gives them
    2 build        nvcc compiles csrc/fast_nms.cu, csrc/ba_fused.cu,
-                  csrc/patch_gather.cu, csrc/rigid_fit.cu and
-                  csrc/pose_polish.cu side by side; prints seconds and
-                  ptxas' notes
+                  csrc/patch_gather.cu, csrc/rigid_fit.cu,
+                  csrc/pose_polish.cu and csrc/ransac_hyp.cu side by side;
+                  prints seconds and ptxas' notes
    3 K1, K4 check fast_nms kernel vs plain version, torch.equal: the one-level
                   call at every shape, the batched call (every level of a
                   pyramid, one or two thresholds, one launch) on frame 0's
@@ -44,9 +44,10 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
                   window origins; two launches bit-identical
    4 semantics    tie orders and CPU/GPU agreement of the front-end
    5 main path    whole-sequence odometry: ATE, tracked fraction, kernel
-                  launches (K1 and K4 once a frame, K5 and K6 once a
-                  tracked frame: the refit pair in one launch, the polish in
-                  one launch; no canvas packed);
+                  launches (K1 and K4 once a frame, K5, K6 and K7 once a
+                  stepped frame: the refit pair in one launch, the polish in
+                  one launch, RANSAC's hypotheses in one launch; no canvas
+                  packed);
                   --chunked 32 on the same frames gives the same poses; a
                   second, warm run is timed
    6 K1 time      the empty-kernel launch floor; device time of the one
@@ -78,7 +79,9 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
                   128 keyframe slots / 16,384 landmarks / 65,536 observations:
                   tracked fraction, loops, ATE, every kernel's launch count
                   (K6 twice a stepped frame: the tracker's and the map's
-                  polish; no canvas packed); frames/s of the run
+                  polish; K7 at least once: the tracker's RANSAC, and each
+                  loop verification and relocalization; no canvas packed);
+                  frames/s of the run
   14 lifecycle    three laps at 240x180 with 32 keyframe slots: keyframes are
                   culled and their slots recycled, tracking holds to the end
   15 CLI          run.main at its default mode (slam), whole and --chunked 8
@@ -107,7 +110,8 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
                   C's map (30 frames), then B and A again; A, B, C agree to
                   the pose (torch.equal), ATE < 10 cm, K1/K4 once a frame,
                   K2 = K3 = 10 x keyframe updates, K5 >= 2 a tracked frame,
-                  K6 = 2 a stepped frame, no watchdog stall, every frame pinned, host waits a frame
+                  K6 = 2 and K7 >= 1 a stepped frame, no watchdog stall,
+                  every frame pinned, host waits a frame
                   equal in A and B and at
                   most one more a frame in C's publish, every telemetry
                   document the viewer's fields at 640x480, the checkpoint's
@@ -124,7 +128,8 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
                   exit 0 on cuda:0, keyframes, loops, relocs, poses and
                   tracked flags equal, ATE < 10 cm, tracked >= 0.95, K1 = K4
                   = frames, K2 = K3 = 10 x keyframe updates, K5 >= 2 a
-                  tracked frame, K6 = 2 a stepped frame, mesh_devices 1,
+                  tracked frame, K6 = 2 and K7 >= 1 a stepped frame,
+                  mesh_devices 1,
                   ba_edges_dropped 0; (d)
                   the distributed worker twice on
                   this card over gloo (2,048 landmarks a rank): ranks
@@ -142,7 +147,8 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
                   same bars above the shared-memory path (N 6,145 at B 1,
                   8,192 and 16,384 at B 1 and 8, the streamed path) with
                   their times and bounds; run.main --max-keypoints 8192 in
-                  odometry and slam mode on 24 frames; the times of both
+                  odometry and slam mode on 24 frames (K7's streamed path
+                  too: K7 once a stepped frame); the times of both
                   entries, of the two-call route (one graph), of the plain
                   routes, and the bounds; the split: the reduction alone,
                   the factorisation alone, both; (b)
@@ -151,8 +157,8 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
                   odometry_scan's graph against the eager step loop: poses
                   and flags torch.equal, ATE < 10 cm, tracked >= 0.95, one
                   capture, frames - 2 replays after one eager warm-up frame,
-                  K1 = K4 = frames and K5 = K6 = tracked frames by nodes x
-                  replays; (d) slam_scan and Slam (the tracking graph)
+                  K1 = K4 = frames and K5 = K6 = K7 = stepped frames by
+                  nodes x replays; (d) slam_scan and Slam (the tracking graph)
                   against their eager tracking steps: poses, flags,
                   keyframes, loops equal, one host wait a plain frame, the
                   same graph counts; the same equalities on the arc's first
@@ -163,21 +169,43 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
   23 K6           pose_polish vs its plain version (the Gauss-Newton loop
                   of tracking.refine_pose_reprojection before K6): rotation
                   entries and translations (of the points' scale) within
-                  1e-5 at B 1 and 8, K 1,024; K 8,192 (read from memory each
-                  step); all weights 0 (exactly T0); no depth rows; 20 %
-                  outliers; the problems of the first 40 frames of the
-                  odometry run as one batch; non-positive Cholesky pivots
-                  counted; relaunch and two graph replays torch.equal; the
-                  time a launch, the plain version's, the floor and the
-                  bound; the graphed odometry frame's device kernels and
-                  copies and busy ms beside those before K6
+                  1e-5 at B 1 and 8, K 1,024; K 8,192 (8 blocks); all
+                  weights 0 (exactly T0); no depth rows; 20 % outliers; the
+                  problems of the first 40 frames of the odometry run as one
+                  batch; the first case and that batch at 1 and 2 steps;
+                  K 128, 256 and 512 (the wrapper's 1, 2 and 4 blocks);
+                  steps with H not positive definite counted; relaunch and two
+                  graph replays torch.equal; the time a launch, the plain
+                  version's, the floor and the bound; the split by 0 / 1 / 5
+                  steps; through a harness that includes the source, room
+                  for 8 points a thread against the points read from memory
+                  each step and against room for one (the same bits, in
+                  turns), each cluster size forced (within 1e-5) and timed;
+                  the graphed odometry frame's device kernels and copies and
+                  busy ms beside those with the plain polish, in turns
+  24 K7           ransac_select vs its plain version (the hypotheses,
+                  scores and first argmax of tracking.ransac_kabsch before
+                  K7): the winner and w1 equal (points within 1e-6 of the
+                  gate excused and counted; a winner such a point moves must
+                  have the plain best score) at B 1, H 256 and 512, K
+                  1,024; K 8,192 (the streamed path); all weights 0 (winner
+                  0); degenerate draws; collinear points; all scores equal
+                  (winner 0); a quadratic gate with a cap; B 8 and the first
+                  40 frames' problems of the odometry run as one batch
+                  (each row equal to its problem alone); relaunch and two
+                  graph replays torch.equal; the time a launch beside the
+                  plain version's, the floor and the bound; through a
+                  harness that includes the source, every cluster size and
+                  the streamed path (the same outputs); the graphed
+                  odometry frame's device kernels and copies and busy ms
+                  beside those with the plain RANSAC, in turns
 Launch counts: a wrapper counts one when it launches its kernel, and a
 replay of a captured frame step counts each kernel node of the graph once
 (`utils/step_graph.note_launch`), so "once a frame" holds either way.
 Kernel times are CUDA events around a replayed CUDA graph of launches.  Then
 the paths' reports (the stereo path's and the datasets' on one line, the
 runtime's on one, the sharded phase's on one), one JSON line
-`{"kernels": [...]}` (K1-K6; launches: the runtime path's, phase 20 run C;
+`{"kernels": [...]}` (K1-K7; launches: the runtime path's, phase 20 run C;
 sharded_path_launches the --mesh 1 CLI run's, phase 21c), and as the last
 line `{"ok": true, "device": {...}}`.
 
@@ -202,7 +230,7 @@ F32_OPS_PER_S = 67e12
 FAST_THRESHOLD, FAST_ARC, FAST_BORDER = 13.0, 12, 19
 SLAM_FAST_MIN_THRESHOLD = 7.0   # the SLAM path's second FAST threshold
 N_FRAMES = 120
-N_PHASES = 23
+N_PHASES = 24
 GRAPHS_TITLE = (
     "graphs: (a) K5 (rigid_fit, rigid_refit) vs the SVD route, (b) the eager "
     "odometry_step with no host wait, (c) odometry_scan's CUDA graph vs the "
@@ -514,7 +542,7 @@ def phase_main_path(argv, args, source, dev):
     import torch
     from jetracer_orbslam2_torch import run
     from jetracer_orbslam2_torch.ops import (
-        fused_fast, fused_patches, fused_polish, fused_rigid)
+        fused_fast, fused_patches, fused_polish, fused_ransac, fused_rigid)
 
     n, gt = source.n, source.gt
     fused_fast.fast_nms_pyramid.launches = 0
@@ -522,9 +550,14 @@ def phase_main_path(argv, args, source, dev):
     fused_patches.patch_gather.launches = 0
     fused_rigid.rigid_fit.launches = 0
     fused_polish.pose_polish.launches = 0
+    fused_ransac.ransac_select.launches = 0
     with counting_calls() as calls:
         report, poses = run._run_odometry(args, source, dev)
     launches = fused_fast.fast_nms_pyramid.launches
+    if fused_ransac.ransac_select.launches != n - 1:
+        raise SystemExit(f"FAIL: ransac_select launches "
+                         f"{fused_ransac.ransac_select.launches} != {n - 1} (one "
+                         "RANSAC a stepped frame)")
     if fused_rigid.rigid_fit.launches != n - 1:
         raise SystemExit(f"FAIL: rigid_fit launches {fused_rigid.rigid_fit.launches}"
                          f" != {n - 1} (one RANSAC refit pair a tracked frame)")
@@ -532,8 +565,8 @@ def phase_main_path(argv, args, source, dev):
         raise SystemExit(f"FAIL: pose_polish launches "
                          f"{fused_polish.pose_polish.launches} != {n - 1} (one "
                          "polish a stepped frame, tracked or not)")
-    say(f"  K5 and K6: rigid_fit and pose_polish launched {n - 1} times each "
-        "(one a stepped frame)")
+    say(f"  K5, K6 and K7: rigid_fit, pose_polish and ransac_select launched "
+        f"{n - 1} times each (one a stepped frame)")
     if fused_patches.extract_patches_fused.launches != n:
         raise SystemExit(f"FAIL: extract_patches_fused launches "
                          f"{fused_patches.extract_patches_fused.launches} != {n}")
@@ -1516,7 +1549,8 @@ def phase_patch_kernel_time(pyramid, kp, floor_ms: float) -> dict:
 
 def _kernel_counters() -> dict:
     from jetracer_orbslam2_torch.ops import (
-        fused_ba, fused_fast, fused_patches, fused_polish, fused_rigid)
+        fused_ba, fused_fast, fused_patches, fused_polish, fused_ransac,
+        fused_rigid)
 
     return {"fast_nms_pyramid": fused_fast.fast_nms_pyramid,
             "extract_patches_fused": fused_patches.extract_patches_fused,
@@ -1524,33 +1558,39 @@ def _kernel_counters() -> dict:
             "fused_normal_schur": fused_ba.fused_normal_schur,
             "fused_backsub": fused_ba.fused_backsub,
             "rigid_fit": fused_rigid.rigid_fit,
-            "pose_polish": fused_polish.pose_polish}
+            "pose_polish": fused_polish.pose_polish,
+            "ransac_select": fused_ransac.ransac_select}
 
 
-def _k5_k6_short(launches: dict, stepped_frames: int) -> str | None:
-    """Why K5's or K6's launches are off on a SLAM run, or None.  K5: at
-    least 2 a stepped frame (the RANSAC refit pair and the map refit pair,
-    one launch each; relocalization and loop verification add more, as the
-    data decides).  K6: exactly 2 a stepped frame (`track_rgbd`'s polish,
-    which runs whether or not the frame tracks, and the map polish of
-    `track_and_associate`, map_polish_iters 5; no other caller)."""
+def _k5_k7_short(launches: dict, stepped_frames: int) -> str | None:
+    """Why K5's, K6's or K7's launches are off on a SLAM run, or None.  K5:
+    at least 2 a stepped frame (the RANSAC refit pair and the map refit
+    pair, one launch each; relocalization and loop verification add more,
+    as the data decides).  K6: exactly 2 a stepped frame (`track_rgbd`'s
+    polish, which runs whether or not the frame tracks, and the map polish
+    of `track_and_associate`, map_polish_iters 5; no other caller).  K7: at
+    least 1 a stepped frame (`track_rgbd`'s RANSAC; loop verification and
+    relocalization add more)."""
     k5, k6 = launches["rigid_fit"], launches["pose_polish"]
+    k7 = launches["ransac_select"]
     if k5 < 2 * stepped_frames:
         return f"rigid_fit launched {k5} times, at least {2 * stepped_frames} expected"
     if k6 != 2 * stepped_frames:
         return f"pose_polish launched {k6} times, {2 * stepped_frames} expected"
+    if k7 < stepped_frames:
+        return f"ransac_select launched {k7} times, at least {stepped_frames} expected"
     return None
 
 
-def _without_k5_k6(launches: dict, stepped_frames: int, what: str) -> dict:
-    """K1-K4's launches; fails unless K5 and K6 ran as a SLAM run's
-    stepped frames call them (`_k5_k6_short`)."""
-    short = _k5_k6_short(launches, stepped_frames)
+def _without_k5_k7(launches: dict, stepped_frames: int, what: str) -> dict:
+    """K1-K4's launches; fails unless K5, K6 and K7 ran as a SLAM run's
+    stepped frames call them (`_k5_k7_short`)."""
+    short = _k5_k7_short(launches, stepped_frames)
     if short:
         raise SystemExit(f"FAIL: {what}: {short}")
     rest = dict(launches)
-    rest.pop("rigid_fit")
-    rest.pop("pose_polish")
+    for name in ("rigid_fit", "pose_polish", "ransac_select"):
+        rest.pop(name)
     return rest
 
 
@@ -1737,7 +1777,7 @@ def phase_slam_path(dev) -> tuple[dict, dict]:
     ms = start.elapsed_time(stop)
     inserted = int(out.is_kf.sum())
     m = final.m
-    k1_k4 = _without_k5_k6(launches, LONG_FRAMES - 1, "SLAM path")
+    k1_k4 = _without_k5_k7(launches, LONG_FRAMES - 1, "SLAM path")
     report = {
         "frames": LONG_FRAMES, "shape": [480, 640], "levels": 4, "keypoints": 1024,
         "map_capacity": [LONG_KEYFRAMES, int(m.lm_valid.shape[0]),
@@ -1989,7 +2029,7 @@ def phase_stereo_check(dev) -> dict:
     say(f"  launches of one frontend_stereo call (under "
         f"set_sync_debug_mode('error'), no host wait): {json.dumps(per_call)}")
     want = {"fast_nms_pyramid": STEREO_K1_PER_FRAME, "extract_patches_fused": 2,
-            "rigid_fit": 0, "pose_polish": 0,
+            "rigid_fit": 0, "pose_polish": 0, "ransac_select": 0,
             "patch_gather": 0, "fused_normal_schur": 0, "fused_backsub": 0}
     if per_call != want:
         raise SystemExit(f"FAIL: frontend_stereo launched {per_call}, expected {want}")
@@ -2065,7 +2105,7 @@ def phase_stereo_path(dev) -> dict:
                 "extract_patches_fused": 2 * STEREO_FRAMES, "patch_gather": 0,
                 "fused_normal_schur": 10 * inserted,
                 "fused_backsub": 10 * inserted}
-        k1_k4 = _without_k5_k6(launches, STEREO_FRAMES - 1, f"stereo {name}")
+        k1_k4 = _without_k5_k7(launches, STEREO_FRAMES - 1, f"stereo {name}")
         if k1_k4 != want or any(calls.values()):
             raise SystemExit(f"FAIL: stereo {name} launches {launches} (calls "
                              f"{calls}), expected {want}")
@@ -2686,7 +2726,7 @@ def phase_runtime(dev) -> dict:
             if not (r["launches"]["fused_normal_schur"] == r["launches"]["fused_backsub"]
                     == want_ba):
                 bad.append(f"{name}: K2/K3 launches {r['launches']} != {want_ba}")
-            if short := _k5_k6_short(r["launches"], r["frames"] - 1):
+            if short := _k5_k7_short(r["launches"], r["frames"] - 1):
                 bad.append(f"{name}: {short}")
             if r["frames_pinned"] != r["frames_copied"] or r["frames_copied"] != r["frames"]:
                 bad.append(f"{name}: {r['frames_pinned']} of {r['frames_copied']} "
@@ -2965,7 +3005,7 @@ def _mesh_cli(dev) -> tuple[dict, dict]:
             want = 10 * r["keyframes_inserted"]
             if not (k["fused_normal_schur"] == k["fused_backsub"] == want > 0):
                 bad.append(f"{name} {what}: K2/K3 launches {k}, {want} expected")
-            if short := _k5_k6_short(k, N_FRAMES - 1):
+            if short := _k5_k7_short(k, N_FRAMES - 1):
                 bad.append(f"{name} {what}: {short}")
         if rm.get("mesh_devices") != 1 or rm.get("ba_edges_dropped") != 0:
             bad.append(f"{name}: mesh_devices {rm.get('mesh_devices')}, "
@@ -3504,8 +3544,9 @@ K5_CLI_FRAMES, K5_CLI_KEYPOINTS = 24, 8192
 def _k5_cli_many_keypoints() -> list:
     """run.main --synthetic 24 --max-keypoints 8192 in odometry and slam
     mode: exit 0 on cuda:0, K5 launched at least once a tracked stepped
-    frame, K6 once a stepped frame (odometry) or twice (slam); the ATE is
-    printed, not gated."""
+    frame, K6 once a stepped frame (odometry) or twice (slam), K7 once a
+    stepped frame (odometry) or at least once (slam); the ATE is printed,
+    not gated."""
     rows = []
     for mode in ("odometry", "slam"):
         argv = ["--synthetic", str(K5_CLI_FRAMES), "--max-keypoints",
@@ -3522,7 +3563,8 @@ def _k5_cli_many_keypoints() -> list:
         rows.append(row)
         say(f"  K5 run.main({argv}) -> {code}: ATE {report.get('ate_rmse_m')} m "
             f"(printed, not gated), tracked {report.get('tracked_frac')}, "
-            f"K5 {launches['rigid_fit']}, K6 {launches['pose_polish']} launches")
+            f"K5 {launches['rigid_fit']}, K6 {launches['pose_polish']}, K7 "
+            f"{launches['ransac_select']} launches")
         bad = []
         if code != 0 or report.get("device") != "cuda:0" or frames != K5_CLI_FRAMES:
             bad.append(f"exit {code} on {report.get('device')}, {frames} frames")
@@ -3532,6 +3574,11 @@ def _k5_cli_many_keypoints() -> list:
         if launches["pose_polish"] != per_frame * (frames - 1):
             bad.append(f"K6 launched {launches['pose_polish']} times, "
                        f"{per_frame * (frames - 1)} expected")
+        # K7 (its streamed path above 6,144 pairs): one a stepped frame, and
+        # in slam mode more where a loop is verified or a frame relocalized
+        k7 = launches["ransac_select"]
+        if k7 < frames - 1 or (mode == "odometry" and k7 != frames - 1):
+            bad.append(f"K7 launched {k7} times for {frames - 1} stepped frames")
         if bad:
             raise SystemExit(f"FAIL: run.main --max-keypoints "
                              f"{K5_CLI_KEYPOINTS} --mode {mode}: {'; '.join(bad)}")
@@ -3788,7 +3835,7 @@ def _graph_odometry(gray, depth, intr, gt, fcfg, tcfg, dev) -> dict:
         raise SystemExit(f"FAIL: graphed odometry ATE {rmse} / tracked "
                          f"{report['tracked_frac']}")
     want = {"fast_nms_pyramid": n, "extract_patches_fused": n,
-            "rigid_fit": n - 1, "pose_polish": n - 1}
+            "rigid_fit": n - 1, "pose_polish": n - 1, "ransac_select": n - 1}
     got = {k: launches[k] for k in want}
     if (graph.captures, graph.replays, graph.eager_calls) != (1, n - 2, 1) \
             or got != want:
@@ -3981,7 +4028,7 @@ def _graph_slam(gray, depth, intr, gt, cfg, dev) -> dict:
     if launches["fast_nms_pyramid"] != n or launches["extract_patches_fused"] != n:
         raise SystemExit(f"FAIL: SLAM graph launches {launches}: K1 = K4 = {n} "
                          "expected")
-    _without_k5_k6(launches, n - 1, "SLAM graph")
+    _without_k5_k7(launches, n - 1, "SLAM graph")
     if any(not v or max(v) != 1 or min(v) != 1 for v in plain.values()):
         raise SystemExit(f"FAIL: host waits of a plain SLAM frame: {plain} "
                          "(one expected: the packed fetch)")
@@ -4013,7 +4060,8 @@ def phase_graphs(source, args, dev, floor_ms: float) -> dict:
 
 # K6 against its plain version: rotation entries within K6_TOL, translations
 # within K6_TOL of the points' scale (the plain version sums in f32 and
-# solves by LU, the kernel sums in f64 and solves by Cholesky)
+# solves by LU, the kernel sums in f32 a thread and a warp, then in f64, and
+# solves by 3 x 3 blocks in f64)
 K6_TOL = 1e-5
 K6_ITERS, K6_HUBER = 5, 2.0         # the polish's defaults: 5 steps, 2 px
 # fewer steps, where each step still moves T by far more than K6_TOL: a
@@ -4021,6 +4069,7 @@ K6_ITERS, K6_HUBER = 5, 2.0         # the polish's defaults: 5 steps, 2 px
 K6_SHORT_ITERS = (1, 2)
 K6_POINTS = 1024
 K6_CAPTURED_FRAMES = 40             # the odometry run's first frames
+K6_CLUSTERS = (1, 2, 4, 8)          # the cluster sizes timed at K 1,024
 
 
 def _polish_problems(b: int, k: int, seed: int, intr, dev, kind: str = "random"):
@@ -4072,7 +4121,7 @@ def _check_polish(label: str, problem, intr, iters: int = K6_ITERS) -> dict:
     """pose_polish against pose_polish_reference on these problems, `iters`
     steps: rotation entries and translations (of the points' scale) within
     K6_TOL, a relaunch and two graph replays torch.equal, the steps whose
-    Cholesky met a non-positive pivot counted.  Returns the case's row (with
+    H was not positive definite counted.  Returns the case's row (with
     "got")."""
     import torch
     from jetracer_orbslam2_torch.ops import fused_polish
@@ -4094,7 +4143,7 @@ def _check_polish(label: str, problem, intr, iters: int = K6_ITERS) -> dict:
     bad_steps = int(singular.sum())
     finite = bool(torch.isfinite(got).all())
     say(f"  K6 {label}: rotation {err_r:.2e}, translation {err_t:.2e} of scale "
-        f"{scale:.1f} (tol {K6_TOL:g}); non-positive Cholesky pivots in "
+        f"{scale:.1f} (tol {K6_TOL:g}); H not positive definite in "
         f"{bad_steps} of {T0.shape[0] * iters} steps; relaunch and two "
         f"graph replays torch.equal: {bits}")
     if not (err_r <= K6_TOL and err_t <= K6_TOL and bits and finite):
@@ -4112,7 +4161,7 @@ def _k6_bounds(b: int, k: int) -> tuple[float, str, int, int]:
     25), the Jacobian's nonzero entries (about 20), and the sums of H's 21
     upper entries and b's 6 over J's structural nonzeros (5, 5 and 3 in its
     three rows): 13 weight products and 36 + 13 multiply-adds, 111; 174 in
-    all.  Per step the Cholesky, two solves and se3_exp, about 600."""
+    all.  Per step the 6 x 6 solve and se3_exp, about 600."""
     n_bytes = b * (k * 28 + 64 + 64) + 16
     n_ops = b * K6_ITERS * (k * 174 + 600)
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -4151,64 +4200,113 @@ def _captured_polish_problems(frames, intr, fcfg, dev):
     return tuple(torch.stack(x) for x in zip(*captured))
 
 
-# K6's register path against its streamed path at the same K: the kernel of
-# csrc/pose_polish.cu that reads the points from memory on every step,
-# launched at a K the wrapper gives to the register path
-K6_STREAMED_SOURCE = r"""
-#include "pose_polish.cu"
-
-extern "C" int k6_streamed_launch(const float* T0, const float* X,
-                                  const float* uv, const float* zd,
-                                  const float* w, const float* intr, float* out,
-                                  int batch, int k, int iters, float huber,
-                                  void* stream) {
-    pose_polish_kernel<false><<<batch, THREADS, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-        T0, X, uv, zd, w, intr, out, nullptr, k, iters, huber);
-    return static_cast<int>(cudaGetLastError());
-}
-"""
-
-
-def _k6_streamed(problem, intr) -> dict:
-    """Device us a launch of K6 with the points in registers (pose_polish)
-    and read from memory on every step, in turns, on this problem; fails
-    unless the two give the same bits."""
+def _harness(name: str, text: str):
+    """A harness that includes a kernel source of csrc/ (text), built by
+    nvcc with the port's flags into the build directory and loaded."""
     import ctypes
-    import torch
-    from jetracer_orbslam2_torch.ops import fused_polish
     from jetracer_orbslam2_torch.utils import cuda_build
 
     cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    source = cuda_build.BUILD_DIR / "k6_streamed.cu"
-    source.write_text(K6_STREAMED_SOURCE)
-    lib_path = cuda_build.BUILD_DIR / "k6_streamed.so"
-    subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-I",
-                    str(cuda_build.CSRC_DIR), "-o", str(lib_path), str(source)],
-                   check=True, capture_output=True, text=True, timeout=300)
-    fn = ctypes.CDLL(str(lib_path)).k6_streamed_launch
+    source = cuda_build.BUILD_DIR / f"{name}.cu"
+    source.write_text(text)
+    lib_path = cuda_build.BUILD_DIR / f"{name}.so"
+    out = subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-I",
+                          str(cuda_build.CSRC_DIR), "-o", str(lib_path), str(source)],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise SystemExit(f"FAIL: nvcc on the {name} harness:\n{out.stdout}{out.stderr}")
+    return ctypes.CDLL(str(lib_path))
+
+
+# K6's paths at a shape the wrapper gives to one of them: the kernel of
+# csrc/pose_polish.cu at a given cluster size (1, 2, 4, 8) and register room
+# for a thread's points (0: read from memory on every step; 1; 8)
+K6_PATHS_SOURCE = r"""
+#include "pose_polish.cu"
+
+extern "C" int k6_path_launch(const float* T0, const float* X, const float* uv,
+                              const float* zd, const float* w, const float* intr,
+                              float* out, int batch, int k, int iters, float huber,
+                              int ctas, int per, void* stream) {
+    if (ctas < 1 || ctas > MAX_CTAS || (ctas & (ctas - 1)) != 0 ||
+        (per != 0 && per * ctas * THREADS < k))
+        return static_cast<int>(cudaErrorInvalidValue);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    cudaError_t err = cudaErrorInvalidValue;
+    if (per == 0)
+        err = launch<0>(T0, X, uv, zd, w, intr, out, nullptr, batch, k, iters, huber,
+                        ctas, s);
+    else if (per == 1)
+        err = launch<1>(T0, X, uv, zd, w, intr, out, nullptr, batch, k, iters, huber,
+                        ctas, s);
+    else if (per == 8)
+        err = launch<8>(T0, X, uv, zd, w, intr, out, nullptr, batch, k, iters, huber,
+                        ctas, s);
+    return static_cast<int>(err);
+}
+"""
+# (K, register room) timed against pose_polish at that K, all at 8 blocks:
+# room for one (the wrapper's at K 1,024), for 8 (the wrapper's up to 8,192)
+# and none (the points read from memory each step)
+K6_PATHS = ((1024, 1), (1024, 8), (1024, 0), (8192, 8), (8192, 0))
+
+
+def _k6_paths(problems, intr) -> dict:
+    """K6's paths through K6_PATHS_SOURCE on problems {K: (T0, X, uv, z,
+    w)} (B 1), device us a launch: each (K, room) of K6_PATHS at 8 blocks
+    against pose_polish at that K, in turns (pose_polish, the path, the
+    path, pose_polish), each giving pose_polish's bits; then every cluster
+    size of K6_CLUSTERS at K 1,024 (room for 8), each held to the plain
+    version within K6_TOL and timed."""
+    import ctypes
+    import torch
+    from jetracer_orbslam2_torch.ops import fused_polish
+
+    fn = _harness("k6_paths", K6_PATHS_SOURCE).k6_path_launch
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [ptr] * 7 + [i32, i32, i32, ctypes.c_float, ptr]
+    fn.argtypes = [ptr] * 7 + [i32, i32, i32, ctypes.c_float, i32, i32, ptr]
     fn.restype = i32
-    T0, X, uv, z, w = problem
-    out = torch.empty_like(T0)
 
-    def streamed():
-        if fn(*(x.data_ptr() for x in (T0, X, uv, z, w, intr, out)), T0.shape[0],
-              X.shape[1], K6_ITERS, K6_HUBER,
-              torch.cuda.current_stream().cuda_stream) != 0:
-            raise SystemExit("FAIL: K6's streamed kernel did not launch")
+    def forced(problem, ctas: int, per: int):
+        T0, X, uv, z, w = problem
+        out = torch.empty_like(T0)
 
-    registers = lambda: fused_polish.pose_polish(  # noqa: E731
-        T0, X, uv, z, w, intr, K6_ITERS, K6_HUBER)
-    streamed()
-    same = torch.equal(out, registers())
-    if not same:
-        raise SystemExit("FAIL: K6's register and streamed paths differ")
-    times = {"registers_us": [], "streamed_us": []}
-    for key, f in (("registers_us", registers), ("streamed_us", streamed),
-                   ("streamed_us", streamed), ("registers_us", registers)):
-        times[key].append(time_launches(f, reps=20, batch=20) * 1e3)
+        def run():
+            if fn(*(x.data_ptr() for x in (T0, X, uv, z, w, intr, out)),
+                  T0.shape[0], X.shape[1], K6_ITERS, K6_HUBER, ctas, per,
+                  torch.cuda.current_stream().cuda_stream) != 0:
+                raise SystemExit(f"FAIL: K6 at {ctas} block(s), room {per} did "
+                                 "not launch")
+            return out
+        return run
+
+    times = {"rooms": []}
+    for k, per in K6_PATHS:
+        problem = problems[k]
+        wrapper = lambda: fused_polish.pose_polish(  # noqa: E731
+            *problem, intr, K6_ITERS, K6_HUBER)
+        path = forced(problem, max(K6_CLUSTERS), per)
+        if not torch.equal(path(), wrapper()):
+            raise SystemExit(f"FAIL: K6 at K {k}, room {per} differs from pose_polish")
+        row = {"points": k, "room": per, "pose_polish_us": [], "path_us": []}
+        for key, f in (("pose_polish_us", wrapper), ("path_us", path),
+                       ("path_us", path), ("pose_polish_us", wrapper)):
+            row[key].append(time_launches(f, reps=20, batch=20) * 1e3)
+        times["rooms"].append(row)
+    problem = problems[K6_POINTS]
+    plain = fused_polish.pose_polish_reference(*problem, intr, K6_ITERS, K6_HUBER)
+    times["clusters"] = {}
+    for c in K6_CLUSTERS:
+        run = forced(problem, c, 8)
+        got = run()
+        err_r, err_t, _ = _pose_errors(got, plain, problem[1], problem[1])
+        bits = torch.equal(got, run())
+        if not (err_r <= K6_TOL and err_t <= K6_TOL and bits):
+            raise SystemExit(f"FAIL: K6 at {c} block(s): rotation {err_r:.2e}, "
+                             f"translation {err_t:.2e}, relaunch equal {bits}")
+        times["clusters"][c] = {
+            "us": time_launches(run, reps=20, batch=20) * 1e3,
+            "rotation_err": err_r, "translation_err_rel": err_t}
     return times
 
 
@@ -4229,10 +4327,14 @@ def phase_polish(source, args, dev, floor_ms: float) -> dict:
     cases = [
         ("B 1, K 1,024", 1, K6_POINTS, "random"),
         ("B 8, K 1,024", 8, K6_POINTS, "random"),
-        ("B 1, K 8,192 (points read from memory each step)", 1, 8192, "random"),
+        ("B 1, K 8,192 (8 blocks, 8 points a thread)", 1, 8192, "random"),
         ("B 1, all weights 0", 1, K6_POINTS, "zero"),
         ("B 1, no depth rows", 1, K6_POINTS, "no_depth"),
         ("B 1, 20 % outliers", 1, K6_POINTS, "outliers"),
+        # the cluster sizes the wrapper takes for K up to 512
+        ("B 1, K 128 (1 block, no cluster)", 1, 128, "random"),
+        ("B 1, K 256 (2 blocks)", 1, 256, "random"),
+        ("B 1, K 512 (4 blocks)", 1, 512, "random"),
     ]
     rows, problems = [], {}
     for seed, (label, b, k, kind) in enumerate(cases, 60):
@@ -4266,7 +4368,7 @@ def phase_polish(source, args, dev, floor_ms: float) -> dict:
             rows.append(row)
     worst = max(max(r["rotation_err"], r["translation_err_rel"]) for r in rows)
     say(f"  K6: worst error {worst:.2e} (tol {K6_TOL:g}); non-positive "
-        f"Cholesky pivots in {sum(r['singular_steps'] for r in rows)} steps "
+        f"leading minors of H in {sum(r['singular_steps'] for r in rows)} steps "
         "over every case; each batch row equal to its problem alone")
 
     times = {}
@@ -4306,11 +4408,22 @@ def phase_polish(source, args, dev, floor_ms: float) -> dict:
     one["steps_us"] = steps
     say(f"  K6 split at {cases[0][0]} (us a launch): 0 steps {steps[0]:.2f}, "
         f"1 step {steps[1]:.2f}, {K6_ITERS} steps {steps[K6_ITERS]:.2f}")
-    one["paths"] = _k6_streamed(problems[cases[0][0]], intr)
-    say(f"  K6 at {cases[0][0]}, points in registers against read from "
-        f"memory each step (us a launch, in turns, the same bits): "
-        f"{' / '.join(f'{v:.2f}' for v in one['paths']['registers_us'])} "
-        f"against {' / '.join(f'{v:.2f}' for v in one['paths']['streamed_us'])}")
+    one["paths"] = _k6_paths({K6_POINTS: problems[cases[0][0]],
+                              8192: problems[cases[2][0]]}, intr)
+    paths = one["paths"]
+    for row in paths["rooms"]:
+        what = (f"room for {row['room']} point(s) a thread" if row["room"]
+                else "the points read from memory each step")
+        say(f"  K6 at B 1, K {row['points']}, 8 blocks: pose_polish against "
+            f"{what} (us a launch, in turns, the same bits): "
+            f"{' / '.join(f'{v:.2f}' for v in row['pose_polish_us'])} against "
+            f"{' / '.join(f'{v:.2f}' for v in row['path_us'])}")
+    say("  K6 cluster sizes forced at K 1,024, room for 8 (each within tol of "
+        "the plain version): "
+        + ", ".join(f"{c} block(s) {v['us']:.2f} us (rotation "
+                    f"{v['rotation_err']:.1e}, translation "
+                    f"{v['translation_err_rel']:.1e})"
+                    for c, v in paths["clusters"].items()))
 
     # the graphed odometry frame over frames BUSY, with K6 and with the plain
     # version in its place, in turns
@@ -4346,6 +4459,398 @@ def phase_polish(source, args, dev, floor_ms: float) -> dict:
             "odometry_frame": odometry_frame}
 
 
+# ---------------------------------------------------------------------------
+# phase 24: K7, RANSAC's hypotheses, scores and winner as one kernel
+# ---------------------------------------------------------------------------
+
+K7_ITERS = 256                      # TrackingConfig.ransac_iters
+K7_VERIFY_ITERS = 512               # a loop verification's draws
+K7_POINTS = 1024
+K7_NEAR = 1e-6                      # "near the gate": |err - tz| <= K7_NEAR tz
+K7_CLUSTERS = (1, 2, 4, 8, 16)      # the cluster sizes timed at H 256
+# f32 operations a (hypothesis, point) test (the transform 3 x 7, the
+# squared norm 5, the compare 1; a multiply-add counts 2) and a hypothesis'
+# solve (centroids and centring 36, the correlation 45, K and K^2 130, the
+# trace powers 70, 30 Newton steps of 15, the 16 cofactors and their norms
+# 270, q, R and t 60)
+K7_TEST_OPS, K7_SOLVE_OPS = 27, 1061
+
+
+def _ransac_problems(b: int, k: int, h: int, seed: int, dev, kind: str = "random",
+                     thresh: float = 0.05, depth_quad: float = 0.0,
+                     gate_cap: float = 1e9):
+    """b RANSAC problems of k pairs and h draws, from a numpy seed: src the
+    points of a 640x480 frame 0.8-8 m ahead, dst = R src + t + 5 mm noise
+    with 30 % of the pairs moved up to 0.5 m, 0/1 weights (75 % ones), h
+    triples drawn with replacement from the weighted pairs (as
+    torch.multinomial draws them), the gate thresh + depth_quad z_dst^2
+    capped at gate_cap.  kind: "random"; "zero" (all weights 0, the draws
+    uniform); "degenerate" (a third of the triples one index three times,
+    a third two of one index, the rest collinear points); "collinear"
+    (every src on one line).  Returns (src, dst, keep, sample_idx, tz) on
+    `dev`, batched."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    src = np.empty((b, k, 3))
+    dst = np.empty((b, k, 3))
+    w = (rng.random((b, k)) < 0.75).astype(np.float64)
+    idx = np.empty((b, h, 3), dtype=np.int64)
+    for i in range(b):
+        depth = rng.uniform(0.8, 8.0, k)
+        px = rng.uniform(-0.6, 0.6, (k, 2))
+        src[i] = np.stack([px[:, 0] * depth, px[:, 1] * depth, depth], -1)
+        if kind == "collinear":
+            src[i] = src[i, :1] + np.outer(rng.normal(0.0, 2.0, k), [0.6, 0.0, 0.8])
+        R, t = _rotation(rng, 0.1), rng.normal(0.0, 0.1, 3)
+        dst[i] = src[i] @ R.T + t + rng.normal(0.0, 0.005, (k, 3))
+        moved = rng.random(k) < 0.3
+        dst[i, moved] += rng.uniform(-0.5, 0.5, (int(moved.sum()), 3))
+        if kind == "zero":
+            w[i] = 0.0
+        p = np.maximum(w[i], 1e-20)
+        idx[i] = rng.choice(k, size=(h, 3), p=p / p.sum())
+        if kind == "degenerate":
+            third = h // 3
+            idx[i, :third] = idx[i, :third, :1]
+            idx[i, third:2 * third, 1] = idx[i, third:2 * third, 0]
+            # the rest: three pairs whose src lie on one line
+            line = src[i, idx[i, 2 * third:, 0]]
+            step = rng.normal(0.0, 0.5, (h - 2 * third, 2, 1)) * [0.6, 0.0, 0.8]
+            for m in (1, 2):
+                j = idx[i, 2 * third:, m]
+                src[i, j] = line + step[:, m - 1]
+                dst[i, j] = src[i, j] @ R.T + t
+    f = lambda x: torch.from_numpy(x.astype(np.float32)).to(dev)  # noqa: E731
+    dst_t = f(dst)
+    tz = torch.clamp_max(thresh + depth_quad * dst_t[..., 2] ** 2, gate_cap)
+    return f(src), dst_t, f(w), torch.from_numpy(idx).to(dev), tz
+
+
+def _plain_inliers(problem):
+    """The plain version's (B, H, K) inlier matrix and each entry's distance
+    from its gate relative to the gate, from the plain kabsch_quat."""
+    import torch
+    from jetracer_orbslam2_torch.ops import geometry as geo
+
+    src, dst, keep, idx, tz = problem
+    inl, margin = [], []
+    for i in range(src.shape[0]):
+        T_h = geo.kabsch_quat(src[i][idx[i]], dst[i][idx[i]])
+        src_t = src[i][None] @ T_h[:, :3, :3].transpose(-1, -2) + T_h[:, None, :3, 3]
+        err = torch.linalg.norm(src_t - dst[i][None], dim=-1)
+        inl.append((err < tz[i][None]) & (keep[i] > 0))
+        margin.append((err - tz[i][None]).abs() / tz[i][None])
+    return torch.stack(inl), torch.stack(margin)
+
+
+def _check_ransac(label: str, problem) -> dict:
+    """ransac_select against ransac_select_reference on these problems: the
+    winner and w1 equal, but for points within K7_NEAR of their gate
+    (relative, at the plain version's hypotheses), which are counted; where
+    such a point moves the winner, the plain score of K7's winner must be
+    the plain best; the score the count of w1; a relaunch and two graph
+    replays torch.equal.  Returns the case's row (with "got")."""
+    import torch
+    from jetracer_orbslam2_torch.ops import fused_ransac
+
+    select = lambda: fused_ransac.ransac_select(*problem)  # noqa: E731
+    got, again = select(), select()
+    plain = fused_ransac.ransac_select_reference(*problem)
+    replays = _replayed(select)
+    torch.cuda.synchronize()
+    inl, margin = _plain_inliers(problem)
+    keep = problem[2] > 0
+    near = (margin <= K7_NEAR) & keep[:, None, :]
+    near_total = int(near.sum())
+    rows = torch.arange(inl.shape[0], device=inl.device)
+    scores = inl.sum(-1)
+    winner_same = bool(torch.equal(got[0], plain[0]))
+    winner_ok = winner_same or (
+        near_total > 0 and torch.equal(scores[rows, got[0]], scores[rows, plain[0]]))
+    # w1 against the plain mask of K7's own winner
+    mask = inl[rows, got[0]].float()
+    differ = got[2] != mask
+    near_w = near[rows, got[0]]
+    excused = int((differ & near_w).sum())
+    unexcused = int((differ & ~near_w).sum())
+    count_ok = torch.equal(got[1], got[2].sum(-1).int())
+    bits = (_same(got, again) and _same(got, replays[0]) and _same(got, replays[1]))
+    moved = int((got[0] != plain[0]).sum())
+    # the largest difference from the plain outputs: w1 against the plain
+    # w1 (0 or 1 a point, excused points included), 1 where a winner moved
+    max_err = max(float((got[2] - plain[2]).abs().max()), float(moved > 0))
+    say(f"  K7 {label}: winner equal in {inl.shape[0] - moved} of {inl.shape[0]} "
+        f"problem(s) (scores {got[1].tolist()[:8]}, plain "
+        f"{plain[1].tolist()[:8]}); w1 differs at {unexcused} points, at "
+        f"{excused} within {K7_NEAR:g} of the gate; {near_total} (hypothesis, "
+        f"point) pairs within {K7_NEAR:g} of the gate; relaunch and two graph "
+        f"replays torch.equal: {bits}")
+    if not (winner_ok and unexcused == 0 and count_ok and bits):
+        raise SystemExit(f"FAIL: K7 at {label}")
+    return {"case": label, "batch": inl.shape[0], "hypotheses": inl.shape[1],
+            "points": inl.shape[2], "winners_moved": moved,
+            "w1_differ": unexcused, "w1_differ_near_gate": excused,
+            "near_gate_pairs": near_total, "max_err": max_err,
+            "scores": got[1].tolist(), "bit_identical": bits, "got": got}
+
+
+def _k7_bounds(b: int, h: int, k: int) -> tuple[float, str, int, int]:
+    """(bound ms, what bounds it, bytes, operations) of one K7 launch of b
+    problems of k pairs and h draws: each input read once (src and dst 24 B
+    a pair, keep and tz 8 B, the draws 24 B a hypothesis), each output
+    written once (w1 4 B a pair, the winner 8 B and its count 4 B); per
+    (hypothesis, pair) K7_TEST_OPS, per pair the gate's square and its two
+    bounds (3), per hypothesis K7_SOLVE_OPS (its 30 Newton steps, as the
+    plain version runs them)."""
+    n_bytes = b * (k * 36 + h * 24 + 12)
+    n_ops = b * (h * k * K7_TEST_OPS + 3 * k + h * K7_SOLVE_OPS)
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / F32_OPS_PER_S * 1e3
+    return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations",
+            n_bytes, n_ops)
+
+
+@contextlib.contextmanager
+def _ransac_select_as(fn):
+    """`tracking.ransac_kabsch` calling `fn` in place of
+    `fused_ransac.ransac_select` (the wrapper itself, which counts its
+    launches on its own name, stays as it is)."""
+    import types
+    from jetracer_orbslam2_torch.models import tracking
+
+    module = tracking.fused_ransac
+    tracking.fused_ransac = types.SimpleNamespace(ransac_select=fn)
+    try:
+        yield
+    finally:
+        tracking.fused_ransac = module
+
+
+def _captured_ransac_problems(frames, intr, fcfg, dev):
+    """The RANSAC problems of the odometry run over `frames` (the eager
+    `odometry_step` of phase 22's arc, its draws as drawn), stacked as one
+    batch: (src, dst, keep, sample_idx, tz)."""
+    import torch
+    from jetracer_orbslam2_torch.config import TrackingConfig
+    from jetracer_orbslam2_torch.models import odometry as odo
+    from jetracer_orbslam2_torch.ops import fused_ransac
+
+    tcfg = TrackingConfig()
+    captured = []
+
+    def record(*a, **kw):
+        if len(a) != 5 or kw:
+            raise SystemExit(f"FAIL: ransac_kabsch's K7 call changed: {len(a)} "
+                             f"arguments, {sorted(kw)}")
+        captured.append(tuple(x.clone() for x in a))
+        return fused_ransac.ransac_select(*a)
+
+    st = odo.init_state(frames[0][0], frames[0][1], intr, fcfg, tcfg, device=dev)
+    with _ransac_select_as(record):
+        for g, d, *_ in frames[1:]:
+            st, _ = odo.odometry_step(st, g, d, intr, fcfg, tcfg)
+    return tuple(torch.stack(x) for x in zip(*captured))
+
+
+# K7's other paths at a shape the wrapper gives to its own: the kernel of
+# csrc/ransac_hyp.cu at a given cluster size (1-16), the points staged in
+# shared memory or read from memory
+K7_PATHS_SOURCE = r"""
+#include "ransac_hyp.cu"
+
+extern "C" int k7_path_launch(const float* src, const float* dst, const float* keep,
+                              const long long* idx, const float* tz, long long* best,
+                              int* score, float* w1, int batch, int k, int h, int ctas,
+                              int staged, void* stream) {
+    if (ctas < 1 || ctas > MAX_CTAS || (staged && k > MAX_STAGED))
+        return static_cast<int>(cudaErrorInvalidValue);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const cudaError_t err =
+        staged ? launch<true>(src, dst, keep, idx, tz, best, score, w1, batch, k, h, ctas, s)
+               : launch<false>(src, dst, keep, idx, tz, best, score, w1, batch, k, h, ctas, s);
+    return static_cast<int>(err);
+}
+"""
+
+
+def _k7_paths(problem) -> dict:
+    """K7's paths at this problem (B 1, H 256, K 1,024), through
+    K7_PATHS_SOURCE, device us a launch: every cluster size of K7_CLUSTERS
+    with the points staged, then the wrapper's cluster size with the points
+    read from memory; each must give ransac_select's outputs."""
+    import ctypes
+    import torch
+    from jetracer_orbslam2_torch.ops import fused_ransac
+
+    lib = _harness("k7_paths", K7_PATHS_SOURCE)
+    if lib.ransac_hyp_setup() != 0:
+        raise SystemExit("FAIL: the K7 harness's setup failed")
+    fn = lib.k7_path_launch
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
+    fn.restype = i32
+    src, dst, keep, idx, tz = problem
+    b, k, h = src.shape[0], src.shape[1], idx.shape[1]
+
+    def forced(ctas: int, staged: bool):
+        best = torch.empty((b,), dtype=torch.int64, device=src.device)
+        score = torch.empty((b,), dtype=torch.int32, device=src.device)
+        w1 = torch.empty((b, k), dtype=torch.float32, device=src.device)
+
+        def run():
+            if fn(*(x.data_ptr() for x in (src, dst, keep, idx, tz, best, score, w1)),
+                  b, k, h, ctas, int(staged),
+                  torch.cuda.current_stream().cuda_stream) != 0:
+                raise SystemExit(f"FAIL: K7 at {ctas} block(s) did not launch")
+            return best, score, w1
+        return run
+
+    want = fused_ransac.ransac_select(*problem)
+    times = {"clusters_us": {}}
+    for ctas in K7_CLUSTERS:
+        run = forced(ctas, True)
+        if not _same(run(), want):
+            raise SystemExit(f"FAIL: K7 with {ctas} block(s) differs")
+        times["clusters_us"][ctas] = time_launches(run, reps=20, batch=20) * 1e3
+    run = forced(max(K7_CLUSTERS), False)
+    if not _same(run(), want):
+        raise SystemExit("FAIL: K7's staged and streamed paths differ")
+    times["streamed_us"] = time_launches(run, reps=20, batch=20) * 1e3
+    return times
+
+
+def phase_ransac(source, args, dev, floor_ms: float) -> dict:
+    """Phase 24: K7 against its plain version on synthetic problems and on
+    the odometry run's own; its time beside the plain version's, the floor
+    and the bound, the cluster sizes and the streamed path; the graphed
+    odometry frame's nodes and busy ms with K7 and with the plain version,
+    in turns."""
+    import itertools
+    import torch
+    from jetracer_orbslam2_torch import run
+    from jetracer_orbslam2_torch.config import TrackingConfig
+    from jetracer_orbslam2_torch.ops import fused_ransac
+
+    cases = [
+        (f"B 1, H {K7_ITERS}, K {K7_POINTS}", 1, K7_POINTS, K7_ITERS, "random", {}),
+        (f"B 1, H {K7_VERIFY_ITERS}, K {K7_POINTS}", 1, K7_POINTS, K7_VERIFY_ITERS,
+         "random", {}),
+        (f"B 1, H {K7_ITERS}, K 8,192 (streamed)", 1, 8192, K7_ITERS, "random", {}),
+        ("B 1, all weights 0", 1, K7_POINTS, K7_ITERS, "zero", {}),
+        ("B 1, degenerate draws (repeated indices, collinear triples)", 1,
+         K7_POINTS, K7_ITERS, "degenerate", {}),
+        ("B 1, collinear points", 1, K7_POINTS, K7_ITERS, "collinear", {}),
+        ("B 1, all scores equal (a 1e6 m gate)", 1, K7_POINTS, K7_ITERS, "random",
+         {"thresh": 1e6}),
+        ("B 1, depth_quad 0.02, gate_cap 0.15", 1, K7_POINTS, K7_ITERS, "random",
+         {"depth_quad": 0.02, "gate_cap": 0.15}),
+        (f"B 8, H {K7_ITERS}, K {K7_POINTS}", 8, K7_POINTS, K7_ITERS, "random", {}),
+    ]
+    rows, problems = [], {}
+    for seed, (label, b, k, h, kind, gate) in enumerate(cases, 80):
+        problem = _ransac_problems(b, k, h, seed, dev, kind, **gate)
+        problems[label] = problem
+        row = _check_ransac(label, problem)
+        got = row.pop("got")
+        if (kind == "zero" or "scores equal" in label) and bool((got[0] != 0).any()):
+            raise SystemExit(f"FAIL: K7 at {label}: the winner is not 0")
+        if b > 1:
+            alone = [fused_ransac.ransac_select(*(x[i] for x in problem))
+                     for i in range(b)]
+            row["rows_equal_alone"] = all(
+                _same(tuple(x[i] for x in got), one) for i, one in enumerate(alone))
+            if not row["rows_equal_alone"]:
+                raise SystemExit("FAIL: K7's batch rows differ from one launch a problem")
+        rows.append(row)
+    frames = list(itertools.islice(source.frames(), BUSY[1]))
+    fcfg = run._frontend_cfg(args, source.hw, source.cal)
+    real = _captured_ransac_problems(frames[:K6_CAPTURED_FRAMES], source.intr,
+                                     fcfg, dev)
+    real_label = (f"the first {K6_CAPTURED_FRAMES} frames' problems of the "
+                  f"odometry run as one batch (B {real[0].shape[0]}, H "
+                  f"{real[3].shape[1]}, K {real[0].shape[1]})")
+    row = _check_ransac(real_label, real)
+    got = row.pop("got")
+    alone = [fused_ransac.ransac_select(*(x[i] for x in real))
+             for i in range(real[0].shape[0])]
+    row["rows_equal_alone"] = all(
+        _same(tuple(x[i] for x in got), one) for i, one in enumerate(alone))
+    if not row["rows_equal_alone"]:
+        raise SystemExit("FAIL: K7's batch rows differ from one launch a problem")
+    rows.append(row)
+    near = sum(r["w1_differ_near_gate"] for r in rows)
+    say(f"  K7: winners moved in {sum(r['winners_moved'] for r in rows)} "
+        f"problems, w1 points within {K7_NEAR:g} of the gate that differ: "
+        f"{near}; each batch row equal to its problem alone")
+
+    times = {}
+    for label in cases[0][0], cases[1][0], cases[2][0], cases[-1][0]:
+        problem = problems[label]
+        kernel = lambda: fused_ransac.ransac_select(*problem)  # noqa: E731
+        plain = lambda: [fused_ransac.ransac_select_reference(  # noqa: E731
+            *problem) for _ in range(10)]
+        row = {"us": [], "plain_us": []}
+        for key, fn in (("us", kernel), ("plain_us", plain), ("plain_us", plain),
+                        ("us", kernel)):
+            if key == "us":
+                row[key].append(time_launches(fn, reps=20, batch=20) * 1e3)
+            else:
+                row[key].append(_median_event_ms(fn, reps=10, per_run=10) * 1e3)
+        b, k, h = problem[0].shape[0], problem[0].shape[1], problem[3].shape[1]
+        bound, by, n_bytes, n_ops = _k7_bounds(b, h, k)
+        row.update(bound_us=bound * 1e3, bound_by=by, bytes=n_bytes, ops=n_ops,
+                   floor_us=floor_ms * 1e3)
+        times[label] = row
+        say(f"  K7 at {label} (us a launch, in turns): {row['us'][0]:.2f} / "
+            f"{row['us'][1]:.2f}; the plain version {row['plain_us'][0]:.1f} / "
+            f"{row['plain_us'][1]:.1f} a call (CUDA events around 10 eager "
+            f"calls); floor {floor_ms * 1e3:.2f}; bound {row['bound_us']:.4f} "
+            f"({by}: {n_bytes} B, {n_ops} ops)")
+    # the cluster sizes and the streamed path at the main path's shape: the
+    # same outputs whatever the split
+    one = times[cases[0][0]]
+    one.update(_k7_paths(problems[cases[0][0]]))
+    say(f"  K7 at {cases[0][0]}, cluster sizes forced (the same outputs): "
+        + ", ".join(f"{c} block(s) {v:.2f} us" for c, v in one["clusters_us"].items())
+        + f"; the points read from memory {one['streamed_us']:.2f} us")
+
+    # the graphed odometry frame over frames BUSY, with K7 and with the plain
+    # version in its place, in turns
+    gray = torch.stack([f[0] for f in frames])
+    depth = torch.stack([f[1] for f in frames])
+    tcfg = TrackingConfig()
+    frame = {"kernel": [], "plain": []}
+    for key in ("kernel", "plain", "plain", "kernel"):
+        select = (fused_ransac.ransac_select if key == "kernel"
+                  else fused_ransac.ransac_select_reference)
+        with _ransac_select_as(select):
+            frame[key].append(_graphed_window(gray, depth, source.intr, fcfg, tcfg,
+                                              dev))
+    window = BUSY[1] - BUSY[0]
+    odometry_frame = {
+        k: {"device_kernels_per_frame": [b[2] / window for b in v],
+            "device_busy_ms_per_frame": [b[1] / window * 1e3 for b in v]}
+        for k, v in frame.items()}
+    say(f"  graphed odometry frame (frames {BUSY[0]}-{BUSY[1] - 1}, in turns): "
+        "with K7 " + ", ".join(
+            f"{n:.1f} device kernels and copies, busy {ms:.3f} ms"
+            for n, ms in zip(*odometry_frame["kernel"].values()))
+        + "; with the plain RANSAC " + ", ".join(
+            f"{n:.1f}, busy {ms:.3f} ms"
+            for n, ms in zip(*odometry_frame["plain"].values())))
+    worst = {"winners_moved": sum(r["winners_moved"] for r in rows),
+             "w1_differ_near_gate": near}
+    return {"cases": rows, "worst": worst, "times": times,
+            "max_err": max(r["max_err"] for r in rows),
+            "ms": statistics.median(one["us"]) / 1e3,
+            "plain_ms": statistics.median(one["plain_us"]) / 1e3,
+            "bound_ms": one["bound_us"] / 1e3, "bound_by": one["bound_by"],
+            "floor_ms": floor_ms, "library_ms": None,
+            "odometry_frame": odometry_frame}
+
+
 def print_build(name: str) -> None:
     from jetracer_orbslam2_torch.utils import cuda_build
 
@@ -4373,7 +4878,8 @@ def main(argv: list[str]) -> int:
     # the port under test; absent in a directory that holds only this script
     import jetracer_orbslam2_torch
     from jetracer_orbslam2_torch.ops import (
-        fused_ba, fused_fast, fused_patches, fused_polish, fused_rigid)
+        fused_ba, fused_fast, fused_patches, fused_polish, fused_ransac,
+        fused_rigid)
     from jetracer_orbslam2_torch.utils import cuda_build
     from jetracer_orbslam2_torch.utils.device import resolve_device
     from jetracer_orbslam2_torch.utils.precision import set_exact_f32
@@ -4390,14 +4896,16 @@ def main(argv: list[str]) -> int:
 
     phase(2, "build (one nvcc per source, started together)")
     t0 = time.perf_counter()
-    sources = ["fast_nms", "ba_fused", "patch_gather", "rigid_fit", "pose_polish"]
+    sources = ["fast_nms", "ba_fused", "patch_gather", "rigid_fit", "pose_polish",
+               "ransac_hyp"]
     cuda_build.build_libraries(sources)
     fused_fast._launcher()
     fused_ba._launchers()
     fused_patches._library()
     fused_rigid._launchers()
     fused_polish._launcher()
-    say(f"  five libraries built and loaded in {time.perf_counter() - t0:.2f} s")
+    fused_ransac._launcher()
+    say(f"  six libraries built and loaded in {time.perf_counter() - t0:.2f} s")
     for name in sources:
         print_build(name)
 
@@ -4512,6 +5020,11 @@ def main(argv: list[str]) -> int:
                   "events around a replayed CUDA graph of 20 launches, median "
                   "of 20), the graphed odometry frame's nodes")
         polish = phase_polish(source, args, dev, floor_ms)
+
+        phase(24, "K7 (ransac_select) vs its plain version, its time (CUDA "
+                  "events around a replayed CUDA graph of 20 launches, median "
+                  "of 20), the graphed odometry frame's nodes")
+        ransac = phase_ransac(source, args, dev, floor_ms)
     torch.cuda.synchronize()
 
     k1 = times["odometry"]
@@ -4705,6 +5218,48 @@ def main(argv: list[str]) -> int:
         "times": polish["times"],
         "odometry_frame": polish["odometry_frame"],
     })
+    kernels.append({
+        "name": "ransac_select",
+        "route": "cuda",
+        "source": "jetracer_orbslam2_torch/csrc/ransac_hyp.cu",
+        "replaces": "jetracer_orbslam2_tpu/models/tracking.py:108",
+        "launches": runtime_launches["ransac_select"],
+        "odometry_path_launches": graphs["odometry"]["launches"]["ransac_select"],
+        "slam_path_launches": slam_launches["ransac_select"],
+        "stereo_path_launches": stereo_launches["ransac_select"],
+        "sharded_path_launches": sharded_launches["ransac_select"],
+        "max_abs_err": ransac["max_err"],
+        "winners_moved": ransac["worst"]["winners_moved"],
+        "w1_differ_near_gate": ransac["worst"]["w1_differ_near_gate"],
+        "ms": ransac["ms"],
+        "plain_ms": ransac["plain_ms"],
+        "bound_ms": ransac["bound_ms"],
+        "bound_by": ransac["bound_by"],
+        "library_ms": None,
+        "floor_ms": ransac["floor_ms"],
+        "numbers_are": "K7 has no Pallas counterpart: it replaces the JAX "
+                       "package's hypotheses, scores and argmax of "
+                       "ransac_kabsch (models/tracking.py:108-150, with "
+                       "ops/geometry.py:301 kabsch_quat), which XLA fuses "
+                       "inside the jitted frame step; ms, plain_ms, bound_ms "
+                       "per launch at B 1, H 256, K 1,024 (every launch of "
+                       "the odometry path is one); max_abs_err is the "
+                       "largest |w1 - the plain w1| over every case, points "
+                       "within 1e-6 of their gate included, or 1 where a "
+                       "winner moved (the gate excuses only such points: "
+                       "w1_differ_near_gate counts them, winners_moved the "
+                       "winners they moved); no single PyTorch call "
+                       "computes RANSAC; launches are the runtime path's "
+                       "(phase 20 run C, one a stepped frame and one a "
+                       "verification or relocalization), "
+                       "odometry_path_launches phase 22's graphed "
+                       "odometry_scan's, slam_path_launches phase 13's, "
+                       "stereo_path_launches phase 18's, "
+                       "sharded_path_launches phase 21c's",
+        "cases": ransac["cases"],
+        "times": ransac["times"],
+        "odometry_frame": ransac["odometry_frame"],
+    })
     seconds = round(time.perf_counter() - t_start, 1)
     say(json.dumps({"main_path": report, "card": card, "seconds": seconds}))
     say(json.dumps({"ba_path": ba_report, "local_ba": local_report,
@@ -4718,6 +5273,7 @@ def main(argv: list[str]) -> int:
     say(json.dumps({"sharded": sharded_report, "card": card}))
     say(json.dumps({"graphs": graphs, "card": card}))
     say(json.dumps({"polish": polish, "card": card}))
+    say(json.dumps({"ransac": ransac, "card": card}))
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -6,9 +6,11 @@ Pose conventions: `T_ab` maps points from frame b to frame a
 (p_a = T_ab @ p_b).  World pose of a camera is `T_wc`; chaining:
 T_w_curr = T_w_prev @ T_prev_curr.
 
-RANSAC is not a loop: all `iters` minimal 3-point hypotheses are solved in
-one batched quaternion Kabsch, scored in one (iters, K) residual matrix, and
-the winner refit on its inliers with two exact Kabsch solves
+RANSAC is not a loop: all `iters` minimal 3-point hypotheses are solved by
+the quaternion Kabsch, scored over every correspondence and the first best
+taken (`fused_ransac.ransac_select`: one K7 launch on the card, the batched
+`kabsch_quat` and an (iters, K) residual matrix on the CPU), and the winner
+refit on its inliers with two exact Kabsch solves
 (`fused_rigid.rigid_refit`: one K5 launch on the card, the SVD route on the
 CPU), then polished on the reprojection (`fused_polish.pose_polish`: one K6
 launch on the card).  Random draws come from an explicit `torch.Generator` (the JAX package's
@@ -24,10 +26,10 @@ import torch
 
 from jetracer_orbslam2_torch.config import TrackingConfig
 from jetracer_orbslam2_torch.models.frontend import Features
-from jetracer_orbslam2_torch.ops import fused_polish, fused_rigid
+from jetracer_orbslam2_torch.ops import fused_polish, fused_ransac, fused_rigid
 from jetracer_orbslam2_torch.ops import geometry as geo
 from jetracer_orbslam2_torch.ops import match as match_ops
-from jetracer_orbslam2_torch.utils.ties import first_argmax, first_argmin
+from jetracer_orbslam2_torch.utils.ties import first_argmin
 
 Tensor = torch.Tensor
 
@@ -89,23 +91,14 @@ def ransac_kabsch(
         sample_idx = torch.multinomial(probs, 3, replacement=True,
                                        generator=generator)
     sample_idx = sample_idx.long()
-    s = src[sample_idx]                      # (iters, 3, 3)
-    d = dst[sample_idx]
-    T_h = geo.kabsch_quat(s, d)              # (iters, 4, 4)
-    # score all hypotheses against all correspondences
-    src_t = src[None] @ T_h[:, :3, :3].transpose(-1, -2) + T_h[:, None, :3, 3]
-    err = torch.linalg.norm(src_t - dst[None], dim=-1)         # (iters, K)
     tz = torch.clamp_max(thresh + depth_quad * dst[:, 2] ** 2, gate_cap)  # (K,)
-    has_w = weights > 0
-    inl = (err < tz[None]) & has_w
-    score = torch.sum(inl, dim=1)
-    _, best = first_argmax(score, 0)
+    keep = (weights > 0).to(src.dtype)
+    # the iters hypotheses, their scores over all correspondences, the first
+    # best and its inliers: one K7 launch on the card
+    _, _, w1 = fused_ransac.ransac_select(src, dst, keep, sample_idx, tz)
     # refine on the best hypothesis' inliers, recompute the inliers at that
     # fit and refine once more: one K5 launch on the card
-    # index_select, not inl[best]: indexing with a 0-dim tensor reads it
-    # back to the host
-    w1 = inl.index_select(0, best.reshape(1))[0].to(src.dtype)
-    T2, w2, n = fused_rigid.rigid_refit(src, dst, w1, has_w.to(src.dtype), tz)
+    T2, w2, n = fused_rigid.rigid_refit(src, dst, w1, keep, tz)
     inl1 = w2 > 0
     ok = n >= min_inliers
     eye = torch.eye(4, dtype=src.dtype, device=src.device)

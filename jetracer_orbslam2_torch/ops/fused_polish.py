@@ -11,17 +11,20 @@ The plain version is that function's body as it was: per step a projection,
 the residuals, the Huber weights, (K, 3, 6) Jacobians, two einsums into a
 6 x 6 system, `torch.linalg.solve_ex` and `se3_exp`, about 515 small
 kernels a call on the card.  The kernel, `jetracer_orbslam2_torch/csrc/
-pose_polish.cu`, runs every step in one launch: one block a problem, the
-points in registers (K <= 1,024) or read from memory each step (any larger
-K), the 27 sums of H and b in f64 in one fixed-order reduction (no atomics,
-so a relaunch and a graph replay give the same bits), a 6 x 6 Cholesky by one
-thread, se3_exp in f32.  It replaces no TPU kernel: the JAX package's
-counterpart is one `lax.scan` inside its jitted frame step
+pose_polish.cu`, runs every step in one launch: a problem split over a
+thread-block cluster of 1-8 blocks (by K), up to 8 points a thread in
+registers (any larger K read from memory each step), the 27 sums of H and b
+in f32 a thread and a warp, then in f64 across warps and blocks in one fixed
+order (no atomics, so a relaunch and a graph replay give the same bits),
+handed between the blocks through distributed shared memory, a 6 x 6 solve
+in f64 by 3 x 3 blocks, se3_exp in f32.  It replaces no TPU kernel: the JAX package's counterpart is
+one `lax.scan` inside its jitted frame step
 (`jetracer_orbslam2_tpu/models/tracking.py:59-105`), which XLA fuses.
 
 Bound on the card: latency (a launch, then per step a pass over the
-points, a block reduction and a serial factorisation); at B = 1, K = 1,024
-it reads 28 KB.
+points, a reduction and a serial factorisation); at B = 1, K = 1,024 it
+reads 28 KB and does about 0.9 MFLOP, 0.0133 us of the card's peak
+(`chip_smoke.py`'s `_k6_bounds`).
 """
 
 from __future__ import annotations
@@ -168,7 +171,8 @@ def pose_polish(T0: Tensor, X_src: Tensor, uv_dst: Tensor, z_dst: Tensor,
     CUDA tensors (float32, any K): ONE kernel launch on the current stream
     (no sync, the intrinsics read on the card, output from `torch.empty`);
     `singular`, when given, receives each problem's count of steps whose
-    Cholesky met a pivot that was not positive (dx = 0 there).  Raises if the
+    H was not positive definite, a leading minor not positive (dx = 0
+    there).  Raises if the
     kernel does not build, load or launch.  CPU tensors: the plain version.
     """
     _check(T0, X_src, uv_dst, z_dst, w, intrinsics, iters, huber_px, singular)

@@ -1,9 +1,10 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each kernel source is one `csrc/<name>.cu` with a plain C interface.  At first use it
-is compiled by `nvcc` for sm_90a into `jetracer_orbslam2_torch/_build/`
-(git-ignored) and loaded with `ctypes`; the library's file name carries a hash
-of the source and the flags, so an edited source rebuilds and an unchanged one
+Each kernel source is one `csrc/<name>.cu` with a plain C interface (it may
+include the headers `csrc/*.cuh`).  At first use it is compiled by `nvcc` for
+sm_90a into `jetracer_orbslam2_torch/_build/` (git-ignored) and loaded with
+`ctypes`; the library's file name carries a hash of the source, the headers
+and the flags, so an edited source or header rebuilds and an unchanged one
 is reused.  Nothing here runs at import time, and nothing falls back: a
 missing compiler or a failed build raises.
 """
@@ -48,8 +49,9 @@ def find_nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

@@ -19,8 +19,9 @@ by host time and by device time.  With `--sync-debug` it first prints the
 host's cost of one eager call of the FAST+NMS wrapper (a frame's one call,
 and the one-level call per level shape), then, for one frame of the eager
 step and one of the graphed scan, the lines of the port that make the host
-wait for the device and the number of ATen ops each function issues (the
-eager step's count is comparable with a frame's ops before the graph).
+wait for the device, the number of ATen ops each function issues (the
+eager step's count is comparable with a frame's ops before the graph) and
+the launches of each hand-written kernel, K1-K7, which are no ATen ops.
 
 With `--ba` it profiles `bundle_adjust` instead, on the synthetic problem of 8
 poses x `--landmarks` landmarks, 10 LM iterations, by the fused route (the
@@ -29,8 +30,8 @@ ops of one call, then the wall time of an untraced call and the device-busy
 and idle share of a device-traced one.
 With `--slam` it profiles the SLAM loop (`slam_scan`) on the gated lap (126
 frames of 240x180, 3 levels, 512 keypoints, depth noise 2 % z^2): the host
-waits and the ATen ops of one plain frame and of one keyframe frame, their
-wall time, each with the tracking step replayed from its graph and run
+waits, the ATen ops and the K1-K7 launches of one plain frame and of one
+keyframe frame, their wall time, each with the tracking step replayed from its graph and run
 eagerly, then the wall time of an untraced pass over the lap and the
 device-busy and idle share of a device-traced one, graphed and eager, and
 the graph's captures and replays.
@@ -128,6 +129,29 @@ def report_op_counts(fn, rows: int, what: str = "one frame") -> None:
     print(f"non-view ops in {what}: {sum(by_func.values())}")
     for name, count in by_func.most_common(rows):
         print(f"  {count:5d}  {name}")
+
+
+def report_kernel_launches(fn, what: str = "one frame") -> None:
+    """Run `fn` and print the launches of each hand-written kernel (K1-K7)
+    in it: they are no ATen ops, so `report_op_counts` does not list them (a
+    replayed graph counts each of its kernel nodes once)."""
+    import torch
+    from jetracer_orbslam2_torch.ops import (
+        fused_ba, fused_fast, fused_patches, fused_polish, fused_ransac,
+        fused_rigid)
+
+    wrappers = {"K1 fast_nms_pyramid": fused_fast.fast_nms_pyramid,
+                "K2 fused_normal_schur": fused_ba.fused_normal_schur,
+                "K3 fused_backsub": fused_ba.fused_backsub,
+                "K4 extract_patches_fused": fused_patches.extract_patches_fused,
+                "K5 rigid_fit": fused_rigid.rigid_fit,
+                "K6 pose_polish": fused_polish.pose_polish,
+                "K7 ransac_select": fused_ransac.ransac_select}
+    before = {k: w.launches for k, w in wrappers.items()}
+    fn()
+    torch.cuda.synchronize()
+    print(f"hand-written kernel launches in {what}: " + ", ".join(
+        f"{k} {w.launches - before[k]}" for k, w in wrappers.items()))
 
 
 def report_wrapper_host_cost(gray, fcfg, calls: int = 200) -> None:
@@ -333,6 +357,7 @@ def profile_slam(rows: int, stereo: bool = False) -> None:
             what = f"one {kind} of the {loop_name} (frame {i}, {route} step)"
             report_syncs(one, what)
             report_op_counts(one, rows, what)
+            report_kernel_launches(one, what)
             print(f"{what}: {min(timed() for _ in range(5)) * 1e3:.2f} ms wall "
                   f"(host clock + sync, best of 5)", flush=True)
 
@@ -442,6 +467,7 @@ def main(argv=None) -> int:
                           graphed_frame)):
             report_syncs(fn, what)
             report_op_counts(fn, args.rows, what)
+            report_kernel_launches(fn, what)
 
     def window(frames: int, eager: bool = False):
         """The same `frames` frames from the same state (the scan replays

@@ -210,15 +210,20 @@ def test_pose_polish_checks_its_inputs():
 def test_pose_polish_source_and_call_sites():
     """K6 is CUDA C++ with a plain C interface, built at first use; its sums
     take no float atomics (a replay repeats bit for bit), it reads the
-    intrinsics on the card and caps no K; the wrapper counts its launch once
-    and falls back to nothing; both polishes go through it."""
+    intrinsics on the card and caps no K; a problem's blocks hand their
+    partials on through distributed shared memory (st.async counted by each
+    block's mbarrier); the wrapper counts its launch once and falls back to
+    nothing; both polishes go through it."""
     src = (PORT / "csrc" / "pose_polish.cu").read_text()
+    assert '#include "cluster.cuh"' in src
+    src += (PORT / "csrc" / "cluster.cuh").read_text()
     assert 'extern "C" int pose_polish_launch(' in src
-    assert "__shfl_xor_sync" in src and "cholesky" in src
+    assert "__shfl_xor_sync" in src and "block_solve" in src
     for banned in ("torch/extension.h", "#include <ATen", "cublas", "cusolver"):
         assert banned not in src, banned
     assert not re.search(r"\batomic[A-Z]", src)
-    assert "MAX_K" not in src and "REG_POINTS" in src
+    assert "MAX_K" not in src and "PER_THREAD" in src
+    assert "st.async" in src and "mbarrier.try_wait" in src
     wrapper = (PORT / "ops" / "fused_polish.py").read_text()
     assert "torch.compile" not in wrapper and "import triton" not in wrapper
     assert wrapper.count("note_launch(pose_polish)") == 1
