@@ -190,13 +190,15 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
                   have the plain best score) at B 1, H 256 and 512, K
                   1,024; K 8,192 (the streamed path); all weights 0 (winner
                   0); degenerate draws; collinear points; all scores equal
-                  (winner 0); a quadratic gate with a cap; B 8 and the first
-                  40 frames' problems of the odometry run as one batch
-                  (each row equal to its problem alone); relaunch and two
-                  graph replays torch.equal; the time a launch beside the
-                  plain version's, the floor and the bound; through a
-                  harness that includes the source, every cluster size and
-                  the streamed path (the same outputs); the graphed
+                  (winner 0); a quadratic gate with a cap; B 8, B 3 at H
+                  512 (a keyframe's loop verifications in one launch) and
+                  the first 40 frames' problems of the odometry run as one
+                  batch (each row equal to its problem alone); relaunch and
+                  two graph replays torch.equal; the time a launch beside
+                  the plain version's, the floor and the bound; through a
+                  harness that includes the source, every cluster size the
+                  wrapper can take (1-16), the points staged and read from
+                  memory (the same outputs); the graphed
                   odometry frame's device kernels and copies and busy ms
                   beside those with the plain RANSAC, in turns
 Launch counts: a wrapper counts one when it launches its kernel, and a
@@ -4467,7 +4469,7 @@ K7_ITERS = 256                      # TrackingConfig.ransac_iters
 K7_VERIFY_ITERS = 512               # a loop verification's draws
 K7_POINTS = 1024
 K7_NEAR = 1e-6                      # "near the gate": |err - tz| <= K7_NEAR tz
-K7_CLUSTERS = (1, 2, 4, 8, 16)      # the cluster sizes timed at H 256
+K7_CLUSTERS = tuple(range(1, 17))  # every cluster size the wrapper can take
 # f32 operations a (hypothesis, point) test (the transform 3 x 7, the
 # squared norm 5, the compare 1; a multiply-add counts 2) and a hypothesis'
 # solve (centroids and centring 36, the correlation 45, K and K^2 130, the
@@ -4654,7 +4656,7 @@ def _captured_ransac_problems(frames, intr, fcfg, dev):
     return tuple(torch.stack(x) for x in zip(*captured))
 
 
-# K7's other paths at a shape the wrapper gives to its own: the kernel of
+# K7's paths at a shape the wrapper gives to one of them: the kernel of
 # csrc/ransac_hyp.cu at a given cluster size (1-16), the points staged in
 # shared memory or read from memory
 K7_PATHS_SOURCE = r"""
@@ -4678,8 +4680,9 @@ extern "C" int k7_path_launch(const float* src, const float* dst, const float* k
 def _k7_paths(problem) -> dict:
     """K7's paths at this problem (B 1, H 256, K 1,024), through
     K7_PATHS_SOURCE, device us a launch: every cluster size of K7_CLUSTERS
-    with the points staged, then the wrapper's cluster size with the points
-    read from memory; each must give ransac_select's outputs."""
+    with the points staged and with them read from memory (the streamed
+    path, which the wrapper takes above MAX_STAGED points); each must give
+    ransac_select's outputs."""
     import ctypes
     import torch
     from jetracer_orbslam2_torch.ops import fused_ransac
@@ -4708,16 +4711,15 @@ def _k7_paths(problem) -> dict:
         return run
 
     want = fused_ransac.ransac_select(*problem)
-    times = {"clusters_us": {}}
-    for ctas in K7_CLUSTERS:
-        run = forced(ctas, True)
-        if not _same(run(), want):
-            raise SystemExit(f"FAIL: K7 with {ctas} block(s) differs")
-        times["clusters_us"][ctas] = time_launches(run, reps=20, batch=20) * 1e3
-    run = forced(max(K7_CLUSTERS), False)
-    if not _same(run(), want):
-        raise SystemExit("FAIL: K7's staged and streamed paths differ")
-    times["streamed_us"] = time_launches(run, reps=20, batch=20) * 1e3
+    times = {"clusters_us": {}, "streamed_clusters_us": {}}
+    for staged, key in ((True, "clusters_us"), (False, "streamed_clusters_us")):
+        for ctas in K7_CLUSTERS:
+            run = forced(ctas, staged)
+            if not _same(run(), want):
+                raise SystemExit(f"FAIL: K7 with {ctas} block(s), points "
+                                 f"{'staged' if staged else 'from memory'}, differs")
+            times[key][ctas] = time_launches(run, reps=20, batch=20) * 1e3
+    times["streamed_us"] = times["streamed_clusters_us"][max(K7_CLUSTERS)]
     return times
 
 
@@ -4747,7 +4749,10 @@ def phase_ransac(source, args, dev, floor_ms: float) -> dict:
         ("B 1, depth_quad 0.02, gate_cap 0.15", 1, K7_POINTS, K7_ITERS, "random",
          {"depth_quad": 0.02, "gate_cap": 0.15}),
         (f"B 8, H {K7_ITERS}, K {K7_POINTS}", 8, K7_POINTS, K7_ITERS, "random", {}),
+        (f"B 3, H {K7_VERIFY_ITERS}, K {K7_POINTS}", 3, K7_POINTS, K7_VERIFY_ITERS,
+         "random", {}),
     ]
+    timed = [cases[i][0] for i in (0, 1, 2, 8, 9)]
     rows, problems = [], {}
     for seed, (label, b, k, h, kind, gate) in enumerate(cases, 80):
         problem = _ransac_problems(b, k, h, seed, dev, kind, **gate)
@@ -4786,7 +4791,7 @@ def phase_ransac(source, args, dev, floor_ms: float) -> dict:
         f"{near}; each batch row equal to its problem alone")
 
     times = {}
-    for label in cases[0][0], cases[1][0], cases[2][0], cases[-1][0]:
+    for label in timed:
         problem = problems[label]
         kernel = lambda: fused_ransac.ransac_select(*problem)  # noqa: E731
         plain = lambda: [fused_ransac.ransac_select_reference(  # noqa: E731
@@ -4812,9 +4817,11 @@ def phase_ransac(source, args, dev, floor_ms: float) -> dict:
     # same outputs whatever the split
     one = times[cases[0][0]]
     one.update(_k7_paths(problems[cases[0][0]]))
-    say(f"  K7 at {cases[0][0]}, cluster sizes forced (the same outputs): "
+    say(f"  K7 at {cases[0][0]}, cluster sizes forced (the same outputs), "
+        "points staged: "
         + ", ".join(f"{c} block(s) {v:.2f} us" for c, v in one["clusters_us"].items())
-        + f"; the points read from memory {one['streamed_us']:.2f} us")
+        + "; points read from memory: "
+        + ", ".join(f"{c} {v:.2f}" for c, v in one["streamed_clusters_us"].items()))
 
     # the graphed odometry frame over frames BUSY, with K7 and with the plain
     # version in its place, in turns

@@ -11,19 +11,21 @@ pair (`fused_rigid.rigid_refit`, K5) starts from.
 The plain version is that code as it was: about 420 small kernels a call on
 the card (the batched quaternion Kabsch's 30 Newton steps are most of them).
 The kernel, `jetracer_orbslam2_torch/csrc/ransac_hyp.cu`, does it in one
-launch: a problem split over a thread-block cluster of up to 16 blocks (by
-H; a non-portable cluster above 8), one thread a hypothesis solving the
-plain version's f32 algebra step for step, the points copied into shared
-memory once (any larger K read from memory), integer counts, and the winner
-agreed through distributed shared memory (no float atomics, so a relaunch and a graph replay give the same
-bits).  It replaces no TPU kernel: the JAX package's counterpart is a few
-ops inside its jitted frame step
+launch: a problem split over a thread-block cluster of up to 16 blocks of
+512 threads (by H; a non-portable cluster above 8), 16 lanes sharing a
+hypothesis' solve and one warp running the Newton steps, the plain version's f32
+algebra step for step, the points stored into shared memory once as
+records (any larger K read from memory), integer counts, and the winner
+agreed through distributed shared memory (no float atomics, so a relaunch
+and a graph replay give the same bits).  It replaces no TPU kernel: the JAX
+package's counterpart is a few ops inside its jitted frame step
 (`jetracer_orbslam2_tpu/models/tracking.py:108-150`), which XLA fuses.
 
-Bound on the card: latency (a launch, one serial solve, the tests, one
-reduction); at B = 1, H = 256, K = 1,024 it moves 43 KB and does about
-7.4 M f32 operations, 0.11 us of the card's peak (`chip_smoke.py`'s
-`_k7_bounds`).
+Bound on the card: latency (a launch, the gather, the solve's Newton steps,
+the tests, one exchange between SMs); at B = 1, H = 256, K = 1,024 it moves
+43 KB and does about 7.4 M f32 operations, 0.11 us of the card's peak
+(`chip_smoke.py`'s `_k7_bounds`).  `scripts/bench_torch_k7.py` splits the
+chain into its links.
 """
 
 from __future__ import annotations

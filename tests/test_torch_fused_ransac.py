@@ -262,9 +262,14 @@ def test_ransac_select_source_and_call_sites():
     for banned in ("torch/extension.h", "#include <ATen", "cublas", "cusolver",
                    "atomicCAS", "--use_fast_math"):
         assert banned not in src, banned
-    # the one atomic: integer counts in shared memory
-    assert re.findall(r"\batomic[A-Z]\w*\(", src) == ["atomicAdd("]
-    assert "atomicAdd(&counts[" in src and "__shared__ int counts[" in src
+    # the one kind of atomic: integer adds into the counts in shared memory
+    # (the block's Shared), from each of the two test layouts
+    assert set(re.findall(r"\batomic[A-Z]\w*\(", src)) == {"atomicAdd("}
+    assert set(re.findall(r"atomicAdd\(([^,]+),", src)) == {"&sm.counts[j]"}
+    assert "    int counts[ROUND];" in src
+    assert "__shared__ Shared sm;" in src
+    # the block's best and the winner: integer keys, no float sums
+    assert "unsigned long long key;" in src and "warp_max(" in src
     assert "st.async" in src and "mbarrier.try_wait" in src
     wrapper = (PORT / "ops" / "fused_ransac.py").read_text()
     assert "torch.compile" not in wrapper and "import triton" not in wrapper
@@ -278,3 +283,50 @@ def test_ransac_select_source_and_call_sites():
 
     assert re.fullmatch(r"ransac_hyp-[0-9a-f]{16}\.so",
                         cuda_build.library_path("ransac_hyp").name)
+
+
+def _defined(source: str) -> set[str]:
+    """The names a CUDA source defines: functions, types and constants."""
+    found = re.findall(r"\b(?:struct|constexpr\s+\w+|int|void|cudaError_t|float|Pair|Problem)"
+                       r"\s+(\w+)\s*[\[({=;]", source)
+    return set(found)
+
+
+def test_kernel_harnesses_call_what_the_source_defines(monkeypatch):
+    """The split harness of `scripts/bench_torch_k7.py` and phase 24's path
+    harness in `chip_smoke.py` both include this tree's K7 source: every
+    kernel-side name they call must be defined there, so a change of the
+    kernel cannot leave them behind unnoticed until a run on the card.  The
+    bench's stamped chain is the kernel's own body.  Without a card (made so
+    here, whatever the host has) the bench exits 1."""
+    import importlib.util
+    import sys
+
+    root = PORT.parent
+    src = (PORT / "csrc" / "ransac_hyp.cu").read_text()
+    defined = _defined(src) | {"launch", "ransac_hyp_kernel"}
+    spec = importlib.util.spec_from_file_location(
+        "bench_torch_k7", root / "scripts" / "bench_torch_k7.py")
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    harness = bench.SPLIT_SOURCE
+    used = {"drawn", "stage_records", "solve_round", "test_round", "round_best",
+            "finish", "exchange_init", "select_block", "ctas_for", "staged_bytes",
+            "Shared", "Problem", "THREADS", "ROUND"}
+    for name in used:
+        assert re.search(rf"\b{name}\b", harness), name
+        assert name in defined, name
+    sys.path.insert(0, str(root))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(root))
+    for name in ("launch", "MAX_CTAS", "MAX_STAGED"):
+        assert re.search(rf"\b{name}\b", chip_smoke.K7_PATHS_SOURCE), name
+        assert name in defined, name
+    # the kernel runs its body through select_block and marks nothing
+    assert re.search(r"NoMarks none;\s*select_block<kStaged>\(", src)
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert bench.main(["--parent", str(root)]) == 1
