@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # no arguments, one GPU
-    python3 chip_smoke.py --kernels  # phases 1-3, 6, 7, 11, 16 only
+    python3 chip_smoke.py             # no arguments, one GPU
+    python3 chip_smoke.py --kernels   # phases 1-3, 6, 7, 11, 16 only
+    python3 chip_smoke.py --branches  # phases 1, 2, 25 only
 
 Drives `jetracer_orbslam2_torch`'s paths through the functions a user calls:
 RGB-D odometry on a synthetic 640x480 sequence at the CLI's defaults (4
@@ -79,9 +80,11 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
                   128 keyframe slots / 16,384 landmarks / 65,536 observations:
                   tracked fraction, loops, ATE, every kernel's launch count
                   (K6 twice a stepped frame: the tracker's and the map's
-                  polish; K7 at least once: the tracker's RANSAC, and each
-                  loop verification and relocalization; no canvas packed);
-                  frames/s of the run
+                  polish; K7 once a stepped frame, a relocalization tried
+                  and a keyframe, whose top-n verifications are one launch;
+                  no canvas packed); frames/s of the run, the frame graph's
+                  nodes and the memory its capture reserved, and ms a frame
+                  through the host-branch step in turns
   14 lifecycle    three laps at 240x180 with 32 keyframe slots: keyframes are
                   culled and their slots recycled, tracking holds to the end
   15 CLI          run.main at its default mode (slam), whole and --chunked 8
@@ -158,10 +161,11 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
                   and flags torch.equal, ATE < 10 cm, tracked >= 0.95, one
                   capture, frames - 2 replays after one eager warm-up frame,
                   K1 = K4 = frames and K5 = K6 = K7 = stepped frames by
-                  nodes x replays; (d) slam_scan and Slam (the tracking graph)
-                  against their eager tracking steps: poses, flags,
-                  keyframes, loops equal, one host wait a plain frame, the
-                  same graph counts; the same equalities on the arc's first
+                  nodes x replays; (d) slam_scan (its frame graph) and Slam
+                  (the tracking graph) against their eager steps: poses,
+                  flags, keyframes, loops equal, no host wait in the scan,
+                  one a plain frame of Slam, the frame graph one capture and
+                  a replay a frame; the same equalities on the arc's first
                   60 frames with frames 30-33 blank, where both relocalize
                   (>= 1 reloc each); (e) ms a frame graphed and eager in
                   turns, and each one's device-busy share and device kernels
@@ -201,15 +205,30 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
                   memory (the same outputs); the graphed
                   odometry frame's device kernels and copies and busy ms
                   beside those with the plain RANSAC, in turns
-Launch counts: a wrapper counts one when it launches its kernel, and a
-replay of a captured frame step counts each kernel node of the graph once
-(`utils/step_graph.note_launch`), so "once a frame" holds either way.
+  25 branches     slam_scan's frame graph, whose relocalization and keyframe
+                  branches (and the loop closure and compactions inside the
+                  latter) are conditional nodes, against the host-branch
+                  step `_step`: outputs, counters and every map tensor
+                  torch.equal on the arc's first 60 frames with 30-33 blank
+                  (it relocalizes), the gated lap (a loop closes) and three
+                  laps in 32 slots (the map compacts); no host wait from
+                  slam_scan's entry to the caller's fetch (sync debug
+                  "error"); K7 once a stepped frame, a relocalization tried
+                  and a keyframe, K2 = K3 = 10 x keyframes; ChunkedSlam
+                  --chunked 8 waits once a chunk; the lap's ms a frame
+                  graphed and host-branch in turns
+Launch counts: a wrapper counts one when it launches its kernel, a replay of
+a captured frame step counts each kernel node of the graph once, and a
+conditional body's kernels count once for each replay that took the body
+(`utils/step_graph.note_launch`, `settle_launches`), so "once a frame" holds
+either way.
 Kernel times are CUDA events around a replayed CUDA graph of launches.  Then
 the paths' reports (the stereo path's and the datasets' on one line, the
 runtime's on one, the sharded phase's on one), one JSON line
 `{"kernels": [...]}` (K1-K7; launches: the runtime path's, phase 20 run C;
 sharded_path_launches the --mesh 1 CLI run's, phase 21c), and as the last
-line `{"ok": true, "device": {...}}`.
+line `{"ok": true, "device": {...}}`.  `csrc/graph_cond.cu`, built with the
+kernels, makes the conditional nodes; it is no kernel of the TPU's.
 
 Imports torch and the port only: no JAX, nothing of the JAX package.
 """
@@ -232,12 +251,18 @@ F32_OPS_PER_S = 67e12
 FAST_THRESHOLD, FAST_ARC, FAST_BORDER = 13.0, 12, 19
 SLAM_FAST_MIN_THRESHOLD = 7.0   # the SLAM path's second FAST threshold
 N_FRAMES = 120
-N_PHASES = 24
+N_PHASES = 25
+BRANCHES_TITLE = (
+    "branches: slam_scan's frame graph (relocalization and keyframe "
+    "branches as conditional nodes) vs the host-branch step, torch.equal, "
+    "no host wait (sync debug 'error'); ChunkedSlam one wait a chunk; "
+    "launches by the branches taken")
 GRAPHS_TITLE = (
     "graphs: (a) K5 (rigid_fit, rigid_refit) vs the SVD route, (b) the eager "
     "odometry_step with no host wait, (c) odometry_scan's CUDA graph vs the "
     "eager step "
-    "loop, (d) slam_scan's and Slam's tracking graph vs their eager steps, "
+    "loop, (d) slam_scan's frame graph and Slam's tracking graph vs their "
+    "eager steps, "
     "also through a forced tracking loss, "
     f"(e) ms a frame and device-busy share in turns; {N_FRAMES} frames of "
     "640x480")
@@ -1597,11 +1622,22 @@ def _without_k5_k7(launches: dict, stepped_frames: int, what: str) -> dict:
 
 
 def _reset_counters() -> None:
+    """Every kernel's launches to 0, the branches of earlier frame graphs
+    settled first (their launches belong before the reset)."""
+    from jetracer_orbslam2_torch.utils import step_graph
+
+    step_graph.settle_launches()
     for fn in _kernel_counters().values():
         fn.launches = 0
 
 
 def _read_counters() -> dict:
+    """Every kernel's launches, the branches of the frame graphs settled
+    first (a body's kernels count once for each replay that took it, read
+    from the replays' branch flags: one fetch)."""
+    from jetracer_orbslam2_torch.utils import step_graph
+
+    step_graph.settle_launches()
     return {name: fn.launches for name, fn in _kernel_counters().items()}
 
 
@@ -1644,6 +1680,57 @@ def _scan_pair(firsts, seconds, intr, gt, cfg):
 def _scan(seq, depth, cfg):
     """init_scan_state + slam_scan + one fetch -> (final, out, poses, ATE m)."""
     return _scan_pair(seq.gray, depth, seq.intrinsics, seq.poses, cfg)
+
+
+def _host_scan_pair(firsts, seconds, intr, cfg, state=None):
+    """slam_scan's frames through `_step`, the host-branch step (what
+    `slam_scan(mesh=...)` runs): the tracking half a replay of its tracking
+    graph, the relocalization and keyframe branches eager host branches.
+    The reference the frame graph is held against.  -> (final, out)."""
+    import torch
+    from jetracer_orbslam2_torch.models import slam as slam_mod
+    from jetracer_orbslam2_torch.models import slam_scan as ss
+
+    if state is None:
+        state = ss.init_scan_state(firsts[0], seconds[0], intr, cfg)
+    dev = state.T_wc.device
+    const = slam_mod.step_constants(dev)
+    rows = []
+    for i in range(1, firsts.shape[0]):
+        state, row = ss._step(state, firsts[i], seconds[i], (None, False),
+                              intr, cfg)
+        rows.append(row[:4] + (const["true" if row[4] else "false"],))
+    ref_uid, T_rel, T_w_emit, tracked, is_kf = zip(*rows)
+    return state, ss.ScanOutput(
+        ref_uid=torch.stack(ref_uid), T_rel=torch.stack(T_rel),
+        T_w_emit=torch.stack(T_w_emit), tracked=torch.stack(tracked),
+        is_kf=torch.stack(is_kf))
+
+
+def _branches_taken(final) -> dict:
+    """How many of a scan's frames took each branch of its frame graph, from
+    the graph's counts not yet settled (before `_read_counters`); {} for a
+    scan that ran no frame graph."""
+    from jetracer_orbslam2_torch.utils import step_graph
+
+    graph = final.graph
+    if not isinstance(graph, step_graph.FrameGraph):
+        return {}
+    counts = graph.branch_counts()
+    taken = [0] * 5 if counts is None else counts.tolist()
+    return dict(zip(("relocalization", "keyframe", "loop_close",
+                     "compact_keyframes", "compact_map"), taken))
+
+
+def _k7_exact(launches: dict, stepped: int, taken: dict, what: str) -> None:
+    """K7 launched once a stepped frame, once a relocalization tried and
+    once a keyframe (its top-n verifications are one launch): exact since
+    the branches' launches are counted by the branches taken."""
+    want = stepped + taken["relocalization"] + taken["keyframe"]
+    if launches["ransac_select"] != want:
+        raise SystemExit(f"FAIL: {what}: ransac_select launched "
+                         f"{launches['ransac_select']} times, {want} expected "
+                         f"({stepped} stepped frames, branches {taken})")
 
 
 def _check_obs_prefix(m, what: str) -> None:
@@ -1763,9 +1850,17 @@ def phase_slam_path(dev) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     say(f"  rendered {LONG_FRAMES} frames of 640x480 on the card in "
         f"{time.perf_counter() - t0:.2f} s")
-    # warm-up on the first frames: every shape of the run has been seen once
+    # warm-up on the first frames: every shape of the run has been seen once;
+    # the device memory the frame graph's capture reserves (its pool and
+    # its branches' pools) is read around it
     warm = seq._replace(gray=seq.gray[:40], depth=depth[:40], poses=seq.poses[:40])
-    _scan(warm, depth[:40], cfg)
+    torch.cuda.synchronize()
+    reserved0 = torch.cuda.memory_reserved()
+    warm_final, _, _, _ = _scan(warm, depth[:40], cfg)
+    torch.cuda.synchronize()
+    pool_bytes = torch.cuda.memory_reserved() - reserved0
+    fg_nodes = (warm_final.graph.graph_nodes, warm_final.graph.body_nodes)
+    del warm_final
     _reset_counters()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -1775,11 +1870,13 @@ def phase_slam_path(dev) -> tuple[dict, dict]:
         final, out, poses, rmse = _scan(seq, depth, cfg)
         stop.record()
         stop.synchronize()
+    taken = _branches_taken(final)
     launches = _read_counters()
     ms = start.elapsed_time(stop)
     inserted = int(out.is_kf.sum())
     m = final.m
     k1_k4 = _without_k5_k7(launches, LONG_FRAMES - 1, "SLAM path")
+    _k7_exact(launches, LONG_FRAMES - 1, taken, "SLAM path")
     report = {
         "frames": LONG_FRAMES, "shape": [480, 640], "levels": 4, "keypoints": 1024,
         "map_capacity": [LONG_KEYFRAMES, int(m.lm_valid.shape[0]),
@@ -1791,7 +1888,28 @@ def phase_slam_path(dev) -> tuple[dict, dict]:
         "observations": int(m.num_obs), "ate_rmse_m": rmse,
         "ms_per_frame": ms / LONG_FRAMES, "fps": LONG_FRAMES / (ms / 1e3),
         "launches": launches, "k4_route_calls": calls,
+        "branches_taken": taken,
+        "frame_graph": {
+            "nodes": fg_nodes[0], "body_nodes": fg_nodes[1],
+            "captures": final.graph.captures, "replays": final.graph.replays,
+            "reserved_bytes_by_warm_scan": pool_bytes},
     }
+    # the same frames through the host-branch step (the tracking half a graph
+    # replay, the branches eager), against the frame graph, in turns
+    turns = {"graphed": [ms]}
+    for name in ("host", "host", "graphed"):
+        torch.cuda.synchronize()
+        start.record()
+        if name == "host":
+            _host_scan_pair(seq.gray, depth, seq.intrinsics, cfg)
+        else:
+            _scan(seq, depth, cfg)
+        stop.record()
+        stop.synchronize()
+        turns.setdefault(name, []).append(start.elapsed_time(stop))
+    report["ms_per_frame_in_turns"] = {
+        k: [t / LONG_FRAMES for t in v] for k, v in turns.items()}
+    report["turns"] = "graphed (the gated run), host, host, graphed"
     say("  SLAM path: " + json.dumps(report))
     if report["tracked_frac"] < 0.95 or report["loops"] < 1:
         raise SystemExit("FAIL: the SLAM path lost tracking or closed no loop")
@@ -2078,6 +2196,7 @@ def phase_stereo_path(dev) -> dict:
                                                  seq.intrinsics, seq.poses, cfg)
             stop.record()
             stop.synchronize()
+        taken = _branches_taken(final)
         launches = _read_counters()
         ms = start.elapsed_time(stop)
         inserted = int(out.is_kf.sum())
@@ -2091,6 +2210,7 @@ def phase_stereo_path(dev) -> dict:
             "ate_limit_m": STEREO_ATE_M[name],
             "ms_per_frame": ms / STEREO_FRAMES, "fps": STEREO_FRAMES / (ms / 1e3),
             "launches": launches, "k4_route_calls": calls,
+            "branches_taken": taken,
         }
         say(f"  stereo {name}: " + json.dumps(row))
         if not rmse <= STEREO_ATE_M[name]:
@@ -2108,6 +2228,7 @@ def phase_stereo_path(dev) -> dict:
                 "fused_normal_schur": 10 * inserted,
                 "fused_backsub": 10 * inserted}
         k1_k4 = _without_k5_k7(launches, STEREO_FRAMES - 1, f"stereo {name}")
+        _k7_exact(launches, STEREO_FRAMES - 1, taken, f"stereo {name}")
         if k1_k4 != want or any(calls.values()):
             raise SystemExit(f"FAIL: stereo {name} launches {launches} (calls "
                              f"{calls}), expected {want}")
@@ -2798,13 +2919,15 @@ def phase_runtime(dev) -> dict:
 
 class _MeshRunProbe:
     """Patches, for one CLI run, what phase 21 reads off it: keyframe
-    updates (`slam.keyframe_update`, which `Slam` and `slam_scan` call
-    through the module) and the final poses and tracked flags
-    (`Slam.result`, `ChunkedSlam.result` / `tracked`)."""
+    updates (`slam.keyframe_update` called eagerly, as `Slam` and the mesh
+    path's `slam_scan` call it through the module; a `ChunkedSlam` whose
+    frames ran in a frame graph: its outputs' `is_kf`) and the final poses
+    and tracked flags (`Slam.result`, `ChunkedSlam.result` / `tracked`)."""
 
     def __enter__(self):
         from jetracer_orbslam2_torch.models import slam as slam_mod
         from jetracer_orbslam2_torch.models import slam_scan as ss
+        from jetracer_orbslam2_torch.utils import step_graph
 
         self.keyframe_updates, self.poses, self.tracked = 0, None, None
         probe, self._saved = self, []
@@ -2816,8 +2939,21 @@ class _MeshRunProbe:
 
         def counted(fn):
             def wrapped(*a, **kw):
-                probe.keyframe_updates += 1
+                # a frame graph calls it once to warm up and once to capture;
+                # its keyframes are the chunks' is_kf (chunk_result below)
+                if not step_graph.in_graph():
+                    probe.keyframe_updates += 1
                 return fn(*a, **kw)
+            return wrapped
+
+        def chunk_result(fn):
+            def wrapped(ch, *a, **kw):
+                out = fn(ch, *a, **kw)
+                probe.poses = out
+                if isinstance(ch.state.graph, step_graph.FrameGraph):
+                    probe.keyframe_updates = int(sum(
+                        o.is_kf.sum() for o in ch._outs))
+                return out
             return wrapped
 
         def slam_result(fn):
@@ -2838,7 +2974,7 @@ class _MeshRunProbe:
 
         patch(slam_mod, "keyframe_update", counted)
         patch(slam_mod.Slam, "result", slam_result)
-        patch(ss.ChunkedSlam, "result", captured("poses"))
+        patch(ss.ChunkedSlam, "result", chunk_result)
         patch(ss.ChunkedSlam, "tracked", captured("tracked"))
         return self
 
@@ -3863,9 +3999,10 @@ class _EagerStep:
 
 
 def _graph_slam(gray, depth, intr, gt, cfg, dev) -> dict:
-    """(d) slam_scan and Slam graphed against their eager steps on the arc:
-    poses, flags, keyframes, loops equal, one host wait a plain frame; (e)
-    the scan timed in turns, and its device-busy share."""
+    """(d) slam_scan (its frame graph) and Slam (its tracking graph) against
+    their eager steps on the arc: poses, flags, keyframes, loops equal; no
+    host wait in the whole scan, one a plain frame of Slam; (e) the scan
+    timed in turns, and its device-busy share."""
     import numpy as np
     import torch
     from jetracer_orbslam2_torch.evaluation import ate
@@ -3937,7 +4074,8 @@ def _graph_slam(gray, depth, intr, gt, cfg, dev) -> dict:
     _reset_counters()
     ss._step, slam_mod.Slam._track = scan_step, slam_track
     try:
-        final, out = scan()
+        # the frame graph: warm-up, capture and every replay, no host wait
+        (final, out), scan_waits = _count_waits(scan)
         launches = _read_counters()
         graphed_scan = summary(final, out)
         graph = final.graph
@@ -3966,11 +4104,13 @@ def _graph_slam(gray, depth, intr, gt, cfg, dev) -> dict:
             for k in lost_scan[0]),
         "slam_graphed_equals_eager": slam_equal(*lost_slam),
     }
-    # plain frames (tracked, no keyframe) after the capture (a run's first
-    # tracked frame warms up, its second captures); a keyframe frame and a
-    # relocalization wait more
-    plain = {k: [w for w, is_plain in v[2:] if is_plain]
-             for k, v in waits.items()}
+    # Slam's plain frames (tracked, no keyframe) after the capture (a run's
+    # first tracked frame warms up, its second captures); a keyframe frame
+    # and a relocalization wait more.  The scan's frames are replays of its
+    # frame graph, which make no host wait at all (the whole scan's count)
+    if waits["scan"]:
+        raise SystemExit("FAIL: slam_scan took the host-branch step")
+    plain = {"slam": [w for w, is_plain in waits["slam"][2:] if is_plain]}
     walls = {"eager": [_timed(lambda: scan(eager=True))]}
     walls["graphed"] = [_timed(scan), _timed(scan)]
     walls["eager"].append(_timed(lambda: scan(eager=True)))
@@ -3998,6 +4138,8 @@ def _graph_slam(gray, depth, intr, gt, cfg, dev) -> dict:
             k: (sum(v) / len(v) if v else None) for k, v in plain.items()},
         "host_waits_max_plain_frame": {k: max(v, default=None)
                                        for k, v in plain.items()},
+        "scan_host_waits": scan_waits,
+        "graph_nodes": graph.graph_nodes, "body_nodes": graph.body_nodes,
         "ms_per_frame": {k: [w / frames * 1e3 for w in v]
                          for k, v in walls.items()},
         "device_busy_ms_per_frame": {k: b[1] / window * 1e3
@@ -4023,16 +4165,20 @@ def _graph_slam(gray, depth, intr, gt, cfg, dev) -> dict:
     if not (rmse < 0.10 and report["tracked_frac"] >= 0.95):
         raise SystemExit(f"FAIL: graphed SLAM ATE {rmse} / tracked "
                          f"{report['tracked_frac']}")
-    if (graph.captures, graph.replays, graph.eager_calls) != (1, n - 2, 1):
-        raise SystemExit(f"FAIL: SLAM graph captures {graph.captures}, replays "
-                         f"{graph.replays}, eager calls {graph.eager_calls}; "
-                         f"expected 1, {n - 2}, 1")
+    if (graph.captures, graph.replays, graph.eager_calls) != (1, n - 1, 0):
+        raise SystemExit(f"FAIL: SLAM frame graph captures {graph.captures}, "
+                         f"replays {graph.replays}, eager calls "
+                         f"{graph.eager_calls}; expected 1, {n - 1}, 0 (a "
+                         "warm-up on a copy, then every frame a replay)")
+    if scan_waits != 0:
+        raise SystemExit(f"FAIL: slam_scan made {scan_waits} host waits "
+                         "(none expected before the caller's fetch)")
     if launches["fast_nms_pyramid"] != n or launches["extract_patches_fused"] != n:
         raise SystemExit(f"FAIL: SLAM graph launches {launches}: K1 = K4 = {n} "
                          "expected")
     _without_k5_k7(launches, n - 1, "SLAM graph")
     if any(not v or max(v) != 1 or min(v) != 1 for v in plain.values()):
-        raise SystemExit(f"FAIL: host waits of a plain SLAM frame: {plain} "
+        raise SystemExit(f"FAIL: host waits of a plain Slam frame: {plain} "
                          "(one expected: the packed fetch)")
     return report
 
@@ -4054,6 +4200,213 @@ def phase_graphs(source, args, dev, floor_ms: float) -> dict:
     slam = _graph_slam(gray, depth, source.intr, source.gt,
                        SystemConfig(frontend=fcfg), dev)
     return {"k5": k5, "odometry": odometry, "slam": slam}
+
+
+# ---------------------------------------------------------------------------
+# phase 25: the frame's branches as conditional nodes of its CUDA graph
+# ---------------------------------------------------------------------------
+
+CHUNK = 8                  # the CLI's --chunked 8
+
+
+def _branch_sequences(source, args, dev) -> list:
+    """(name, firsts, seconds, intrinsics, cfg, what the run must show) of
+    phase 25: the CLI's arc with frames LOST[1]..LOST[2]-1 blank (it
+    relocalizes), phase 12's lap (it closes loops) and phase 14's three laps
+    through 32 keyframe slots (they compact)."""
+    import torch
+    from jetracer_orbslam2_torch import run
+    from jetracer_orbslam2_torch.config import (
+        FrontendConfig, MapConfig, SystemConfig, TrackingConfig)
+
+    frames = list(source.frames())[:LOST[0]]
+    gray = torch.stack([f[0] for f in frames]).clone()
+    depth = torch.stack([f[1] for f in frames])
+    gray[LOST[1]:LOST[2]] = 0
+    arc_cfg = SystemConfig(frontend=run._frontend_cfg(args, source.hw, source.cal))
+    h, w = LAP_SHAPE
+    lap_cfg = SystemConfig(
+        frontend=FrontendConfig(height=h, width=w, num_levels=3, max_keypoints=512),
+        tracking=TrackingConfig(match_window=16.0))
+    lap, lap_depth = _lap(LAP_SHAPE, LAP_FRAMES, LAP_LENGTH, LAP_NOISE, 0, dev)
+    n_life = 3 * LAP_LENGTH + 16
+    life, life_depth = _lap(LAP_SHAPE, n_life, LAP_LENGTH, LAP_NOISE, 0, dev)
+    return [
+        ("arc, frames 30-33 blank", gray, depth, source.intr, arc_cfg, "relocs"),
+        ("gated lap", lap.gray, lap_depth, lap.intrinsics, lap_cfg, "loops"),
+        ("lifecycle, 32 slots", life.gray, life_depth, life.intrinsics,
+         lap_cfg.replace(map=MapConfig(max_keyframes=32)), "compactions"),
+    ]
+
+
+def _differing_state(a, b) -> list:
+    """The fields of two ScanStates (every MapState tensor, the counters and
+    poses) that are not torch.equal."""
+    import torch
+
+    bad = [f"m.{f}" for f, x, y in zip(type(a.m)._fields, a.m, b.m)
+           if not torch.equal(x, y)]
+    bad += [f"prev.{f}" for f, x, y in zip(type(a.prev)._fields, a.prev, b.prev)
+            if not torch.equal(x, y)]
+    for f in ("T_wc", "velocity", "frames_since_kf", "lost_streak", "frame_idx",
+              "ref_slot", "num_loops", "num_relocs", "loop_prev_uid",
+              "loop_consist"):
+        if not torch.equal(getattr(a, f), getattr(b, f)):
+            bad.append(f)
+    return bad
+
+
+def _branch_run(name, firsts, seconds, intr, cfg, must, dev) -> dict:
+    """One sequence of phase 25: the graphed scan under sync-debug "error"
+    (no host wait from its entry to the caller's fetch), its outputs and
+    branch flags in one fetch, torch.equal to the host-branch step, and the
+    launches of the branch bodies by the branches taken."""
+    import numpy as np
+    import torch
+    from jetracer_orbslam2_torch.models import slam_scan as ss
+    from jetracer_orbslam2_torch.utils import step_graph
+
+    n = firsts.shape[0]
+    state = ss.init_scan_state(firsts[0], seconds[0], intr, cfg)
+    _reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        final, out = ss.slam_scan(state, firsts[1:], seconds[1:], intr, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    graph = final.graph
+    counts = graph.branch_counts()
+    host = step_graph.fetch(*out, counts)       # the caller's one fetch
+    graphed_s = time.perf_counter() - t0
+    graph.settle(host[-1])
+    launches = _read_counters()
+    taken = host[-1].tolist()
+    h_final, h_out = _host_scan_pair(firsts, seconds, intr, cfg)
+    differ = [f for f in ss.ScanOutput._fields
+              if not torch.equal(getattr(out, f), getattr(h_out, f))]
+    differ += _differing_state(final, h_final)
+    stepped = n - 1
+    relocs_tried, keyframes = int(taken[0]), int(taken[1])
+    row = {
+        "sequence": name, "frames": n,
+        "keyframes_inserted": int(out.is_kf.sum()), "keyframes": int(final.m.num_kf),
+        "loops": int(final.num_loops), "relocs": int(final.num_relocs),
+        "keyframes_recycled": int(final.m.num_dead),
+        "tracked_frac": float(out.tracked.float().mean()),
+        "branches_taken": {"relocalization": relocs_tried,
+                           "keyframe": keyframes,
+                           "loop_close": int(taken[2]),
+                           "compact_keyframes": int(taken[3]),
+                           "compact_map": int(taken[4])},
+        "graphed_equals_host_branch": not differ, "differing": differ,
+        "captures": graph.captures, "replays": graph.replays,
+        "graph_nodes": graph.graph_nodes, "body_nodes": graph.body_nodes,
+        "launches": launches, "graphed_s_with_capture": graphed_s,
+    }
+    say(f"  {name}: " + json.dumps(row))
+    bad = []
+    if differ:
+        bad.append(f"graphed differs from the host-branch step in {differ}")
+    if keyframes != row["keyframes_inserted"] or int(taken[2]) != row["loops"]:
+        bad.append("the branch flags disagree with is_kf or the loop count")
+    if (graph.captures, graph.replays) != (1, stepped):
+        bad.append(f"captures {graph.captures}, replays {graph.replays}")
+    # counted from the first stepped frame (the bootstrap frame ran before)
+    want = {"fast_nms_pyramid": stepped, "fused_normal_schur": 10 * keyframes,
+            "fused_backsub": 10 * keyframes,
+            "ransac_select": stepped + relocs_tried + keyframes}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        bad.append(f"launches {got}, expected {want}")
+    if short := _k5_k7_short(launches, stepped):
+        bad.append(short)
+    need = {"relocs": row["relocs"], "loops": row["loops"],
+            "compactions": row["branches_taken"]["compact_keyframes"]}[must]
+    if need < 1:
+        bad.append(f"no {must} on this sequence")
+    if bad:
+        raise SystemExit(f"FAIL: phase 25, {name}: " + "; ".join(bad))
+    return row
+
+
+def _chunked_waits(firsts, seconds, intr, cfg, whole_out) -> dict:
+    """ChunkedSlam over CHUNK frames at a time on frames already on the
+    card: host waits of every call counted (sync-debug "warn"); exactly one
+    a chunk, in the call that returns it; the poses those of one scan."""
+    import numpy as np
+    from jetracer_orbslam2_torch.models import slam_scan as ss
+
+    ch = ss.ChunkedSlam(cfg, intr, chunk_size=CHUNK)
+    per_call, chunks = [], 0
+    for i in range(firsts.shape[0]):
+        out, k = _count_waits(lambda: ch.process_frame(firsts[i], seconds[i]))
+        per_call.append(k)
+        chunks += out is not None
+        if (out is None and k) or (out is not None and k != 1):
+            raise SystemExit(f"FAIL: ChunkedSlam frame {i}: {k} host waits "
+                             f"(one in a call that returns a chunk, else none)")
+    out, k = _count_waits(ch.flush)
+    if out is not None:
+        chunks += 1
+        per_call.append(k)
+        if k != 1:
+            raise SystemExit(f"FAIL: ChunkedSlam's tail chunk: {k} host waits")
+    same = bool(np.array_equal(ch.tracked()[1:], whole_out.tracked.cpu().numpy())
+                and np.array_equal(np.concatenate([o.is_kf for o in ch._outs]),
+                                   whole_out.is_kf.cpu().numpy()))
+    report = {"chunk": CHUNK, "chunks": chunks, "host_waits": sum(per_call),
+              "host_waits_per_chunk": sum(per_call) / chunks,
+              "same_flags_as_one_scan": same}
+    say("  ChunkedSlam: " + json.dumps(report))
+    if sum(per_call) != chunks or not same:
+        raise SystemExit(f"FAIL: ChunkedSlam: {report}")
+    return report
+
+
+def phase_branches(source, args, dev) -> dict:
+    """Phase 25: slam_scan's frame graph (the relocalization and keyframe
+    branches as conditional nodes) against the host-branch step on three
+    sequences, with no host wait; ChunkedSlam's one wait a chunk; the lap
+    timed graphed and host-branch in turns."""
+    import torch
+    from jetracer_orbslam2_torch.models import slam_scan as ss
+
+    seqs = _branch_sequences(source, args, dev)
+    runs = [_branch_run(*seq, dev) for seq in seqs]
+    _, lap, lap_depth, lap_intr, lap_cfg, _ = seqs[1]
+    st = ss.init_scan_state(lap[0], lap_depth[0], lap_intr, lap_cfg)
+    _, whole = ss.slam_scan(st, lap[1:], lap_depth[1:], lap_intr, lap_cfg)
+    chunked = _chunked_waits(lap, lap_depth, lap_intr, lap_cfg, whole)
+    turns, first = {}, {}
+    for name in ("graphed", "host", "host", "graphed"):
+        # frame 1 from a fresh state (the frame graph's warm-up and capture,
+        # the tracking graph's warm-up), then frames 2.. timed
+        st = ss.init_scan_state(lap[0], lap_depth[0], lap_intr, lap_cfg)
+        held = {}
+        if name == "graphed":
+            once = _timed(lambda: held.update(st=ss.slam_scan(
+                st, lap[1:2], lap_depth[1:2], lap_intr, lap_cfg)[0]))
+            wall = _timed(lambda: ss.slam_scan(held["st"], lap[2:],
+                                                lap_depth[2:], lap_intr, lap_cfg))
+        else:
+            once = _timed(lambda: held.update(st=_host_scan_pair(
+                lap[:2], lap_depth[:2], lap_intr, lap_cfg, st)[0]))
+            wall = _timed(lambda: _host_scan_pair(
+                lap[1:], lap_depth[1:], lap_intr, lap_cfg, held["st"]))
+        first.setdefault(name, []).append(once * 1e3)
+        turns.setdefault(name, []).append(wall / (LAP_FRAMES - 2) * 1e3)
+    report = {"runs": runs, "chunked": chunked,
+              "lap_ms_per_frame_in_turns": turns,
+              "lap_first_frame_ms": first,
+              "turns": "graphed, host, host, graphed over the gated lap: "
+                       "frames 2.. timed, after frame 1 from a fresh state "
+                       "(lap_first_frame_ms, for the frame graph its warm-up "
+                       "and capture)"}
+    say("  branches: " + json.dumps({k: v for k, v in report.items()
+                                     if k != "runs"}))
+    return report
 
 
 # ---------------------------------------------------------------------------
@@ -4870,11 +5223,14 @@ def print_build(name: str) -> None:
 
 def main(argv: list[str]) -> int:
     t_start = time.perf_counter()
-    if argv not in ([], ["--kernels"]):
-        print("usage: python3 chip_smoke.py [--kernels]", file=sys.stderr)
+    if argv not in ([], ["--kernels"], ["--branches"]):
+        print("usage: python3 chip_smoke.py [--kernels | --branches]",
+              file=sys.stderr)
         return 2
     # --kernels: build, check and time the kernels only (phases 1-3, 6, 7, 11, 16)
     kernels_only = argv == ["--kernels"]
+    # --branches: the frame graph's branches only (phases 1, 2 and 25)
+    branches_only = argv == ["--branches"]
 
     import torch
 
@@ -4887,7 +5243,7 @@ def main(argv: list[str]) -> int:
     from jetracer_orbslam2_torch.ops import (
         fused_ba, fused_fast, fused_patches, fused_polish, fused_ransac,
         fused_rigid)
-    from jetracer_orbslam2_torch.utils import cuda_build
+    from jetracer_orbslam2_torch.utils import cuda_build, step_graph
     from jetracer_orbslam2_torch.utils.device import resolve_device
     from jetracer_orbslam2_torch.utils.precision import set_exact_f32
 
@@ -4904,7 +5260,7 @@ def main(argv: list[str]) -> int:
     phase(2, "build (one nvcc per source, started together)")
     t0 = time.perf_counter()
     sources = ["fast_nms", "ba_fused", "patch_gather", "rigid_fit", "pose_polish",
-               "ransac_hyp"]
+               "ransac_hyp", "graph_cond"]
     cuda_build.build_libraries(sources)
     fused_fast._launcher()
     fused_ba._launchers()
@@ -4912,9 +5268,21 @@ def main(argv: list[str]) -> int:
     fused_rigid._launchers()
     fused_polish._launcher()
     fused_ransac._launcher()
-    say(f"  six libraries built and loaded in {time.perf_counter() - t0:.2f} s")
+    step_graph._cond_library()
+    say(f"  seven libraries built and loaded in {time.perf_counter() - t0:.2f} s "
+        "(graph_cond: the frame graph's conditional nodes, no kernel of the "
+        "TPU's)")
     for name in sources:
         print_build(name)
+
+    if branches_only:
+        with torch.no_grad():
+            phase(25, BRANCHES_TITLE)
+            _, args, source, _ = open_source(N_FRAMES, dev)
+            branches = phase_branches(source, args, dev)
+        say(card)
+        say(json.dumps({"branches": branches, "card": card}))
+        return 0
 
     with torch.no_grad():
         phase(3, "fast_nms and patch kernels vs their plain versions "
@@ -5032,6 +5400,9 @@ def main(argv: list[str]) -> int:
                   "events around a replayed CUDA graph of 20 launches, median "
                   "of 20), the graphed odometry frame's nodes")
         ransac = phase_ransac(source, args, dev, floor_ms)
+
+        phase(25, BRANCHES_TITLE)
+        branches = phase_branches(source, args, dev)
     torch.cuda.synchronize()
 
     k1 = times["odometry"]
@@ -5281,6 +5652,7 @@ def main(argv: list[str]) -> int:
     say(json.dumps({"graphs": graphs, "card": card}))
     say(json.dumps({"polish": polish, "card": card}))
     say(json.dumps({"ransac": ransac, "card": card}))
+    say(json.dumps({"branches": branches, "card": card}))
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

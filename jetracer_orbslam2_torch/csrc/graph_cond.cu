@@ -1,0 +1,97 @@
+// Conditional ("if") nodes for a CUDA graph that PyTorch is capturing.
+//
+// The port's counterpart of the JAX package's `lax.cond` inside its compiled
+// frame step: a branch of the frame becomes a node of the frame's graph that
+// runs its body graph only when a predicate in device memory is true at
+// replay.  The Python API of PyTorch 2.11 (the card's) offers no such node,
+// so this library makes it from the CUDA runtime (12.4 or newer):
+//
+//   graph_cond_setup()
+//     loads the kernel below (call it before a capture);
+//   graph_cond_begin(capture_stream, pred, body_stream)
+//     on a stream that is capturing: a conditional handle of the graph being
+//     captured, a one-thread kernel node that sets the handle from `*pred`
+//     (a bool), the `if` node after it, and the capture of `body_stream`
+//     into the node's body graph begun; the capturing stream continues after
+//     the node;
+//   graph_cond_end(body_stream)
+//     ends the body's capture.
+//
+//   graph_capture_nodes(stream, &count)
+//     the nodes of the graph `stream` is capturing into so far (a nested
+//     `if` node counts as one node of its parent).
+//
+// A body may hold another `if` node: begin it on the body's stream with a
+// third stream for the inner body.  Each call returns a cudaError_t (0 = ok).
+
+#include <cuda_runtime.h>
+
+namespace {
+
+__global__ void set_condition_kernel(cudaGraphConditionalHandle handle,
+                                     const bool* pred) {
+  cudaGraphSetConditional(handle, *pred ? 1u : 0u);
+}
+
+}  // namespace
+
+// Loads the kernel ahead of any capture (a module loaded lazily would load
+// inside the capture).
+extern "C" int graph_cond_setup() {
+  cudaFuncAttributes attr;
+  return cudaFuncGetAttributes(&attr, set_condition_kernel);
+}
+
+extern "C" int graph_cond_begin(cudaStream_t capture_stream, const bool* pred,
+                                cudaStream_t body_stream) {
+  cudaStreamCaptureStatus status;
+  cudaGraph_t graph;
+  const cudaGraphNode_t* deps = nullptr;
+  size_t num_deps = 0;
+  cudaError_t err = cudaStreamGetCaptureInfo(capture_stream, &status, nullptr,
+                                             &graph, &deps, &num_deps);
+  if (err != cudaSuccess) return err;
+  if (status != cudaStreamCaptureStatusActive)
+    return cudaErrorStreamCaptureImplicit;
+  cudaGraphConditionalHandle handle;
+  err = cudaGraphConditionalHandleCreate(&handle, graph, 0, 0);
+  if (err != cudaSuccess) return err;
+  set_condition_kernel<<<1, 1, 0, capture_stream>>>(handle, pred);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // the node depends on what the stream's capture depends on now: the kernel
+  err = cudaStreamGetCaptureInfo(capture_stream, &status, nullptr, &graph,
+                                 &deps, &num_deps);
+  if (err != cudaSuccess) return err;
+  cudaGraphNodeParams params = {};
+  params.type = cudaGraphNodeTypeConditional;
+  params.conditional.handle = handle;
+  params.conditional.type = cudaGraphCondTypeIf;
+  params.conditional.size = 1;
+  cudaGraphNode_t node;
+  err = cudaGraphAddNode(&node, graph, deps, num_deps, &params);
+  if (err != cudaSuccess) return err;
+  err = cudaStreamUpdateCaptureDependencies(capture_stream, &node, 1,
+                                            cudaStreamSetCaptureDependencies);
+  if (err != cudaSuccess) return err;
+  return cudaStreamBeginCaptureToGraph(body_stream,
+                                       params.conditional.phGraph_out[0],
+                                       nullptr, nullptr, 0,
+                                       cudaStreamCaptureModeThreadLocal);
+}
+
+extern "C" int graph_cond_end(cudaStream_t body_stream) {
+  cudaGraph_t body;
+  return cudaStreamEndCapture(body_stream, &body);
+}
+
+extern "C" int graph_capture_nodes(cudaStream_t stream, size_t* count) {
+  cudaStreamCaptureStatus status;
+  cudaGraph_t graph;
+  cudaError_t err = cudaStreamGetCaptureInfo(stream, &status, nullptr, &graph,
+                                             nullptr, nullptr);
+  if (err != cudaSuccess) return err;
+  if (status != cudaStreamCaptureStatusActive)
+    return cudaErrorStreamCaptureImplicit;
+  return cudaGraphGetNodes(graph, nullptr, count);
+}

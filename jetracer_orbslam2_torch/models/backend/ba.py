@@ -38,6 +38,7 @@ import torch
 from jetracer_orbslam2_torch.config import BAConfig
 from jetracer_orbslam2_torch.ops import geometry as geo
 from jetracer_orbslam2_torch.utils.device import resolve_device
+from jetracer_orbslam2_torch.utils.linalg import cholesky_solve
 from jetracer_orbslam2_torch.utils.precision import set_exact_f32
 
 Tensor = torch.Tensor
@@ -312,7 +313,7 @@ def _reduced_solve(Hpp: Tensor, GhG: Tensor, bp: Tensor, rhs_gh: Tensor,
     S = S * free6[:, None] * free6[None, :] + torch.diag(1.0 - free6)
     rhs = rhs * free6
     chol, info = torch.linalg.cholesky_ex(S, check_errors=False)
-    dxp = torch.cholesky_solve(rhs[:, None], chol)[:, 0].reshape(P, 6)
+    dxp = cholesky_solve(rhs[:, None], chol)[:, 0].reshape(P, 6)
     return dxp, info == 0
 
 

@@ -12,9 +12,11 @@ Counterpart of `jetracer_orbslam2_tpu/models/backend/loop.py`.  Pipeline:
      retained loop edge), optimized (`backend/pose_graph.py`), then each
      landmark rigidly carried with its reference keyframe's correction.
 
-Nothing here reads a value back to the host.  RANSAC draws come from the
-caller's `torch.Generator`, one draw per verified candidate in shortlist
-order; tests inject the sample indices instead.  Where the JAX package leans
+Nothing here reads a value back to the host.  RANSAC samples come from
+uniforms the caller drew ahead (the SLAM frame draws them whether or not its
+branches run), else from the caller's `torch.Generator`; tests inject the
+sample indices instead.  The shortlist's candidates are verified as one
+batch, the JAX package's `vmap`: one K7 and one K5 launch on the card.  Where the JAX package leans
 on a tie order (`argmax`, `lax.top_k`), the port computes it: the first index
 for an arg-reduction, a stable descending sort for the shortlist.
 """
@@ -130,28 +132,45 @@ def retrieve_topn(m: MapState, query_slot, min_sim: float, min_kf_gap: int = 10,
                          ok=scores > min_sim)
 
 
-def _verify_pair(
-    desc_a, has_a, pts_a, desc_b, has_b, pts_b,
-    generator: Optional[torch.Generator],
-    thresh: float, min_inliers: int, depth_quad: float = 0.0,
-    gate_cap: float = 1e9, sample_idx: Optional[Tensor] = None,
-) -> LoopResult:
-    """Descriptor-match two feature sets and RANSAC a rigid relative pose:
-    points_a ~= T_ab @ points_b over mutually-matched keypoints with valid
-    camera-frame 3D.  depth_quad widens the inlier gate quadratically with
-    range (`TrackingConfig.ransac_depth_quad`)."""
+def _match_weights(desc_a, has_a, desc_b, has_b, pts_b):
+    """Mutual descriptor matches of a's keypoints in b: b's point matched to
+    each of a's keypoints, and the weight of each pair (a match with valid
+    camera-frame 3D)."""
     res = match_ops.match(
         desc_a, desc_b, has_a, has_b,
         xy_a_pred=None, xy_b=None, window=0.0,
         max_hamming=80.0, mutual=True,
     )
     idx = res.idx.long()
-    pts_b_m = pts_b[idx]
-    w = (res.valid & has_b[idx]).to(torch.float32)
+    return pts_b[idx], (res.valid & has_b[idx]).to(torch.float32)
+
+
+def _verify_pair(
+    desc_a, has_a, pts_a, desc_b, has_b, pts_b,
+    generator: Optional[torch.Generator],
+    thresh: float, min_inliers: int, depth_quad: float = 0.0,
+    gate_cap: float = 1e9, sample_idx: Optional[Tensor] = None,
+    uniforms: Optional[Tensor] = None,
+) -> LoopResult:
+    """Descriptor-match two feature sets and RANSAC a rigid relative pose:
+    points_a ~= T_ab @ points_b over mutually-matched keypoints with valid
+    camera-frame 3D.  depth_quad widens the inlier gate quadratically with
+    range (`TrackingConfig.ransac_depth_quad`).  b's features may carry a
+    leading batch of C candidates (with sample_idx or uniforms (C, 512, 3)):
+    the C verifications then run as one RANSAC batch."""
+    if desc_b.dim() == 3:
+        pairs = [_match_weights(desc_a, has_a, desc_b[c], has_b[c], pts_b[c])
+                 for c in range(desc_b.shape[0])]
+        pts_b_m = torch.stack([p for p, _ in pairs])
+        w = torch.stack([w for _, w in pairs])
+        pts_a = pts_a.expand(pts_b_m.shape)
+    else:
+        pts_b_m, w = _match_weights(desc_a, has_a, desc_b, has_b, pts_b)
     rr = tracking.ransac_kabsch(
         pts_b_m, pts_a, w, generator,
         iters=VERIFY_RANSAC_ITERS, thresh=thresh, min_inliers=min_inliers,
         depth_quad=depth_quad, gate_cap=gate_cap, sample_idx=sample_idx,
+        uniforms=uniforms,
     )
     return LoopResult(T_ab=rr.T, num_inliers=rr.num_inliers, ok=rr.ok)
 
@@ -213,7 +232,8 @@ def _verify_world(
 def retrieve_and_verify(
     m: MapState, slot, generator: Optional[torch.Generator],
     cfg: LoopClosureConfig, intrinsics, prev_cand_uid, consistency,
-    sample_idx: Optional[Tensor] = None, device=None,
+    sample_idx: Optional[Tensor] = None, uniforms: Optional[Tensor] = None,
+    device=None,
 ) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
     """Aliasing-hardened loop detection; the whole decision stays on the
     device and the caller fetches it with its other per-keyframe numbers.
@@ -231,7 +251,9 @@ def retrieve_and_verify(
 
     prev_cand_uid / consistency: the caller-carried gate state.
     sample_idx: optional (topn, 512, 3) RANSAC samples, one set per
-    shortlisted candidate.
+    shortlisted candidate; else uniforms (topn, 512, 3) in [0, 1), else
+    uniforms drawn here from `generator`.  The topn verifications are one
+    RANSAC batch (the JAX package's `vmap`).
     Returns (kf_idx, T_ab (4,4), ok, new_prev_cand_uid, new_consistency).
     """
     dev = resolve_device(device)
@@ -240,16 +262,17 @@ def retrieve_and_verify(
     cands = retrieve_topn(m, slot, cfg.min_sim, cfg.min_kf_gap, cfg.topn,
                           device=dev)
     query = _kf_features(m, slot)
-    # one verification per candidate, drawn in shortlist order
-    ver = [
-        _verify_pair(
-            *query, *_kf_features(m, cands.kf_idx[c]), generator,
-            cfg.ransac_inlier_thresh, cfg.min_inliers, cfg.ransac_depth_quad,
-            sample_idx=None if sample_idx is None else sample_idx[c])
-        for c in range(cfg.topn)]
-    ver_ok = torch.stack([v.ok for v in ver])
-    ver_inl = torch.stack([v.num_inliers for v in ver])
-    ver_T = torch.stack([v.T_ab for v in ver])
+    if sample_idx is None and uniforms is None:
+        uniforms = torch.rand((cfg.topn, VERIFY_RANSAC_ITERS, 3),
+                              generator=generator, device=dev)
+    shortlist = cands.kf_idx.to(torch.int64)
+    ver = _verify_pair(
+        *query, m.kf_desc.index_select(0, shortlist),
+        m.kf_has_point.index_select(0, shortlist),
+        m.kf_points.index_select(0, shortlist), None,
+        cfg.ransac_inlier_thresh, cfg.min_inliers, cfg.ransac_depth_quad,
+        sample_idx=sample_idx, uniforms=uniforms)
+    ver_ok, ver_inl, ver_T = ver.ok, ver.num_inliers, ver.T_ab
     score = torch.where(cands.ok & ver_ok, ver_inl, torch.full_like(ver_inl, -1))
     best_score, best = first_argmax(score, 0)
     cand_idx = _row(cands.kf_idx, best)
@@ -285,16 +308,19 @@ def verify_features(
     m: MapState, desc, has_point, points, slot_b,
     generator: Optional[torch.Generator],
     thresh: float, min_inliers: int, depth_quad: float = 0.0,
-    gate_cap: float = 1e9, sample_idx: Optional[Tensor] = None, device=None,
+    gate_cap: float = 1e9, sample_idx: Optional[Tensor] = None,
+    uniforms: Optional[Tensor] = None, device=None,
 ) -> LoopResult:
     """Verify a live frame's features against stored keyframe `slot_b` (the
     relocalization pose solve: T_ab maps keyframe-camera coords to
-    query-camera coords, so T_w_query = kf_pose[slot_b] @ inv(T_ab))."""
+    query-camera coords, so T_w_query = kf_pose[slot_b] @ inv(T_ab)).
+    uniforms: optional (512, 3) in [0, 1), the draw made ahead."""
     m, desc, has_point, points, slot_b = _entry(
         resolve_device(device), m, desc, has_point, points, slot_b)
     return _verify_pair(
         desc, has_point, points, *_kf_features(m, slot_b),
-        generator, thresh, min_inliers, depth_quad, gate_cap, sample_idx)
+        generator, thresh, min_inliers, depth_quad, gate_cap, sample_idx,
+        uniforms)
 
 
 @torch.no_grad()

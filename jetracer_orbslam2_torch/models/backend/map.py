@@ -383,7 +383,10 @@ def compact_keyframes(
     # redundancy score per keyframe
     seen = m.obs_valid.to(f32)
     nobs = _segment_count(obs_lm_i, seen, L)
-    well = nobs[obs_lm_i] >= torch.as_tensor(min_covisible, device=dev).to(f32) + 1.0
+    # a host number stays on the host: no upload, so a captured step may call this
+    covisible = (min_covisible.to(dev).to(f32) if isinstance(min_covisible, Tensor)
+                 else float(min_covisible))
+    well = nobs[obs_lm_i] >= covisible + 1.0
     kf_tot = _segment_count(obs_kf_i, seen, Kf)
     kf_well = _segment_count(obs_kf_i, (m.obs_valid & well).to(f32), Kf)
     # a keyframe with no live observation carries no map information: fully

@@ -23,6 +23,7 @@ import torch
 from jetracer_orbslam2_torch.config import PoseGraphConfig
 from jetracer_orbslam2_torch.ops import geometry as geo
 from jetracer_orbslam2_torch.utils.device import resolve_device
+from jetracer_orbslam2_torch.utils.linalg import cholesky_solve
 from jetracer_orbslam2_torch.utils.precision import set_exact_f32
 
 Tensor = torch.Tensor
@@ -124,7 +125,7 @@ def optimize_pose_graph(
         H = H * free6[:, None] * free6[None, :] + gauge
         b = b * free6
         chol, info = torch.linalg.cholesky_ex(H, check_errors=False)
-        dx = torch.cholesky_solve(b[:, None], chol)[:, 0].reshape(P, 6)
+        dx = cholesky_solve(b[:, None], chol)[:, 0].reshape(P, 6)
         new_poses = poses @ geo.se3_exp(dx)
         _, _, _, cost1 = build(new_poses)
         # a NaN cost compares False; a failed factorisation is a rejection

@@ -8,20 +8,29 @@ Counterpart of `jetracer_orbslam2_tpu/models/slam.py`.
   * The tracking half of a frame (`tracking_step`: the front-end when the
     frame is an image pair, `track_and_associate`, the scheduler's flags) is
     captured once into a CUDA graph and replayed once a frame
-    (`utils/step_graph.StepGraph`); the keyframe and relocalization branches
-    stay eager host branches, taken on the frame's one packed fetch.
-  * The host loop is a thin scheduler: it reads back one packed tensor per
-    frame and one per keyframe and picks which functions to run.  No other
-    place reads a value from the device: on the card the rigid refits are
-    the K5 kernel (`fused_rigid`), which waits for nothing (its SVD route
-    runs on the CPU only).
+    (`utils/step_graph.StepGraph`).
+  * The relocalization and keyframe branches (`relocalize`,
+    `keyframe_update`, and inside it the loop closure and `compact_if_full`)
+    branch through `utils/step_graph.cond`: inside `models/slam_scan.py`'s
+    frame graph each is a conditional node of the graph, which waits for
+    nothing; called eagerly, as `Slam` calls them, each branch is a host
+    `if` on values fetched together (`step_graph.branch_values`).
+  * `Slam`, the host loop, is a thin scheduler: it reads back one packed
+    tensor per frame and, at a keyframe, the loop verdict and the capacity
+    counters in one more fetch, and picks which functions to run.  On the
+    card the rigid refits are the K5 kernel (`fused_rigid`), which waits for
+    nothing (its SVD route runs on the CPU only).
   * Local BA runs over a fixed-size keyframe window against the full
     fixed-capacity landmark table with masked observations.
 
-RANSAC draws come from one `torch.Generator` per system, advanced in a fixed
-order within a frame: tracking, then relocalization (when tried), then loop
-verification (at a keyframe).  `models/slam_scan.py` runs the same functions
-in the same order, so the two agree when seeded alike.
+RANSAC draws come from one `torch.Generator` per system and never depend on
+which branches ran, the JAX package's `fold_in(base_key, frame_idx)` rule:
+every frame's tracking step draws the tracker's samples, then one block of
+uniforms for relocalization and one for the loop verification, whatever the
+frame goes on to do.  The branches turn their block into samples
+(`tracking.samples_from_uniforms`), so `models/slam_scan.py` (whose graph
+replays advance the generator by the whole frame's draws) and `Slam` agree
+when seeded alike.
 """
 
 from __future__ import annotations
@@ -46,7 +55,8 @@ from jetracer_orbslam2_torch.ops import fused_rigid
 from jetracer_orbslam2_torch.ops import geometry as geo
 from jetracer_orbslam2_torch.utils.device import as_f32, resolve_device
 from jetracer_orbslam2_torch.utils.precision import set_exact_f32
-from jetracer_orbslam2_torch.utils.step_graph import StepGraph
+from jetracer_orbslam2_torch.utils.step_graph import (
+    Carry, StepGraph, branch_values, cond, in_graph)
 from jetracer_orbslam2_torch.utils.ties import first_argmax
 
 Tensor = torch.Tensor
@@ -254,6 +264,8 @@ class TrackingStep(NamedTuple):
     since_kf: Tensor      # () int32 frames_since_kf + 1 (no keyframe here)
     lost_streak: Tensor   # () int32 after this frame
     flags: Tensor         # (3,) bool [tracked, need_kf, try_reloc]
+    u_reloc: Tensor       # (512, 3) the relocalization's uniforms
+    u_loop: Tensor        # (topn, 512, 3) the loop verification's uniforms
 
 
 def tracking_step(generator, prev: Features, frame, m: MapState, T_w_prev,
@@ -263,20 +275,28 @@ def tracking_step(generator, prev: Features, frame, m: MapState, T_w_prev,
     """The tracking half of a SLAM frame, the body a `StepGraph` captures:
     `frame` is the frame's Features, or with `extract` an image pair
     (first, second) that `extract(first, second, intrinsics)` turns into
-    them; then `track_and_associate` and the flags the host branches on.
-    imu_ok, frames_since_kf and lost_streak are () device tensors."""
+    them; then `track_and_associate`, the flags the branches take, and the
+    frame's fixed block of uniforms for those branches (drawn whatever they
+    do, so no later draw depends on them).  imu_ok, frames_since_kf and
+    lost_streak are () device tensors."""
+    dev = T_w_prev.device
     feats = frame if extract is None else extract(*frame, intrinsics)
     res, lm_idx, lm_ok, report = track_and_associate(
         prev, feats, m, T_w_prev, velocity, imu_delta_w, imu_ok,
-        frames_since_kf, intrinsics, generator, cfg, device=T_w_prev.device)
+        frames_since_kf, intrinsics, generator, cfg, device=dev)
     tracked = report.tracked_ok
     lost = torch.where(tracked, 0, lost_streak + 1).to(torch.int32)
     try_reloc = (~tracked) & (lost >= cfg.reloc.after_frames)
+    iters = loop_mod.VERIFY_RANSAC_ITERS
+    u_reloc = torch.rand((iters, 3), generator=generator, device=dev)
+    u_loop = torch.rand((cfg.loop.topn, iters, 3), generator=generator,
+                        device=dev)
     return TrackingStep(
         feats=None if extract is None else feats, velocity=res.velocity,
         lm_idx=lm_idx, lm_ok=lm_ok, report=report,
         since_kf=(frames_since_kf + 1).to(torch.int32), lost_streak=lost,
-        flags=torch.stack([tracked, report.need_kf, try_reloc]))
+        flags=torch.stack([tracked, report.need_kf, try_reloc]),
+        u_reloc=u_reloc, u_loop=u_loop)
 
 
 def tracking_graph(generator: torch.Generator, cfg: SystemConfig,
@@ -322,12 +342,15 @@ def imu_upload(delta_w, dev) -> Tensor:
 @torch.no_grad()
 def relocalize(m: MapState, feats: Features,
                generator: Optional[torch.Generator], cfg: SystemConfig,
-               device=None) -> tuple[Tensor, Tensor]:
+               device=None, uniforms: Optional[Tensor] = None,
+               ) -> tuple[Tensor, Tensor]:
     """Re-pose a lost frame against the keyframe store: retrieve the most
     similar stored keyframe and solve the relative pose from scratch (no
     motion prior, so an arbitrarily wrong current estimate is recoverable).
-    Returns (ok () bool, T_wc (4, 4)), both on the device; the verification
-    draws from `generator` whether or not retrieval passed its gate."""
+    Returns (ok () bool, T_wc (4, 4)), both on the device.  uniforms: the
+    frame's (512, 3) block (`TrackingStep.u_reloc`); without it the
+    verification draws from `generator`, whether or not retrieval passed its
+    gate."""
     dev = resolve_device(device)
     set_exact_f32()
     rc = cfg.reloc
@@ -336,7 +359,7 @@ def relocalize(m: MapState, feats: Features,
     ver = loop_mod.verify_features(
         m, feats.desc, feats.has_point, feats.points, cand.kf_idx, generator,
         rc.ransac_inlier_thresh, rc.min_inliers, rc.ransac_depth_quad,
-        rc.ransac_gate_cap, device=dev)
+        rc.ransac_gate_cap, uniforms=uniforms, device=dev)
     # T_ab: keyframe-camera -> query-camera; T_w_query = T_w_kf @ T_ab^-1
     T_new = loop_mod._row(m.kf_pose, cand.kf_idx) @ geo.pose_inverse(ver.T_ab)
     return cand.ok & ver.ok, T_new
@@ -348,35 +371,38 @@ class KeyframeUpdate(NamedTuple):
     m: MapState
     T_wc: Tensor          # (4, 4) pose of the new keyframe after BA / closure
     slot: Tensor          # () its slot after any compaction
-    looped: bool
-    compacted: bool
+    looped: object        # a loop closed: a host int, a () bool in a graph
+    compacted: object     # the map was compacted: likewise
     loop_prev_uid: Tensor  # () int32 loop gate state, to be carried into the
     loop_consist: Tensor   # () int32 next keyframe's `retrieve_and_verify`
     ba_dropped: int       # colliding edges the sharded BA dropped (0 meshless)
 
 
-def compact_if_full(m: MapState, cfg: SystemConfig, num_obs: int, num_lm: int,
-                    num_kf: int, device=None) -> tuple[MapState, bool]:
+def compact_if_full(m: MapState, cfg: SystemConfig, num_obs, num_lm,
+                    num_kf, device=None) -> tuple[MapState, object]:
     """Recycle map capacity when a budget crosses the compact threshold:
     keyframe culling + slot recycling (`map.compact_keyframes`) when the
     keyframe table fills, then landmark culling + observation compaction
     (`map.compact_map`).  Keeps long sequences mapping inside fixed arrays
-    instead of silently saturating.  The counters are host numbers from the
-    keyframe's packed fetch.  Returns (map, whether it compacted)."""
+    instead of silently saturating.  The counters are host numbers, or 0-dim
+    device tensors inside a FrameGraph (each step is then a branch on the
+    device).  Returns (map, whether it compacted)."""
     dev = resolve_device(device)
     mc = cfg.map
+    kf_full = num_kf > mc.compact_at * m.kf_valid.shape[0]
+    need_compact = (kf_full | (num_obs > mc.compact_at * m.obs_valid.shape[0])
+                    | (num_lm > mc.compact_at * m.lm_valid.shape[0]))
+    # inside a graph a body writes into the map's tensors; eagerly it
+    # replaces them, and the argument is never written
+    box = Carry({"m": m}, in_place=in_graph())
     kf_cap = m.kf_valid.shape[0]
-    kf_full = num_kf > mc.compact_at * kf_cap
-    if kf_full:
-        m = map_mod.compact_keyframes(
-            m, mc.kf_cull_redundancy, mc.kf_cull_min_covisible,
-            mc.kf_protect_recent, round(mc.kf_target_fill * kf_cap),
-            mc.kf_protect_loop_recent, device=dev)
-    if not (kf_full or num_obs > mc.compact_at * m.obs_valid.shape[0]
-            or num_lm > mc.compact_at * m.lm_valid.shape[0]):
-        return m, False
-    return map_mod.compact_map(m, mc.cull_min_obs, mc.cull_min_age_kf,
-                               device=dev), True
+    cond(kf_full, lambda: box.set(m=map_mod.compact_keyframes(
+        box.m, mc.kf_cull_redundancy, mc.kf_cull_min_covisible,
+        mc.kf_protect_recent, round(mc.kf_target_fill * kf_cap),
+        mc.kf_protect_loop_recent, device=dev)))
+    cond(need_compact, lambda: box.set(m=map_mod.compact_map(
+        box.m, mc.cull_min_obs, mc.cull_min_age_kf, device=dev)))
+    return box.m, need_compact
 
 
 @torch.no_grad()
@@ -385,14 +411,18 @@ def keyframe_update(
     lm_ok: Tensor, intrinsics: Tensor, cfg: SystemConfig,
     generator: Optional[torch.Generator], loop_prev_uid, loop_consist,
     sample_idx: Optional[Tensor] = None, mesh=None, device=None,
+    uniforms: Optional[Tensor] = None,
 ) -> KeyframeUpdate:
-    """The keyframe branch: insert + windowed BA + loop detection, ONE packed
-    fetch of the verdict and the capacity counters, then on the host's
-    decision the loop closure and the capacity recycling.
+    """The keyframe branch: insert + windowed BA + loop detection, then the
+    loop closure where the verdict holds and the capacity recycling where a
+    budget is crossed: branches on the device inside a FrameGraph; eagerly,
+    host branches on the verdict and the counters, fetched together.
 
     Loop detection runs at every keyframe: retrieval's min_kf_gap exclusion
     is the recency gate and the RANSAC verification the correctness gate.
-    sample_idx: optional RANSAC samples for `loop.retrieve_and_verify`.
+    sample_idx / uniforms: optional RANSAC samples or the frame's uniforms
+    (`TrackingStep.u_loop`) for `loop.retrieve_and_verify`; without either
+    the verification draws from `generator`.
     mesh: a `parallel.mesh.Mesh` on this device; the windowed BA then runs
     landmark-sharded over it (`parallel.ba_sharded.sharded_local_ba`)."""
     dev = resolve_device(device)
@@ -411,19 +441,20 @@ def keyframe_update(
         counters = [dropped]
     cand_idx, T_ab, loop_ok, lp_uid, lp_cons = loop_mod.retrieve_and_verify(
         m, slot, generator, cfg.loop, intrinsics, loop_prev_uid, loop_consist,
-        sample_idx=sample_idx, device=dev)
-    num_obs, num_lm, num_kf, looped, *dropped = torch.stack(
-        [m.num_obs, m.num_lm, m.num_kf, loop_ok.to(torch.int32)]
-        + counters).cpu().tolist()
-    if looped:
-        m = loop_mod.close(m, slot, cand_idx, T_ab, cfg.pose_graph, device=dev)
+        sample_idx=sample_idx, uniforms=uniforms, device=dev)
+    # closing a loop changes no counter: every branch is known here
+    looped, num_obs, num_lm, num_kf, *dropped = branch_values(
+        loop_ok, m.num_obs, m.num_lm, m.num_kf, *counters)
+    box = Carry({"m": m}, in_place=in_graph())
+    cond(looped, lambda: box.set(m=loop_mod.close(
+        box.m, slot, cand_idx, T_ab, cfg.pose_graph, device=dev)))
     # the live pose rides the optimized (and corrected) newest keyframe
-    T_wc = loop_mod._row(m.kf_pose, slot)
-    m, compacted = compact_if_full(m, cfg, num_obs, num_lm, num_kf, dev)
+    T_wc = loop_mod._row(box.m.kf_pose, slot)
+    m, compacted = compact_if_full(box.m, cfg, num_obs, num_lm, num_kf, dev)
     # the new keyframe is the newest and is never culled, but its slot may
     # have moved during compaction
     return KeyframeUpdate(
-        m=m, T_wc=T_wc, slot=m.num_kf - 1, looped=bool(looped),
+        m=m, T_wc=T_wc, slot=m.num_kf - 1, looped=looped,
         compacted=compacted, loop_prev_uid=lp_uid, loop_consist=lp_cons,
         ba_dropped=sum(dropped))
 
@@ -459,7 +490,8 @@ class Slam:
     functions of this module, one packed fetch per frame and one more per
     keyframe.  A frame's tracking half is one replay of a captured graph on
     the card (`process_frame`: front-end and tracking; `process_features`:
-    tracking of given features)."""
+    tracking of given features); it draws the frame's uniforms for the
+    branches, so this loop draws what `slam_scan` draws."""
 
     def __init__(self, cfg: SystemConfig, intrinsics, seed: int = 0,
                  mesh=None, device=None):
@@ -521,9 +553,10 @@ class Slam:
             gray, depth, self.intr, self.cfg.frontend,
             min_depth=t.min_depth, max_depth=t.max_depth, device=self.device)
 
-    def _try_relocalize(self, feats: Features) -> bool:
+    def _try_relocalize(self, feats: Features,
+                        uniforms: Optional[Tensor] = None) -> bool:
         ok, T_new = relocalize(self.m, feats, self.generator, self.cfg,
-                               self.device)
+                               self.device, uniforms=uniforms)
         if not bool(ok):
             return False
         self.T_wc = T_new
@@ -632,14 +665,15 @@ class Slam:
         else:
             self.lost_streak += 1
             if self.lost_streak >= self.cfg.reloc.after_frames:
-                if self._try_relocalize(feats):
+                if self._try_relocalize(feats, step.u_reloc):
                     self.trajectory[-1] = self.T_wc.cpu().numpy()
 
         if need_kf:
             up = keyframe_update(
                 self.m, feats, self.T_wc, self.frame_idx, lm_idx, lm_ok,
                 self.intr, self.cfg, self.generator, self._loop_prev_uid,
-                self._loop_consist, mesh=self.mesh, device=self.device)
+                self._loop_consist, mesh=self.mesh, device=self.device,
+                uniforms=step.u_loop)
             self.m, self.T_wc = up.m, up.T_wc
             self.ba_edges_dropped += up.ba_dropped
             self.frames_since_kf = const["one"]     # 1 after this keyframe

@@ -2,21 +2,29 @@
 
 Counterpart of `jetracer_orbslam2_tpu/models/slam_scan.py`.  There the whole
 system is one compiled `lax.scan` with `lax.cond` picking the keyframe and
-relocalization branches on the device.  Here `slam_scan` is a Python loop
-over the stack: a frame's tracking half (the front-end, `track_and_associate`
-and the flags, `slam.tracking_step`) is one replay of a CUDA graph captured
-once a run (`utils/step_graph.StepGraph`, carried in the state), and every
-`lax.cond` is a host branch on flags fetched ONCE per frame in one packed
-tensor (`tracked`, `need_kf`, `try_reloc`), plus the one packed fetch a
-keyframe makes (`slam.keyframe_update`).  Only the branch taken is computed,
-eagerly.  Frames, map, poses and the per-frame outputs stay on the device;
-the caller fetches the outputs once.
+relocalization branches on the device: zero host round trips per frame.
+Here `slam_scan` is a Python loop over the stack, and a frame is one replay
+of a CUDA graph captured once a run (`utils/step_graph.FrameGraph`, carried
+in the state): the tracking half (front-end, `track_and_associate`, the
+flags), then the relocalization branch and the keyframe branch (insert,
+windowed BA, the loop retrieval and the top-n verifications as one batch,
+and inside it the loop closure and the keyframe and map compaction), each
+`lax.cond` a conditional node of the graph on a flag in device memory.  The
+carried state lives in the graph's buffers; a branch writes its results
+back into them, a branch not taken leaves them as they were, and a plain
+frame copies no map.  Nothing is fetched until the caller fetches the
+outputs: `ChunkedSlam` makes one fetch a chunk.  On the CPU the same frame
+runs on the same buffers, each branch a host `if`.
 
-The math, thresholds, gating and the trajectory convention (frames ride their
-reference keyframe's optimized pose) are `models/slam.py`'s, and the RANSAC
-generator is advanced in the same order (tracking, relocalization, loop), so
-`slam_scan` and `Slam` seeded alike give the same keyframes, closures and
-poses.
+The math, thresholds, gating, the draws (each frame draws its tracker's
+samples and its branches' uniforms, whatever it goes on to do: the JAX
+package's `fold_in(base_key, frame_idx)` rule) and the trajectory
+convention (frames ride their reference keyframe's optimized pose) are
+`models/slam.py`'s, so `slam_scan` and `Slam` seeded alike give the same
+keyframes, closures and poses.  `_step` is the same frame with host
+branches (the tracking half a graph replay, the branches eager): what
+`slam_scan(mesh=...)` runs, whose windowed BA talks to other ranks, and the
+reference the graphed frame is held against.
 """
 
 from __future__ import annotations
@@ -38,7 +46,8 @@ from jetracer_orbslam2_torch.models.stereo import frontend_stereo
 from jetracer_orbslam2_torch.ops import geometry as geo
 from jetracer_orbslam2_torch.utils.device import as_f32, resolve_device
 from jetracer_orbslam2_torch.utils.precision import set_exact_f32
-from jetracer_orbslam2_torch.utils.step_graph import StepGraph
+from jetracer_orbslam2_torch.utils.step_graph import (
+    Carry, FrameGraph, StepGraph, branch_values, cond, fetch)
 
 Tensor = torch.Tensor
 
@@ -58,7 +67,8 @@ class ScanState(NamedTuple):
     loop_consist: Tensor    # () int32 consecutive-detection streak
     generator: torch.Generator  # RANSAC draws (the JAX state's base_key)
     ba_edges_dropped: int = 0   # host count: edges the sharded BA dropped
-    graph: Optional[StepGraph] = None  # the run's tracking graph, carried
+    graph: object = None    # the run's FrameGraph (or, with a mesh, its
+    #                         tracking StepGraph), carried
 
 
 class ScanOutput(NamedTuple):
@@ -93,7 +103,8 @@ def _features(gray, depth, intrinsics, cfg: SystemConfig, dev) -> Features:
 
 
 def _i32(value: int, dev) -> Tensor:
-    return torch.tensor(value, dtype=torch.int32, device=dev)
+    # a fill on the device, not an upload: no host wait
+    return torch.full((), value, dtype=torch.int32, device=dev)
 
 
 @torch.no_grad()
@@ -111,7 +122,7 @@ def init_scan_state(
     k = feats.xy.shape[0]
     eye = torch.eye(4, dtype=torch.float32, device=dev)
     m, slot = map_mod.insert_keyframe(
-        m, feats, eye, 0, feats.has_point,
+        m, feats, eye, _i32(0, dev), feats.has_point,
         torch.zeros(k, dtype=torch.int32, device=dev),
         torch.zeros(k, dtype=torch.bool, device=dev), device=dev)
     return ScanState(
@@ -125,14 +136,70 @@ def init_scan_state(
     )
 
 
-def _skip(state: ScanState) -> tuple:
+# the fields of ScanState a frame reads and rewrites
+_CARRIED = ("m", "prev", "T_wc", "velocity", "frames_since_kf", "lost_streak",
+            "frame_idx", "ref_slot", "num_loops", "num_relocs",
+            "loop_prev_uid", "loop_consist")
+
+
+def _skip(state) -> tuple:
     """The row a padding frame emits: the carried pose against the carried
     reference keyframe, untracked, no keyframe; the state is untouched."""
     dev = state.T_wc.device
     ref_pose = loop_mod._row(state.m.kf_pose, state.ref_slot)
-    no = torch.zeros((), dtype=torch.bool, device=dev)
+    no = slam_mod.step_constants(dev)["false"]
     return (loop_mod._row(state.m.kf_frame_id, state.ref_slot),
-            geo.pose_inverse(ref_pose) @ state.T_wc, state.T_wc, no, False)
+            geo.pose_inverse(ref_pose) @ state.T_wc, state.T_wc.clone(), no,
+            no)
+
+
+def _frame(S: Carry, track, frame, imu, intrinsics, cfg: SystemConfig,
+           mesh=None) -> tuple:
+    """One SLAM frame on the carried state S: `track` (a tracking graph, or
+    `slam.tracking_step` inside the frame graph) on `frame` (gray, depth),
+    then the relocalization and keyframe branches.  imu: (delta_w (3,),
+    ok () bool) on the device.  Returns the output row (need_kf as a ()
+    bool), the keyframe decision as the branches read it and the edges a
+    sharded BA dropped (a host int)."""
+    dev = S.T_wc.device
+    step = track(S.prev, frame, S.m, S.T_wc, S.velocity, *imu,
+                 S.frames_since_kf, S.lost_streak, intrinsics)
+    feats, report = step.feats, step.report
+    frame_idx = S.frame_idx
+    try_reloc, need_kf = branch_values(step.flags[2], step.flags[1])
+    S.set(T_wc=report.T_wc, velocity=step.velocity,
+          lost_streak=step.lost_streak, frames_since_kf=step.since_kf)
+
+    def relocalization():
+        ok, T_new = slam_mod.relocalize(S.m, feats, None, cfg, dev,
+                                        uniforms=step.u_reloc)
+        eye = torch.eye(4, dtype=torch.float32, device=dev)
+        S.set(T_wc=torch.where(ok, T_new, S.T_wc),
+              velocity=torch.where(ok, eye, S.velocity),
+              lost_streak=torch.where(ok, 0, S.lost_streak).to(torch.int32),
+              num_relocs=(S.num_relocs + ok.to(torch.int32)).to(torch.int32))
+
+    dropped = [0]
+
+    def keyframe():
+        up = slam_mod.keyframe_update(
+            S.m, feats, S.T_wc, frame_idx, step.lm_idx, step.lm_ok,
+            intrinsics, cfg, None, S.loop_prev_uid, S.loop_consist,
+            mesh=mesh, device=dev, uniforms=step.u_loop)
+        S.set(m=up.m, T_wc=up.T_wc, ref_slot=up.slot.to(torch.int32),
+              loop_prev_uid=up.loop_prev_uid, loop_consist=up.loop_consist,
+              num_loops=(S.num_loops + up.looped).to(torch.int32),
+              frames_since_kf=torch.ones_like(S.frames_since_kf))
+        dropped[0] = up.ba_dropped
+
+    cond(try_reloc, relocalization)
+    cond(need_kf, keyframe)
+    ref_pose = loop_mod._row(S.m.kf_pose, S.ref_slot)
+    row = (loop_mod._row(S.m.kf_frame_id, S.ref_slot),
+           geo.pose_inverse(ref_pose) @ S.T_wc, S.T_wc.clone(),
+           report.tracked_ok, report.need_kf)
+    S.set(prev=feats, frame_idx=(frame_idx + 1).to(torch.int32))
+    return row, need_kf, dropped[0]
 
 
 def frame_extract(cfg: SystemConfig, dev):
@@ -148,64 +215,53 @@ def tracking_graph(state: ScanState, cfg: SystemConfig) -> StepGraph:
                                    key=(cfg, dev), carried=state.graph)
 
 
+def frame_graph(state: ScanState, cfg: SystemConfig) -> FrameGraph:
+    """The state's frame graph when it was made for this configuration and
+    generator; else a new one (warmed up and captured at its first call)."""
+    dev = state.T_wc.device
+    extract = frame_extract(cfg, dev)
+
+    def fn(generator, carried, gray, depth, imu_delta_w, imu_ok, intrinsics):
+        def track(*a):
+            return slam_mod.tracking_step(generator, *a, cfg=cfg,
+                                          extract=extract)
+
+        S = Carry(dict(zip(_CARRIED, carried)), in_place=True)
+        row, _, _ = _frame(S, track, (gray, depth), (imu_delta_w, imu_ok),
+                           intrinsics, cfg)
+        return row
+
+    return FrameGraph.reuse(state.graph, fn, state.generator,
+                            key=(cfg, dev, "frame"))
+
+
+def _imu_inputs(imu, dev) -> tuple:
+    imu_delta_w, imu_ok = imu
+    const = slam_mod.step_constants(dev)
+    if imu_ok:
+        return imu_delta_w, const["true"]
+    return const["no_imu"], const["false"]
+
+
 def _step(state: ScanState, gray, depth, imu, intrinsics,
           cfg: SystemConfig, mesh=None,
           graph: Optional[StepGraph] = None) -> tuple[ScanState, tuple]:
-    """One SLAM frame.  imu: (delta_w (3,) device tensor or None, ok host
-    bool).  Returns the new state and the frame's output row, whose last
-    entry (`is_kf`) is a host bool.  mesh: see `slam_scan`.  graph: the
-    tracking graph (`tracking_graph(state, cfg)` when None)."""
+    """One SLAM frame with host branches: the tracking half through `graph`
+    (`tracking_graph(state, cfg)` when None), then the branches eagerly, on
+    the frame's flags fetched together (one wait), and at a keyframe on its
+    verdict and counters (one more).  imu: (delta_w (3,) device tensor or
+    None, ok host bool).  Returns the new state and the frame's output row,
+    whose last entry (`is_kf`) is a host bool.  mesh: see `slam_scan`."""
     dev = state.T_wc.device
     if graph is None:
         graph = tracking_graph(state, cfg)
-    const = slam_mod.step_constants(dev)
-    imu_delta_w, imu_ok = imu
-    step = graph(
-        state.prev, (gray, depth), state.m, state.T_wc, state.velocity,
-        imu_delta_w if imu_ok else const["no_imu"],
-        const["true" if imu_ok else "false"], state.frames_since_kf,
-        state.lost_streak, intrinsics)
-    feats, report = step.feats, step.report
-    lm_idx, lm_ok = step.lm_idx, step.lm_ok
-    T_wc, velocity, tracked = report.T_wc, step.velocity, report.tracked_ok
-    lost_streak = step.lost_streak
-    # the frame's ONE fetch: what the host branches on
-    _, need_kf, try_reloc = step.flags.cpu().tolist()
-
-    num_relocs = state.num_relocs
-    if try_reloc:
-        ok, T_new = slam_mod.relocalize(state.m, feats, state.generator, cfg, dev)
-        T_wc = torch.where(ok, T_new, T_wc)
-        velocity = torch.where(ok, torch.eye(4, dtype=torch.float32, device=dev),
-                               velocity)
-        lost_streak = torch.where(ok, 0, lost_streak).to(torch.int32)
-        num_relocs = num_relocs + ok.to(torch.int32)
-
-    m, ref_slot, num_loops = state.m, state.ref_slot, state.num_loops
-    lp_uid, lp_cons = state.loop_prev_uid, state.loop_consist
-    frames_since_kf = step.since_kf
-    dropped = state.ba_edges_dropped
-    if need_kf:
-        up = slam_mod.keyframe_update(
-            m, feats, T_wc, state.frame_idx, lm_idx, lm_ok, intrinsics, cfg,
-            state.generator, lp_uid, lp_cons, mesh=mesh, device=dev)
-        m, T_wc, ref_slot = up.m, up.T_wc, up.slot
-        dropped += up.ba_dropped
-        lp_uid, lp_cons = up.loop_prev_uid, up.loop_consist
-        num_loops = num_loops + int(up.looped)
-        frames_since_kf = torch.ones_like(frames_since_kf)
-
-    ref_pose = loop_mod._row(m.kf_pose, ref_slot)
+    S = Carry({f: getattr(state, f) for f in _CARRIED}, in_place=False)
+    row, need_kf, dropped = _frame(S, graph, (gray, depth),
+                                   _imu_inputs(imu, dev), intrinsics, cfg, mesh)
     new_state = ScanState(
-        m=m, prev=feats, T_wc=T_wc, velocity=velocity,
-        frames_since_kf=frames_since_kf, lost_streak=lost_streak,
-        frame_idx=state.frame_idx + 1, ref_slot=ref_slot,
-        num_loops=num_loops, num_relocs=num_relocs,
-        loop_prev_uid=lp_uid, loop_consist=lp_cons,
-        generator=state.generator, ba_edges_dropped=dropped, graph=graph,
-    )
-    return new_state, (loop_mod._row(m.kf_frame_id, ref_slot),
-                       geo.pose_inverse(ref_pose) @ T_wc, T_wc, tracked, need_kf)
+        **S.fields, generator=state.generator,
+        ba_edges_dropped=state.ba_edges_dropped + dropped, graph=graph)
+    return new_state, row[:4] + (need_kf == 1,)
 
 
 def _host_bools(flags, n: int) -> list:
@@ -248,20 +304,6 @@ def slam_scan(
     grays, depths = as_f32(grays, dev), as_f32(depths, dev)
     intrinsics = as_f32(intrinsics, dev)
     n = grays.shape[0]
-    live = _host_bools(live, n)
-    imu_ok = _host_bools(imu_valid, n) if imu_delta_w is not None else [False] * n
-    if imu_delta_w is not None:
-        imu_delta_w = as_f32(imu_delta_w, dev)
-    rows = []
-    graph = tracking_graph(state, cfg) if n else None
-    for i in range(n):
-        if not live[i]:
-            rows.append(_skip(state))
-            continue
-        imu = (imu_delta_w[i] if imu_ok[i] else None, imu_ok[i])
-        state, row = _step(state, grays[i], depths[i], imu, intrinsics, cfg,
-                           mesh, graph)
-        rows.append(row)
     if n == 0:
         f32 = dict(dtype=torch.float32, device=dev)
         return state, ScanOutput(
@@ -270,18 +312,53 @@ def slam_scan(
             T_w_emit=torch.zeros((0, 4, 4), **f32),
             tracked=torch.zeros(0, dtype=torch.bool, device=dev),
             is_kf=torch.zeros(0, dtype=torch.bool, device=dev))
+    live = _host_bools(live, n)
+    imu_ok = _host_bools(imu_valid, n) if imu_delta_w is not None else [False] * n
+    if imu_delta_w is not None:
+        imu_delta_w = as_f32(imu_delta_w, dev)
+    imu = [(imu_delta_w[i] if imu_ok[i] else None, imu_ok[i]) for i in range(n)]
+    rows = []
+    if mesh is not None:
+        # NCCL inside a conditional body is not captured: host branches
+        graph = tracking_graph(state, cfg)
+        const = slam_mod.step_constants(dev)
+        for i in range(n):
+            if not live[i]:
+                rows.append(_skip(state))
+                continue
+            state, row = _step(state, grays[i], depths[i], imu[i], intrinsics,
+                               cfg, mesh, graph)
+            rows.append(row[:4] + (const["true" if row[4] else "false"],))
+    else:
+        graph = frame_graph(state, cfg)
+        carried = tuple(getattr(state, f) for f in _CARRIED)
+        current = state
+        for i in range(n):
+            if not live[i]:
+                rows.append(_skip(current))
+                continue
+            rows.append(graph(carried, grays[i], depths[i],
+                              *_imu_inputs(imu[i], dev), intrinsics))
+            carried = tuple(graph.carry())
+            current = Carry(dict(zip(_CARRIED, carried)), in_place=False)
+        if any(live):
+            carried = graph.export()
+        state = ScanState(*carried, generator=state.generator,
+                          ba_edges_dropped=state.ba_edges_dropped, graph=graph)
     ref_uid, T_rel, T_w_emit, tracked, is_kf = zip(*rows)
     return state, ScanOutput(
         ref_uid=torch.stack(ref_uid), T_rel=torch.stack(T_rel),
         T_w_emit=torch.stack(T_w_emit), tracked=torch.stack(tracked),
-        is_kf=torch.tensor(is_kf, dtype=torch.bool, device=dev))
+        is_kf=torch.stack(is_kf))
 
 
 class ChunkedSlam:
     """Online SLAM in micro-batches: frames are processed in fixed-size
-    chunks through `slam_scan`, and the per-frame outputs come back to the
-    host once per chunk.  The trade is decision latency: the host sees
-    reports `chunk_size` frames late."""
+    chunks through `slam_scan`, and the host waits on the device ONCE a
+    chunk: the chunk's per-frame outputs (and the branches its frames took,
+    for the launch counters) come back in one fetch.  The trade is decision
+    latency: keyframe, loop and relocalization actions land within the
+    chunk, and the host sees reports `chunk_size` frames late."""
 
     def __init__(self, cfg: SystemConfig, intrinsics, chunk_size: int = 8,
                  seed: int = 0, mesh=None, device=None):
@@ -336,7 +413,8 @@ class ChunkedSlam:
         if not self._pending_g:
             return None
         g, d = torch.stack(self._pending_g), torch.stack(self._pending_d)
-        iw = np.stack(self._pending_iw) if any(self._pending_iv) else None
+        iw = (slam_mod.imu_upload(np.stack(self._pending_iw), self.device)
+              if any(self._pending_iv) else None)
         iv = list(self._pending_iv)
         for pending in (self._pending_g, self._pending_d, self._pending_iw,
                         self._pending_iv):
@@ -344,7 +422,13 @@ class ChunkedSlam:
         self.state, out = slam_scan(
             self.state, g, d, self.intr, self.cfg,
             imu_delta_w=iw, imu_valid=iv, mesh=self.mesh)
-        out = ScanOutput(*(x.cpu().numpy() for x in out))
+        graph = self.state.graph
+        counts = (graph.branch_counts() if isinstance(graph, FrameGraph)
+                  else None)
+        host = fetch(*out, *(() if counts is None else (counts,)))
+        if counts is not None:
+            graph.settle(host[-1])
+        out = ScanOutput(*host[:len(ScanOutput._fields)])
         self._outs.append(out)
         return out
 

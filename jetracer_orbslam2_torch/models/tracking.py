@@ -64,6 +64,24 @@ def refine_pose_reprojection(
                                     iters, huber_px)
 
 
+def samples_from_uniforms(weights: Tensor, uniforms: Tensor) -> Tensor:
+    """RANSAC's draw from pre-drawn uniforms: (..., K) weights and (..., H, 3)
+    uniforms in [0, 1) -> (..., H, 3) int64 indices, each taken with
+    probability proportional to its weight, by inverse CDF (the cumulative
+    sum in float64, where 0/1 weights sum exactly, so a uniform lands on a
+    weighted entry whatever its value); with no weight at all every index
+    alike, as `torch.multinomial` draws from the clamped weights."""
+    k = weights.shape[-1]
+    cdf = torch.cumsum(weights.to(torch.float64), -1)
+    total = cdf[..., -1:]
+    lead = uniforms.shape[:-2]
+    u = uniforms.to(torch.float64).reshape(lead + (-1,))
+    idx = torch.searchsorted(cdf.contiguous(), (u * total).contiguous(),
+                             right=True)
+    idx = torch.where(total > 0, idx, (u * k).to(torch.int64))
+    return idx.clamp_max(k - 1).reshape(uniforms.shape)
+
+
 def ransac_kabsch(
     src: Tensor,
     dst: Tensor,
@@ -75,23 +93,35 @@ def ransac_kabsch(
     depth_quad: float = 0.0,
     gate_cap: float = 1e9,
     sample_idx: Tensor | None = None,
+    uniforms: Tensor | None = None,
 ) -> RansacResult:
     """Robust rigid fit T with dst ~= T @ src.
 
-    src, dst: (K, 3); weights: (K,) float32 in {0,1} (match validity).
+    src, dst: (K, 3); weights: (K,) float32 in {0,1} (match validity); or a
+    batch of such problems with a leading B on each (one K7 and one K5
+    launch for the whole batch on the card).
     depth_quad widens the inlier gate per correspondence to
     thresh + depth_quad * z_dst^2 (quadratic range-error model), capped at
-    gate_cap.  `sample_idx` (iters, 3), when given, replaces the random
-    draw (tests hand both implementations the same samples).
+    gate_cap.  `sample_idx` (..., iters, 3), when given, replaces the random
+    draw (tests hand both implementations the same samples); else
+    `uniforms` (..., iters, 3) in [0, 1) are turned into the samples
+    (`samples_from_uniforms`: the SLAM branches draw their uniforms ahead,
+    whether or not the branch runs); else one problem draws from
+    `generator` with `torch.multinomial`.
     """
+    if sample_idx is None and uniforms is not None:
+        sample_idx = samples_from_uniforms(weights, uniforms)
     if sample_idx is None:
+        if weights.dim() != 1:
+            raise ValueError("a batch of RANSAC problems takes sample_idx or "
+                             "uniforms")
         # the clamp mirrors log(max(w, 1e-20)) in the JAX package: with no
         # candidate at all the draw is uniform instead of an error
         probs = weights.clamp_min(1e-20).expand(iters, -1)
         sample_idx = torch.multinomial(probs, 3, replacement=True,
                                        generator=generator)
     sample_idx = sample_idx.long()
-    tz = torch.clamp_max(thresh + depth_quad * dst[:, 2] ** 2, gate_cap)  # (K,)
+    tz = torch.clamp_max(thresh + depth_quad * dst[..., 2] ** 2, gate_cap)
     keep = (weights > 0).to(src.dtype)
     # the iters hypotheses, their scores over all correspondences, the first
     # best and its inliers: one K7 launch on the card
@@ -102,8 +132,8 @@ def ransac_kabsch(
     inl1 = w2 > 0
     ok = n >= min_inliers
     eye = torch.eye(4, dtype=src.dtype, device=src.device)
-    return RansacResult(T=torch.where(ok, T2, eye), inliers=inl1,
-                        num_inliers=n, ok=ok)
+    return RansacResult(T=torch.where(ok[..., None, None], T2, eye),
+                        inliers=inl1, num_inliers=n, ok=ok)
 
 
 @torch.no_grad()

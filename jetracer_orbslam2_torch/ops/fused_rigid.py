@@ -93,7 +93,21 @@ def rigid_fit_reference(src: Tensor, dst: Tensor,
 def rigid_refit_reference(src: Tensor, dst: Tensor, w1: Tensor, keep: Tensor,
                           gate: Tensor | float) -> tuple[Tensor, Tensor, Tensor]:
     """Plain version of `rigid_refit`: the two SVD fits and the ops between
-    them, as `ransac_kabsch` and the map refit computed them."""
+    them, as `ransac_kabsch` and the map refit computed them; a batch is a
+    loop over its problems, so each row is the bits of its problem alone
+    (a batched SVD is not)."""
+    if src.dim() > 2:
+        lead, n = src.shape[:-2], src.shape[-2]
+        flat = [x.reshape((-1,) + tuple(x.shape[len(lead):]))
+                if isinstance(x, Tensor) else x for x in (src, dst, w1, keep, gate)]
+        rows = [rigid_refit_reference(*(x[i] if isinstance(x, Tensor) else x
+                                        for x in flat))
+                for i in range(flat[0].shape[0])]
+        if not rows:
+            return (src.new_zeros(lead + (4, 4)), src.new_zeros(lead + (n,)),
+                    torch.zeros(lead, dtype=torch.int32, device=src.device))
+        return tuple(torch.stack(x).reshape(lead + tuple(x[0].shape))
+                     for x in zip(*rows))
     T1 = rigid_fit_reference(src, dst, w1)
     err = torch.linalg.norm(transform_points(T1, src) - dst, dim=-1)
     w2 = keep * (err < gate)

@@ -31,10 +31,13 @@ and idle share of a device-traced one.
 With `--slam` it profiles the SLAM loop (`slam_scan`) on the gated lap (126
 frames of 240x180, 3 levels, 512 keypoints, depth noise 2 % z^2): the host
 waits, the ATen ops and the K1-K7 launches of one plain frame and of one
-keyframe frame, their wall time, each with the tracking step replayed from its graph and run
-eagerly, then the wall time of an untraced pass over the lap and the
-device-busy and idle share of a device-traced one, graphed and eager, and
-the graph's captures and replays.
+keyframe frame, their wall time, each as a replay of `slam_scan`'s frame
+graph (its branches conditional nodes) and through the host-branch step
+`_step` with the tracking step replayed from its graph and run eagerly,
+then the wall time of an untraced pass over the lap and the device-busy and
+idle share of a device-traced one, through the frame graph and through the
+host-branch step with the eager tracking step, and the graph's captures and
+replays.
 With `--stereo` it does the same for the stereo SLAM loop on the arc of
 `chip_smoke.py` phase 18 (120 stereo pairs of 640x480, 4 levels, 1,024
 keypoints, two FAST thresholds), after the host waits and ATen ops of one
@@ -134,11 +137,13 @@ def report_op_counts(fn, rows: int, what: str = "one frame") -> None:
 def report_kernel_launches(fn, what: str = "one frame") -> None:
     """Run `fn` and print the launches of each hand-written kernel (K1-K7)
     in it: they are no ATen ops, so `report_op_counts` does not list them (a
-    replayed graph counts each of its kernel nodes once)."""
+    replayed graph counts each of its kernel nodes once, and a conditional
+    body's once a replay that took it: settled before and after)."""
     import torch
     from jetracer_orbslam2_torch.ops import (
         fused_ba, fused_fast, fused_patches, fused_polish, fused_ransac,
         fused_rigid)
+    from jetracer_orbslam2_torch.utils import step_graph
 
     wrappers = {"K1 fast_nms_pyramid": fused_fast.fast_nms_pyramid,
                 "K2 fused_normal_schur": fused_ba.fused_normal_schur,
@@ -147,9 +152,11 @@ def report_kernel_launches(fn, what: str = "one frame") -> None:
                 "K5 rigid_fit": fused_rigid.rigid_fit,
                 "K6 pose_polish": fused_polish.pose_polish,
                 "K7 ransac_select": fused_ransac.ransac_select}
+    step_graph.settle_launches()
     before = {k: w.launches for k, w in wrappers.items()}
     fn()
     torch.cuda.synchronize()
+    step_graph.settle_launches()
     print(f"hand-written kernel launches in {what}: " + ", ".join(
         f"{k} {w.launches - before[k]}" for k, w in wrappers.items()))
 
@@ -285,11 +292,21 @@ def profile_slam(rows: int, stereo: bool = False) -> None:
         report_syncs(front, "one frontend_stereo call")
         report_op_counts(front, rows, "one frontend_stereo call")
 
+    lap_graph = {}
+
     def lap_pass():
+        """The lap through the frame graph, after the first pass replays
+        only: the first pass's graph and generator, reseeded, carried in."""
         state = ss.init_scan_state(firsts[0], depth[0], intr, cfg)
+        if lap_graph:
+            lap_graph["graph"].generator.manual_seed(0)
+            state = state._replace(generator=lap_graph["graph"].generator,
+                                   graph=lap_graph["graph"])
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         final, out = ss.slam_scan(state, firsts[1:], depth[1:], intr, cfg)
         torch.cuda.synchronize()
+        lap_graph["graph"] = final.graph
         return final, out, time.perf_counter() - t0
 
     def eager_step(state):
@@ -307,7 +324,7 @@ def profile_slam(rows: int, stereo: bool = False) -> None:
         torch.cuda.synchronize()
         return state, time.perf_counter() - t0
 
-    lap_pass()                                           # build + warm
+    lap_pass()                           # build, warm up and capture
     # walk the lap once, keeping the state before one plain frame and before
     # one keyframe frame (states are never changed in place; the generator is)
     # ... and watching what the windowed BA does right after an insert, when
@@ -339,13 +356,23 @@ def profile_slam(rows: int, stereo: bool = False) -> None:
           flush=True)
 
     for kind, (st, i, gen) in examples.items():
-        for route in ("graphed", "eager"):
+        # the frame graph (slam_scan's: the branches as conditional nodes),
+        # captured here once from the frame's state; then the host-branch
+        # step with its tracking graph, and with the eager tracking step
+        st.generator.set_state(gen)
+        held = ss.slam_scan(st, firsts[i:i + 1], depth[i:i + 1], intr, cfg)[0]
+        st_frame = st._replace(graph=held.graph)
+        for route in ("frame graph", "graphed", "eager"):
             graph = st.graph if route == "graphed" else eager_step(st)
 
             def one():
                 st.generator.set_state(gen)
-                out = ss._step(st, firsts[i], depth[i], no_imu, intr, cfg,
-                               None, graph)
+                if route == "frame graph":
+                    out = ss.slam_scan(st_frame, firsts[i:i + 1],
+                                       depth[i:i + 1], intr, cfg)
+                else:
+                    out = ss._step(st, firsts[i], depth[i], no_imu, intr, cfg,
+                                   None, graph)
                 torch.cuda.synchronize()
                 return out
 
@@ -354,7 +381,9 @@ def profile_slam(rows: int, stereo: bool = False) -> None:
                 one()
                 return time.perf_counter() - t0
 
-            what = f"one {kind} of the {loop_name} (frame {i}, {route} step)"
+            what = (f"one {kind} of the {loop_name} (frame {i}, "
+                    + ("the frame graph)" if route == "frame graph" else
+                       f"host branches, {route} tracking step)"))
             report_syncs(one, what)
             report_op_counts(one, rows, what)
             report_kernel_launches(one, what)
@@ -380,7 +409,10 @@ def profile_slam(rows: int, stereo: bool = False) -> None:
                      if e.device_type == DeviceType.CUDA]
         dev_s = sum(e.self_device_time_total for e in on_device) / 1e6
         launches = sum(e.count for e in on_device)
-        print(f"{loop_name}, {route} tracking step, {frames} frames of {w}x{h} "
+        print(f"{loop_name}, "
+              + ("the frame graph" if route == "graphed" else
+                 "host branches, eager tracking step")
+              + f", {frames} frames of {w}x{h} "
               f"({keyframes} keyframes inserted, {int(final.num_loops)} loops): "
               f"device-traced pass wall {wall / frames * 1e3:.3f} ms/frame, "
               f"device busy {dev_s / frames * 1e3:.3f} ms/frame = "
