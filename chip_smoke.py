@@ -84,7 +84,11 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
                   and a keyframe, whose top-n verifications are one launch;
                   no canvas packed); frames/s of the run, the frame graph's
                   nodes and the memory its capture reserved, and ms a frame
-                  through the host-branch step in turns
+                  through the host-branch step in turns; then the same
+                  frames through ChunkedSlam(mesh=make_mesh(1)) --chunked 8
+                  (the sharded BA in the keyframe body): torch.equal to the
+                  graphed run, the same bars, ms a frame in turns against
+                  the host-branch step with the mesh
   14 lifecycle    three laps at 240x180 with 32 keyframe slots: keyframes are
                   culled and their slots recycled, tracking holds to the end
   15 CLI          run.main at its default mode (slam), whole and --chunked 8
@@ -133,7 +137,8 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
                   = frames, K2 = K3 = 10 x keyframe updates, K5 >= 2 a
                   tracked frame, K6 = 2 and K7 >= 1 a stepped frame,
                   mesh_devices 1,
-                  ba_edges_dropped 0; (d)
+                  ba_edges_dropped 0 (the --chunked 8 run replays the
+                  frame graph with the mesh); (d)
                   the distributed worker twice on
                   this card over gloo (2,048 landmarks a rank): ranks
                   bit-identical, poses 5e-3 and points 2e-2 of (a), cost
@@ -216,7 +221,21 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
                   "error"); K7 once a stepped frame, a relocalization tried
                   and a keyframe, K2 = K3 = 10 x keyframes; ChunkedSlam
                   --chunked 8 waits once a chunk; the lap's ms a frame
-                  graphed and host-branch in turns
+                  graphed and host-branch in turns; (d) with a one-rank
+                  NCCL mesh (the keyframe body's BA sharded, its
+                  all-reduces K8 launches in the body): the lap and the
+                  lifecycle torch.equal to `_step` with the mesh and to the
+                  meshless graph, no host wait to the fetch, K8 = 52 x
+                  keyframes and the nodes of each body by type,
+                  ChunkedSlam --chunked 8 with the mesh one wait a chunk;
+                  K8 vs its plain version (dist.all_reduce) at the
+                  body's payloads, relaunch and replays torch.equal, µs;
+                  then K8 across three ranks on the one card (processes
+                  over a gloo group, the buffers mapped by CUDA IPC) at
+                  the body's payloads and one past the staging buffer:
+                  torch.equal to the rank-order sum of the ranks' inputs,
+                  within 1e-6 of the magnitudes' sum of the group's
+                  all-reduce, relaunch and two replays, launches counted
 Launch counts: a wrapper counts one when it launches its kernel, a replay of
 a captured frame step counts each kernel node of the graph once, and a
 conditional body's kernels count once for each replay that took the body
@@ -225,8 +244,9 @@ either way.
 Kernel times are CUDA events around a replayed CUDA graph of launches.  Then
 the paths' reports (the stereo path's and the datasets' on one line, the
 runtime's on one, the sharded phase's on one), one JSON line
-`{"kernels": [...]}` (K1-K7; launches: the runtime path's, phase 20 run C;
-sharded_path_launches the --mesh 1 CLI run's, phase 21c), and as the last
+`{"kernels": [...]}` (K1-K7, then K8; launches: the runtime path's, phase
+20 run C, K8's phase 13's mesh run; sharded_path_launches the --mesh 1 CLI
+run's, phase 21c), and as the last
 line `{"ok": true, "device": {...}}`.  `csrc/graph_cond.cu`, built with the
 kernels, makes the conditional nodes; it is no kernel of the TPU's.
 
@@ -256,7 +276,7 @@ BRANCHES_TITLE = (
     "branches: slam_scan's frame graph (relocalization and keyframe "
     "branches as conditional nodes) vs the host-branch step, torch.equal, "
     "no host wait (sync debug 'error'); ChunkedSlam one wait a chunk; "
-    "launches by the branches taken")
+    "launches by the branches taken; (d) the same with a one-rank NCCL mesh")
 GRAPHS_TITLE = (
     "graphs: (a) K5 (rigid_fit, rigid_refit) vs the SVD route, (b) the eager "
     "odometry_step with no host wait, (c) odometry_scan's CUDA graph vs the "
@@ -1622,13 +1642,25 @@ def _without_k5_k7(launches: dict, stepped_frames: int, what: str) -> dict:
 
 
 def _reset_counters() -> None:
-    """Every kernel's launches to 0, the branches of earlier frame graphs
-    settled first (their launches belong before the reset)."""
+    """Every kernel's launches to 0 (K8's too), the branches of earlier
+    frame graphs settled first (their launches belong before the reset)."""
+    from jetracer_orbslam2_torch.ops import fused_allreduce
     from jetracer_orbslam2_torch.utils import step_graph
 
     step_graph.settle_launches()
-    for fn in _kernel_counters().values():
+    for fn in list(_kernel_counters().values()) + [
+            fused_allreduce.peer_allreduce]:
         fn.launches = 0
+
+
+def _k8_launches() -> int:
+    """K8's launches since `_reset_counters` (read after `_read_counters`,
+    which settles the branches): the mesh's all-reduces that a frame
+    graph's keyframe body holds.  Apart from `_kernel_counters`, whose
+    dictionaries the meshless gates compare whole."""
+    from jetracer_orbslam2_torch.ops import fused_allreduce
+
+    return fused_allreduce.peer_allreduce.launches
 
 
 def _read_counters() -> dict:
@@ -1682,11 +1714,13 @@ def _scan(seq, depth, cfg):
     return _scan_pair(seq.gray, depth, seq.intrinsics, seq.poses, cfg)
 
 
-def _host_scan_pair(firsts, seconds, intr, cfg, state=None):
-    """slam_scan's frames through `_step`, the host-branch step (what
-    `slam_scan(mesh=...)` runs): the tracking half a replay of its tracking
-    graph, the relocalization and keyframe branches eager host branches.
-    The reference the frame graph is held against.  -> (final, out)."""
+def _host_scan_pair(firsts, seconds, intr, cfg, state=None, mesh=None):
+    """slam_scan's frames through `_step`, the host-branch step: the
+    tracking half a replay of its tracking graph, the relocalization and
+    keyframe branches eager host branches (with a mesh, the sharded BA's
+    collectives eager too, and the group's own all-reduce, K8's plain
+    version).  The reference the frame graph is held against.
+    -> (final, out)."""
     import torch
     from jetracer_orbslam2_torch.models import slam as slam_mod
     from jetracer_orbslam2_torch.models import slam_scan as ss
@@ -1698,7 +1732,7 @@ def _host_scan_pair(firsts, seconds, intr, cfg, state=None):
     rows = []
     for i in range(1, firsts.shape[0]):
         state, row = ss._step(state, firsts[i], seconds[i], (None, False),
-                              intr, cfg)
+                              intr, cfg, mesh, plain_collectives=True)
         rows.append(row[:4] + (const["true" if row[4] else "false"],))
     ref_uid, T_rel, T_w_emit, tracked, is_kf = zip(*rows)
     return state, ss.ScanOutput(
@@ -1910,6 +1944,7 @@ def phase_slam_path(dev) -> tuple[dict, dict]:
     report["ms_per_frame_in_turns"] = {
         k: [t / LONG_FRAMES for t in v] for k, v in turns.items()}
     report["turns"] = "graphed (the gated run), host, host, graphed"
+    report["mesh"] = _slam_path_mesh(seq, depth, cfg, final, out)
     say("  SLAM path: " + json.dumps(report))
     if report["tracked_frac"] < 0.95 or report["loops"] < 1:
         raise SystemExit("FAIL: the SLAM path lost tracking or closed no loop")
@@ -1927,6 +1962,90 @@ def phase_slam_path(dev) -> tuple[dict, dict]:
         raise SystemExit(f"FAIL: the SLAM path packed a canvas: {calls}")
     _check_obs_prefix(m, "SLAM path")
     return report, launches
+
+
+def _slam_path_mesh(seq, depth, cfg, final, out) -> dict:
+    """Phase 13's frames through `ChunkedSlam(mesh=make_mesh(1))` (--chunked
+    8 on a one-rank NCCL group: the frame graph with the sharded windowed BA
+    in its keyframe body), torch.equal to the meshless graphed run (final,
+    out) and at its bars; ms a frame against the host-branch step with the
+    same mesh, in turns (chunked, host, host, chunked)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from jetracer_orbslam2_torch.evaluation import ate
+    from jetracer_orbslam2_torch.models import slam_scan as ss
+    from jetracer_orbslam2_torch.parallel import make_mesh
+
+    if dist.is_initialized():
+        raise SystemExit("FAIL: a process group is still up before phase 13's "
+                         "mesh run")
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    mesh = make_mesh(1)
+    turns, report = {}, {}
+    try:
+        for name in ("chunked", "host", "host", "chunked"):
+            if not report:
+                _reset_counters()     # the gated run's launches
+            torch.cuda.synchronize()
+            start.record()
+            if name == "chunked":
+                ch = ss.ChunkedSlam(cfg, seq.intrinsics, chunk_size=CHUNK,
+                                    mesh=mesh)
+                for i in range(LONG_FRAMES):
+                    ch.process_frame(seq.gray[i], depth[i])
+                ch.flush()
+            else:
+                _host_scan_pair(seq.gray, depth, seq.intrinsics, cfg, mesh=mesh)
+            stop.record()
+            stop.synchronize()
+            turns.setdefault(name, []).append(
+                start.elapsed_time(stop) / LONG_FRAMES)
+            if name == "chunked" and not report:
+                launches, k8 = _read_counters(), _k8_launches()
+                whole = [o.cpu().numpy() for o in out]
+                merged = [np.concatenate([getattr(o, f) for o in ch._outs])
+                          for f in ss.ScanOutput._fields]
+                differ = [f for f, a, b in zip(ss.ScanOutput._fields, merged,
+                                               whole) if not np.array_equal(a, b)]
+                differ += _differing_state(ch.state, final)
+                poses = ch.result()
+                report = {
+                    "chunk": CHUNK, "chunks": len(ch._outs),
+                    "equals_meshless_graph": not differ, "differing": differ,
+                    "tracked_frac": float(np.mean(ch.tracked())),
+                    "loops": int(ch.state.num_loops),
+                    "ate_rmse_m": float(ate(torch.from_numpy(poses),
+                                            seq.poses.cpu()).rmse),
+                    "ba_edges_dropped": int(ch.state.ba_edges_dropped),
+                    "keyframes_inserted": int(merged[4].sum()),
+                    "k8_launches": k8,
+                    "k2_k3_launches": [launches["fused_normal_schur"],
+                                       launches["fused_backsub"]],
+                    "captures": ch.state.graph.captures,
+                    "replays": ch.state.graph.replays,
+                    "body_nodes": ch.state.graph.body_nodes}
+    finally:
+        mesh.close()
+    report["ms_per_frame_in_turns"] = turns
+    report["turns"] = ("ChunkedSlam --chunked 8 with the mesh (the gated run), "
+                       "host-branch step with the mesh, host, chunked")
+    say("  SLAM path, mesh 1: " + json.dumps(report))
+    if report["differing"]:
+        raise SystemExit(f"FAIL: SLAM path: ChunkedSlam with the mesh differs "
+                         f"from the meshless graph in {report['differing']}")
+    if (report["tracked_frac"] < 0.95 or report["loops"] < 1
+            or not report["ate_rmse_m"] <= LONG_ATE_M
+            or report["ba_edges_dropped"] != 0):
+        raise SystemExit(f"FAIL: SLAM path with the mesh: {report}")
+    inserted = report["keyframes_inserted"]
+    if (report["k8_launches"] != K8_PER_KEYFRAME * inserted
+            or report["k2_k3_launches"] != [10 * inserted] * 2):
+        raise SystemExit(f"FAIL: SLAM path with the mesh: K8 launches "
+                         f"{report['k8_launches']}, K2/K3 "
+                         f"{report['k2_k3_launches']}, {inserted} keyframes")
+    return report
 
 
 def phase_map_lifecycle(dev) -> dict:
@@ -2919,10 +3038,10 @@ def phase_runtime(dev) -> dict:
 
 class _MeshRunProbe:
     """Patches, for one CLI run, what phase 21 reads off it: keyframe
-    updates (`slam.keyframe_update` called eagerly, as `Slam` and the mesh
-    path's `slam_scan` call it through the module; a `ChunkedSlam` whose
-    frames ran in a frame graph: its outputs' `is_kf`) and the final poses
-    and tracked flags (`Slam.result`, `ChunkedSlam.result` / `tracked`)."""
+    updates (`slam.keyframe_update` called eagerly, as `Slam` calls it
+    through the module; a `ChunkedSlam`, whose frames run in a frame graph
+    with or without a mesh: its outputs' `is_kf`) and the final poses and
+    tracked flags (`Slam.result`, `ChunkedSlam.result` / `tracked`)."""
 
     def __enter__(self):
         from jetracer_orbslam2_torch.models import slam as slam_mod
@@ -4250,20 +4369,36 @@ def _differing_state(a, b) -> list:
             if not torch.equal(x, y)]
     for f in ("T_wc", "velocity", "frames_since_kf", "lost_streak", "frame_idx",
               "ref_slot", "num_loops", "num_relocs", "loop_prev_uid",
-              "loop_consist"):
+              "loop_consist", "ba_edges_dropped"):
         if not torch.equal(getattr(a, f), getattr(b, f)):
             bad.append(f)
     return bad
 
 
-def _branch_run(name, firsts, seconds, intr, cfg, must, dev) -> dict:
+def _differing_run(a, b) -> list:
+    """The outputs and state fields of two runs (final, out) that are not
+    torch.equal."""
+    import torch
+    from jetracer_orbslam2_torch.models import slam_scan as ss
+
+    (fa, oa), (fb, ob) = a, b
+    return ([f for f in ss.ScanOutput._fields
+             if not torch.equal(getattr(oa, f), getattr(ob, f))]
+            + _differing_state(fa, fb))
+
+
+def _branch_run(name, firsts, seconds, intr, cfg, must, dev, mesh=None,
+                meshless=None) -> tuple:
     """One sequence of phase 25: the graphed scan under sync-debug "error"
     (no host wait from its entry to the caller's fetch), its outputs and
     branch flags in one fetch, torch.equal to the host-branch step, and the
-    launches of the branch bodies by the branches taken."""
+    launches of the branch bodies by the branches taken.  mesh: the scan's
+    and the host-branch step's (d); meshless: the meshless graphed run
+    (final, out) it must equal too.  -> (row, final, out)."""
     import numpy as np
     import torch
     from jetracer_orbslam2_torch.models import slam_scan as ss
+    from jetracer_orbslam2_torch.ops import fused_allreduce
     from jetracer_orbslam2_torch.utils import step_graph
 
     n = firsts.shape[0]
@@ -4273,7 +4408,8 @@ def _branch_run(name, firsts, seconds, intr, cfg, must, dev) -> dict:
     t0 = time.perf_counter()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        final, out = ss.slam_scan(state, firsts[1:], seconds[1:], intr, cfg)
+        final, out = ss.slam_scan(state, firsts[1:], seconds[1:], intr, cfg,
+                                  mesh=mesh)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     graph = final.graph
@@ -4282,11 +4418,10 @@ def _branch_run(name, firsts, seconds, intr, cfg, must, dev) -> dict:
     graphed_s = time.perf_counter() - t0
     graph.settle(host[-1])
     launches = _read_counters()
+    k8 = _k8_launches()
     taken = host[-1].tolist()
-    h_final, h_out = _host_scan_pair(firsts, seconds, intr, cfg)
-    differ = [f for f in ss.ScanOutput._fields
-              if not torch.equal(getattr(out, f), getattr(h_out, f))]
-    differ += _differing_state(final, h_final)
+    h_final, h_out = _host_scan_pair(firsts, seconds, intr, cfg, mesh=mesh)
+    differ = _differing_run((final, out), (h_final, h_out))
     stepped = n - 1
     relocs_tried, keyframes = int(taken[0]), int(taken[1])
     row = {
@@ -4303,10 +4438,32 @@ def _branch_run(name, firsts, seconds, intr, cfg, must, dev) -> dict:
         "graphed_equals_host_branch": not differ, "differing": differ,
         "captures": graph.captures, "replays": graph.replays,
         "graph_nodes": graph.graph_nodes, "body_nodes": graph.body_nodes,
+        "body_node_types": graph.body_types,
         "launches": launches, "graphed_s_with_capture": graphed_s,
     }
-    say(f"  {name}: " + json.dumps(row))
     bad = []
+    if mesh is not None:
+        # the keyframe body is the second branch recorded (after the
+        # relocalization's); its all-reduces, K8 launches, count once a
+        # keyframe taken
+        per_body = [b.get(fused_allreduce.peer_allreduce, 0)
+                    for b in graph.bodies]
+        differ_meshless = _differing_run((final, out), meshless)
+        row.update(mesh_ranks=mesh.size, backend=mesh.backend,
+                   ba_edges_dropped=int(final.ba_edges_dropped),
+                   k8_launches=k8, k8_per_body=per_body,
+                   graphed_equals_meshless_graph=not differ_meshless,
+                   differing_from_meshless=differ_meshless)
+        if differ_meshless:
+            bad.append(f"the mesh graph differs from the meshless graph in "
+                       f"{differ_meshless}")
+        if row["ba_edges_dropped"] != 0:
+            bad.append(f"ba_edges_dropped {row['ba_edges_dropped']}")
+        if not (per_body[1] == K8_PER_KEYFRAME and k8 == per_body[1] * keyframes
+                and sum(per_body) == per_body[1]):
+            bad.append(f"K8 launches {k8}, per body {per_body}, {keyframes} "
+                       f"keyframes ({K8_PER_KEYFRAME} a keyframe expected)")
+    say(f"  {name}: " + json.dumps(row, default=str))
     if differ:
         bad.append(f"graphed differs from the host-branch step in {differ}")
     if keyframes != row["keyframes_inserted"] or int(taken[2]) != row["loops"]:
@@ -4328,17 +4485,17 @@ def _branch_run(name, firsts, seconds, intr, cfg, must, dev) -> dict:
         bad.append(f"no {must} on this sequence")
     if bad:
         raise SystemExit(f"FAIL: phase 25, {name}: " + "; ".join(bad))
-    return row
+    return row, final, out
 
 
-def _chunked_waits(firsts, seconds, intr, cfg, whole_out) -> dict:
+def _chunked_waits(firsts, seconds, intr, cfg, whole_out, mesh=None) -> dict:
     """ChunkedSlam over CHUNK frames at a time on frames already on the
     card: host waits of every call counted (sync-debug "warn"); exactly one
     a chunk, in the call that returns it; the poses those of one scan."""
     import numpy as np
     from jetracer_orbslam2_torch.models import slam_scan as ss
 
-    ch = ss.ChunkedSlam(cfg, intr, chunk_size=CHUNK)
+    ch = ss.ChunkedSlam(cfg, intr, chunk_size=CHUNK, mesh=mesh)
     per_call, chunks = [], 0
     for i in range(firsts.shape[0]):
         out, k = _count_waits(lambda: ch.process_frame(firsts[i], seconds[i]))
@@ -4358,7 +4515,8 @@ def _chunked_waits(firsts, seconds, intr, cfg, whole_out) -> dict:
                                    whole_out.is_kf.cpu().numpy()))
     report = {"chunk": CHUNK, "chunks": chunks, "host_waits": sum(per_call),
               "host_waits_per_chunk": sum(per_call) / chunks,
-              "same_flags_as_one_scan": same}
+              "same_flags_as_one_scan": same,
+              "mesh_ranks": None if mesh is None else mesh.size}
     say("  ChunkedSlam: " + json.dumps(report))
     if sum(per_call) != chunks or not same:
         raise SystemExit(f"FAIL: ChunkedSlam: {report}")
@@ -4374,11 +4532,13 @@ def phase_branches(source, args, dev) -> dict:
     from jetracer_orbslam2_torch.models import slam_scan as ss
 
     seqs = _branch_sequences(source, args, dev)
-    runs = [_branch_run(*seq, dev) for seq in seqs]
+    results = [_branch_run(*seq, dev) for seq in seqs]
+    runs = [r[0] for r in results]
     _, lap, lap_depth, lap_intr, lap_cfg, _ = seqs[1]
     st = ss.init_scan_state(lap[0], lap_depth[0], lap_intr, lap_cfg)
     _, whole = ss.slam_scan(st, lap[1:], lap_depth[1:], lap_intr, lap_cfg)
     chunked = _chunked_waits(lap, lap_depth, lap_intr, lap_cfg, whole)
+    mesh_report = _mesh_branches(seqs, results, whole, dev)
     turns, first = {}, {}
     for name in ("graphed", "host", "host", "graphed"):
         # frame 1 from a fresh state (the frame graph's warm-up and capture,
@@ -4397,7 +4557,7 @@ def phase_branches(source, args, dev) -> dict:
                 lap[1:], lap_depth[1:], lap_intr, lap_cfg, held["st"]))
         first.setdefault(name, []).append(once * 1e3)
         turns.setdefault(name, []).append(wall / (LAP_FRAMES - 2) * 1e3)
-    report = {"runs": runs, "chunked": chunked,
+    report = {"runs": runs, "chunked": chunked, "mesh": mesh_report,
               "lap_ms_per_frame_in_turns": turns,
               "lap_first_frame_ms": first,
               "turns": "graphed, host, host, graphed over the gated lap: "
@@ -4405,7 +4565,262 @@ def phase_branches(source, args, dev) -> dict:
                        "(lap_first_frame_ms, for the frame graph its warm-up "
                        "and capture)"}
     say("  branches: " + json.dumps({k: v for k, v in report.items()
-                                     if k != "runs"}))
+                                     if k not in ("runs", "mesh")}))
+    return report
+
+
+def _mesh_branches(seqs, results, lap_whole, dev) -> dict:
+    """(d) the same frame graph with a one-rank NCCL mesh: the windowed BA
+    of the keyframe body is `sharded_local_ba`, its all-reduces and the
+    gather of the landmark blocks nodes of that body.  On the gated lap and
+    the 32-slot lifecycle: torch.equal to `_step` with the same mesh and to
+    the meshless frame graph, no host wait from the scan's entry to the
+    fetch (warm-up, the communicator's first collective and the capture
+    included), K2 = K3 = 10 x keyframes; then ChunkedSlam --chunked 8 with
+    the mesh on the lap, one wait a chunk."""
+    import torch.distributed as dist
+    from jetracer_orbslam2_torch.parallel import make_mesh
+
+    if dist.is_initialized():
+        raise SystemExit("FAIL: a process group is still up before (d)")
+    mesh = make_mesh(1)
+    try:
+        rows = []
+        for seq, (_, final, out) in zip(seqs[1:], results[1:]):
+            row, _, _ = _branch_run(*seq, dev, mesh=mesh, meshless=(final, out))
+            rows.append(row)
+        _, lap, lap_depth, lap_intr, lap_cfg, _ = seqs[1]
+        chunked = _chunked_waits(lap, lap_depth, lap_intr, lap_cfg, lap_whole,
+                                 mesh=mesh)
+        k8 = _k8_check(mesh, dev)
+    finally:
+        mesh.close()
+    k8_ranks = _k8_ranks()
+    report = {"runs": rows, "chunked": chunked, "k8": k8, "k8_ranks": k8_ranks}
+    say("  (d) mesh: " + json.dumps(
+        {r["sequence"]: {k: r[k] for k in (
+            "graphed_equals_host_branch", "graphed_equals_meshless_graph",
+            "body_nodes", "k8_launches", "k8_per_body",
+            "ba_edges_dropped")} for r in rows}))
+    return report
+
+
+# K8's payloads in the keyframe body at the window's P 8 and the map's
+# 16,384 landmarks: the cost, Hpp and S (6P x 6P), bp and Gh.bl (6P), the
+# gather of the landmark blocks (L x 3); an LM iteration all-reduces the
+# first five, the solve starts with a cost and ends with the gather
+K8_PAYLOADS = (("cost", 1), ("Hpp", 48 * 48), ("bp", 48),
+               ("gather", 16384 * 3))
+K8_PER_KEYFRAME = 10 * 5 + 1 + 1
+K8_HEADLINE = "Hpp"
+
+
+def _k8_check(mesh, dev) -> dict:
+    """K8 (`fused_allreduce.peer_allreduce`) against its plain version, the
+    group's all-reduce (NCCL), at the keyframe body's payloads on the mesh's
+    one rank: both leave the input as it is (a sum over one rank); a
+    relaunch and two replays of a captured graph torch.equal.  Then µs a
+    call (CUDA events around a replayed graph of 20 calls, median of 20),
+    the plain version's (CUDA events around 10 eager calls, median of 10,
+    which is also the one PyTorch call that computes it) and the bound (the
+    call's input read and output written once)."""
+    import torch
+    from jetracer_orbslam2_torch.ops import fused_allreduce
+
+    k8, plain = fused_allreduce.peer_allreduce, fused_allreduce.peer_allreduce_reference
+    rows, worst = [], 0.0
+    for name, n in K8_PAYLOADS:
+        x = torch.randn(n, generator=torch.Generator(device=dev).manual_seed(n),
+                        device=dev)
+        got, again, want = x.clone(), x.clone(), x.clone()
+        k8(got, mesh.peers)
+        k8(again, mesh.peers)
+        plain(want)
+        buf = torch.empty_like(x)
+        graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            buf.copy_(x)
+            k8(buf, mesh.peers)
+        torch.cuda.current_stream().wait_stream(side)
+        with torch.cuda.graph(graph):
+            buf.copy_(x)
+            k8(buf, mesh.peers)
+        replays = []
+        for _ in range(2):
+            graph.replay()
+            replays.append(buf.clone())
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        same = (torch.equal(got, want) and torch.equal(got, again)
+                and all(torch.equal(r, got) for r in replays))
+        work = x.clone()
+        ms = time_launches(lambda: k8(work, mesh.peers), 20, 20)
+        plain_ms = _median_event_ms(
+            lambda: [plain(work) for _ in range(10)], 10, 10)
+        bound_ms = 2 * 4 * n / HBM_BYTES_PER_S * 1e3
+        row = {"payload": name, "floats": n, "max_abs_err": err,
+               "equal": same, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": "bytes"}
+        rows.append(row)
+        say("  K8 " + json.dumps(row))
+        if not same:
+            raise SystemExit(f"FAIL: K8 at {name} ({n} floats): {row}")
+    head = next(r for r in rows if r["payload"] == K8_HEADLINE)
+    return {**{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "max_abs_err": worst, "payloads": rows}
+
+
+# K8 across processes on the one card: three ranks (with two, a + b = b + a
+# and no order shows), the body's payloads and one past the staging buffer
+# (two chunks); against the group's all-reduce (gloo sums in its own order)
+# within K8_RANK_RTOL of the sum of the inputs' magnitudes
+K8_RANKS = 3
+K8_RANK_PAYLOADS = K8_PAYLOADS + (("two_chunks", 2 * 65536 + 7),)
+K8_RANK_RTOL = 1e-6
+K8_RANK_REPLAYS = 2
+
+
+def k8_rank(store: str, world: int, rank: int) -> int:
+    """One rank of phase 25 (d)'s K8 check across processes (`chip_smoke.py
+    --k8-rank STORE WORLD RANK`, started by `_k8_ranks`): joins a gloo group
+    over the file store on cuda:0, maps the ranks' buffers
+    (`fused_allreduce.map_peers`), and at every payload runs K8 twice on
+    this rank's input, the group's all-reduce once, and a captured graph of
+    K8 (warmed up once) replayed twice.  Every rank makes every rank's
+    input from its seed, so each holds K8 against the rank-order sum itself.
+    Prints one JSON line."""
+    import datetime
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+    from jetracer_orbslam2_torch.ops import fused_allreduce
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(minutes=5))
+    k8 = fused_allreduce.peer_allreduce
+    rows, digest = [], hashlib.sha256()
+    try:
+        peers = fused_allreduce.map_peers(rank, world, dev)
+        if peers is None:
+            raise SystemExit("FAIL: map_peers gave no buffers on one host")
+        k8.launches = 0
+        for name, n in K8_RANK_PAYLOADS:
+            xs = [torch.randn(n, generator=torch.Generator().manual_seed(
+                97 * n + r)).to(dev) for r in range(world)]
+            want = xs[0].clone()
+            for x in xs[1:]:
+                want = want + x                 # rank order, f32
+            scale = torch.stack(xs).abs().sum(0)
+            got, again, plain = (xs[rank].clone() for _ in range(3))
+            k8(got, peers)
+            k8(again, peers)
+            dist.all_reduce(plain)
+            buf = torch.empty_like(got)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                buf.copy_(xs[rank])
+                k8(buf, peers)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                buf.copy_(xs[rank])
+                k8(buf, peers)
+            replays = []
+            for _ in range(K8_RANK_REPLAYS):
+                graph.replay()
+                replays.append(buf.clone())
+            del graph
+            rel = float(((got - plain).abs() / scale).max())
+            row = {"payload": name, "floats": n,
+                   "equals_rank_order_sum": bool(torch.equal(got, want)),
+                   "relaunch_equal": bool(torch.equal(again, got)),
+                   "replays_equal": all(bool(torch.equal(r, got))
+                                        for r in replays),
+                   "max_abs_err_vs_plain": float((got - plain).abs().max()),
+                   "max_rel_err_vs_plain": rel,
+                   "plain_equals_rank_order_sum": bool(torch.equal(plain, want))}
+            rows.append(row)
+            digest.update(got.cpu().numpy().tobytes())
+        launches = k8.launches
+        torch.cuda.synchronize()
+        peers.close()
+    finally:
+        dist.destroy_process_group()
+    print(json.dumps({"rank": rank, "world": world, "launches": launches,
+                      "digest": digest.hexdigest(), "payloads": rows}),
+          flush=True)
+    return 0
+
+
+def _k8_ranks() -> dict:
+    """K8 across K8_RANKS processes on the one card (`k8_rank`): every rank
+    torch.equal to the rank-order sum at every payload, relaunch and replays
+    too, within K8_RANK_RTOL of the group's all-reduce, the ranks' outputs
+    bit-identical, 3 eager launches a payload on each rank (two calls and
+    the graph's warm-up; a replay of a graph captured here counts none)."""
+    import os
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="jetracer_k8_ranks_")
+    t0 = time.perf_counter()
+    try:
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--k8-rank",
+             os.path.join(tmp, "store"), str(K8_RANKS), str(rank)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for rank in range(K8_RANKS)]
+        outs = []
+        try:
+            for p in procs:
+                o, e = p.communicate(timeout=300)
+                if p.returncode != 0:
+                    raise SystemExit(f"FAIL: a rank of the K8 check exited "
+                                     f"{p.returncode}:\n" + e[-3000:])
+                outs.append(json.loads(o.strip().splitlines()[-1]))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    bad = []
+    want_launches = 3 * len(K8_RANK_PAYLOADS)
+    for o in outs:
+        for row in o["payloads"]:
+            if not (row["equals_rank_order_sum"] and row["relaunch_equal"]
+                    and row["replays_equal"]
+                    and row["max_rel_err_vs_plain"] <= K8_RANK_RTOL):
+                bad.append(f"rank {o['rank']}: {row}")
+        if o["launches"] != want_launches:
+            bad.append(f"rank {o['rank']}: {o['launches']} launches, "
+                       f"{want_launches} expected")
+    same = len({o["digest"] for o in outs}) == 1
+    if not same:
+        bad.append("the ranks' sums differ")
+    report = {
+        "ranks": K8_RANKS, "backend": "gloo", "ranks_bit_identical": same,
+        "launches": [o["launches"] for o in outs],
+        "replays_a_payload": K8_RANK_REPLAYS,
+        "max_abs_err_vs_plain": max(r["max_abs_err_vs_plain"]
+                                    for o in outs for r in o["payloads"]),
+        "max_rel_err_vs_plain": max(r["max_rel_err_vs_plain"]
+                                    for o in outs for r in o["payloads"]),
+        "rtol": K8_RANK_RTOL,
+        "plain_equals_rank_order_sum": [
+            r["plain_equals_rank_order_sum"] for r in outs[0]["payloads"]],
+        "seconds": time.perf_counter() - t0}
+    say("  K8 ranks: " + json.dumps(report))
+    if bad:
+        raise SystemExit("FAIL: K8 across ranks: " + "; ".join(bad))
     return report
 
 
@@ -5223,6 +5638,9 @@ def print_build(name: str) -> None:
 
 def main(argv: list[str]) -> int:
     t_start = time.perf_counter()
+    if argv[:1] == ["--k8-rank"] and len(argv) == 4:
+        # one rank of phase 25 (d)'s K8 check, started by the script itself
+        return k8_rank(argv[1], int(argv[2]), int(argv[3]))
     if argv not in ([], ["--kernels"], ["--branches"]):
         print("usage: python3 chip_smoke.py [--kernels | --branches]",
               file=sys.stderr)
@@ -5241,8 +5659,8 @@ def main(argv: list[str]) -> int:
     # the port under test; absent in a directory that holds only this script
     import jetracer_orbslam2_torch
     from jetracer_orbslam2_torch.ops import (
-        fused_ba, fused_fast, fused_patches, fused_polish, fused_ransac,
-        fused_rigid)
+        fused_allreduce, fused_ba, fused_fast, fused_patches, fused_polish,
+        fused_ransac, fused_rigid)
     from jetracer_orbslam2_torch.utils import cuda_build, step_graph
     from jetracer_orbslam2_torch.utils.device import resolve_device
     from jetracer_orbslam2_torch.utils.precision import set_exact_f32
@@ -5260,7 +5678,7 @@ def main(argv: list[str]) -> int:
     phase(2, "build (one nvcc per source, started together)")
     t0 = time.perf_counter()
     sources = ["fast_nms", "ba_fused", "patch_gather", "rigid_fit", "pose_polish",
-               "ransac_hyp", "graph_cond"]
+               "ransac_hyp", "peer_allreduce", "graph_cond"]
     cuda_build.build_libraries(sources)
     fused_fast._launcher()
     fused_ba._launchers()
@@ -5268,8 +5686,9 @@ def main(argv: list[str]) -> int:
     fused_rigid._launchers()
     fused_polish._launcher()
     fused_ransac._launcher()
+    fused_allreduce._library()
     step_graph._cond_library()
-    say(f"  seven libraries built and loaded in {time.perf_counter() - t0:.2f} s "
+    say(f"  eight libraries built and loaded in {time.perf_counter() - t0:.2f} s "
         "(graph_cond: the frame graph's conditional nodes, no kernel of the "
         "TPU's)")
     for name in sources:
@@ -5513,6 +5932,42 @@ def main(argv: list[str]) -> int:
                        "call with its index prebuilt",
         "shapes": [patch_time],
     })
+    k8 = branches["mesh"]["k8"]
+    kernels_k8 = {
+        "name": "peer_allreduce",
+        "route": "cuda",
+        "source": "jetracer_orbslam2_torch/csrc/peer_allreduce.cu",
+        "replaces": "jetracer_orbslam2_tpu/models/backend/ba.py:394",
+        "launches": slam_report["mesh"]["k8_launches"],
+        "branches_launches": [r["k8_launches"]
+                              for r in branches["mesh"]["runs"]],
+        "max_abs_err": max(k8["max_abs_err"],
+                           branches["mesh"]["k8_ranks"]["max_abs_err_vs_plain"]),
+        "ms": k8["ms"],
+        "plain_ms": k8["plain_ms"],
+        "bound_ms": k8["bound_ms"],
+        "bound_by": k8["bound_by"],
+        "library_ms": k8["plain_ms"],
+        "ranks_check": branches["mesh"]["k8_ranks"],
+        "numbers_are": "K8 has no Pallas counterpart: it replaces, inside the "
+                       "frame graph's keyframe body and in every eager "
+                       "collective of a mesh on the card, the JAX package's "
+                       "jax.lax.psum under shard_map (XLA's all-reduce, "
+                       "models/backend/ba.py:394), where NCCL's captured "
+                       "all-reduce does not instantiate (its event nodes); "
+                       f"ms, plain_ms, bound_ms per call at {K8_HEADLINE} "
+                       "(2,304 floats, 6P x 6P at P 8) on the one-rank NCCL "
+                       "mesh; the plain version is dist.all_reduce, the one "
+                       "PyTorch call that computes it (library_ms the same "
+                       "reading); launches are phase 13's ChunkedSlam with "
+                       "the mesh (52 a keyframe), branches_launches phase "
+                       "25 (d)'s lap and lifecycle; max_abs_err the larger "
+                       "of the one-rank check's and ranks_check's (three "
+                       "ranks on the card against gloo's all-reduce, within "
+                       "1e-6 of the inputs' magnitudes; torch.equal to the "
+                       "rank-order sum)",
+        "payloads": k8["payloads"],
+    }
     k5 = graphs["k5"]
     kernels.append({
         "name": "rigid_fit",
@@ -5638,6 +6093,7 @@ def main(argv: list[str]) -> int:
         "times": ransac["times"],
         "odometry_frame": ransac["odometry_frame"],
     })
+    kernels.append(kernels_k8)
     seconds = round(time.perf_counter() - t_start, 1)
     say(json.dumps({"main_path": report, "card": card, "seconds": seconds}))
     say(json.dumps({"ba_path": ba_report, "local_ba": local_report,

@@ -257,7 +257,9 @@ def scan_state_from_numpy(fields, seed: int = 0, device=None) -> ScanState:
         m=map_state_from_numpy(_field(fields, "m"), dev),
         prev=features_from_numpy(prev, dev),
         T_wc=f32(_field(fields, "T_wc")), velocity=f32(_field(fields, "velocity")),
-        generator=make_generator(seed, dev), **scalars)
+        generator=make_generator(seed, dev),
+        ba_edges_dropped=torch.zeros((), dtype=torch.int32, device=dev),
+        **scalars)
 
 
 def scan_state_to_numpy(state: ScanState) -> dict:

@@ -17,9 +17,11 @@
 //   graph_cond_end(body_stream)
 //     ends the body's capture.
 //
-//   graph_capture_nodes(stream, &count)
+//   graph_capture_node_types(stream, types, capacity, &count)
 //     the nodes of the graph `stream` is capturing into so far (a nested
-//     `if` node counts as one node of its parent).
+//     `if` node counts as one node of its parent), and the first `capacity`
+//     nodes' cudaGraphNodeType in `types` (-1 where the runtime gives none):
+//     what a body holds, so that a refused capture names the node at fault.
 //
 // A body may hold another `if` node: begin it on the body's stream with a
 // third stream for the inner body.  Each call returns a cudaError_t (0 = ok).
@@ -85,7 +87,8 @@ extern "C" int graph_cond_end(cudaStream_t body_stream) {
   return cudaStreamEndCapture(body_stream, &body);
 }
 
-extern "C" int graph_capture_nodes(cudaStream_t stream, size_t* count) {
+extern "C" int graph_capture_node_types(cudaStream_t stream, int* types,
+                                        size_t capacity, size_t* count) {
   cudaStreamCaptureStatus status;
   cudaGraph_t graph;
   cudaError_t err = cudaStreamGetCaptureInfo(stream, &status, nullptr, &graph,
@@ -93,5 +96,22 @@ extern "C" int graph_capture_nodes(cudaStream_t stream, size_t* count) {
   if (err != cudaSuccess) return err;
   if (status != cudaStreamCaptureStatusActive)
     return cudaErrorStreamCaptureImplicit;
-  return cudaGraphGetNodes(graph, nullptr, count);
+  err = cudaGraphGetNodes(graph, nullptr, count);
+  if (err != cudaSuccess || capacity == 0 || *count == 0) return err;
+  // the types are a diagnostic: a node whose type the runtime does not give
+  // (or a graph whose nodes it does not list) reads -1, and the error is
+  // cleared so that it reaches no later launch check
+  size_t n = *count;
+  for (size_t i = 0; i < n && i < capacity; ++i) types[i] = -1;
+  cudaGraphNode_t* nodes = new cudaGraphNode_t[n];
+  if (cudaGraphGetNodes(graph, nodes, &n) == cudaSuccess) {
+    for (size_t i = 0; i < n && i < capacity; ++i) {
+      cudaGraphNodeType type;
+      if (cudaGraphNodeGetType(nodes[i], &type) == cudaSuccess)
+        types[i] = static_cast<int>(type);
+    }
+  }
+  delete[] nodes;
+  cudaGetLastError();
+  return cudaSuccess;
 }

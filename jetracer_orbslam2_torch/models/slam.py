@@ -375,7 +375,8 @@ class KeyframeUpdate(NamedTuple):
     compacted: object     # the map was compacted: likewise
     loop_prev_uid: Tensor  # () int32 loop gate state, to be carried into the
     loop_consist: Tensor   # () int32 next keyframe's `retrieve_and_verify`
-    ba_dropped: int       # colliding edges the sharded BA dropped (0 meshless)
+    ba_dropped: object    # colliding edges the sharded BA dropped (0
+    #                       meshless): a host int, a () tensor in a graph
 
 
 def compact_if_full(m: MapState, cfg: SystemConfig, num_obs, num_lm,
@@ -424,7 +425,9 @@ def keyframe_update(
     (`TrackingStep.u_loop`) for `loop.retrieve_and_verify`; without either
     the verification draws from `generator`.
     mesh: a `parallel.mesh.Mesh` on this device; the windowed BA then runs
-    landmark-sharded over it (`parallel.ba_sharded.sharded_local_ba`)."""
+    landmark-sharded over it (`parallel.ba_sharded.sharded_local_ba`), and
+    its dropped edges ride the counters' fetch (in a graph they stay a
+    device count)."""
     dev = resolve_device(device)
     set_exact_f32()
     new_mask = feats.has_point & ~lm_ok
@@ -438,12 +441,12 @@ def keyframe_update(
 
         m, dropped = sharded_local_ba(m, intrinsics, cfg.map.window_size, cfg,
                                       mesh)
-        counters = [dropped]
+        counters = [] if in_graph() else [dropped]
     cand_idx, T_ab, loop_ok, lp_uid, lp_cons = loop_mod.retrieve_and_verify(
         m, slot, generator, cfg.loop, intrinsics, loop_prev_uid, loop_consist,
         sample_idx=sample_idx, uniforms=uniforms, device=dev)
     # closing a loop changes no counter: every branch is known here
-    looped, num_obs, num_lm, num_kf, *dropped = branch_values(
+    looped, num_obs, num_lm, num_kf, *fetched = branch_values(
         loop_ok, m.num_obs, m.num_lm, m.num_kf, *counters)
     box = Carry({"m": m}, in_place=in_graph())
     cond(looped, lambda: box.set(m=loop_mod.close(
@@ -456,7 +459,7 @@ def keyframe_update(
     return KeyframeUpdate(
         m=m, T_wc=T_wc, slot=m.num_kf - 1, looped=looped,
         compacted=compacted, loop_prev_uid=lp_uid, loop_consist=lp_cons,
-        ba_dropped=sum(dropped))
+        ba_dropped=dropped if mesh is not None and in_graph() else sum(fetched))
 
 
 def mesh_device(mesh, device, cfg: SystemConfig) -> torch.device:

@@ -21,10 +21,14 @@ samples and its branches' uniforms, whatever it goes on to do: the JAX
 package's `fold_in(base_key, frame_idx)` rule) and the trajectory
 convention (frames ride their reference keyframe's optimized pose) are
 `models/slam.py`'s, so `slam_scan` and `Slam` seeded alike give the same
-keyframes, closures and poses.  `_step` is the same frame with host
-branches (the tracking half a graph replay, the branches eager): what
-`slam_scan(mesh=...)` runs, whose windowed BA talks to other ranks, and the
-reference the graphed frame is held against.
+keyframes, closures and poses.  With a mesh the keyframe body's windowed BA
+is `parallel/ba_sharded.sharded_local_ba`, its all-reduces and the gather of
+the landmark blocks nodes of that body (K8, `ops/fused_allreduce.py`), as
+the JAX package's `shard_map`'d BA runs inside its `lax.cond`: the mesh run
+is the same one replay a frame.
+`_step` is the same frame with host branches (the tracking half a graph
+replay, the branches eager, with or without a mesh): the reference the
+graphed frame is held against.
 """
 
 from __future__ import annotations
@@ -66,9 +70,9 @@ class ScanState(NamedTuple):
     loop_prev_uid: Tensor   # () int32 last keyframe's winning loop candidate
     loop_consist: Tensor    # () int32 consecutive-detection streak
     generator: torch.Generator  # RANSAC draws (the JAX state's base_key)
-    ba_edges_dropped: int = 0   # host count: edges the sharded BA dropped
-    graph: object = None    # the run's FrameGraph (or, with a mesh, its
-    #                         tracking StepGraph), carried
+    ba_edges_dropped: Tensor  # () int32 edges the sharded BA dropped
+    graph: object = None    # the run's FrameGraph (or `_step`'s tracking
+    #                         StepGraph), carried
 
 
 class ScanOutput(NamedTuple):
@@ -132,14 +136,15 @@ def init_scan_state(
         num_loops=_i32(0, dev), num_relocs=_i32(0, dev),
         loop_prev_uid=_i32(loop_mod.NO_CANDIDATE_UID, dev),
         loop_consist=_i32(0, dev),
-        generator=make_generator(seed, dev),
+        generator=make_generator(seed, dev), ba_edges_dropped=_i32(0, dev),
     )
 
 
 # the fields of ScanState a frame reads and rewrites
 _CARRIED = ("m", "prev", "T_wc", "velocity", "frames_since_kf", "lost_streak",
             "frame_idx", "ref_slot", "num_loops", "num_relocs",
-            "loop_prev_uid", "loop_consist")
+            "loop_prev_uid", "loop_consist", "ba_edges_dropped")
+
 
 
 def _skip(state) -> tuple:
@@ -158,9 +163,10 @@ def _frame(S: Carry, track, frame, imu, intrinsics, cfg: SystemConfig,
     """One SLAM frame on the carried state S: `track` (a tracking graph, or
     `slam.tracking_step` inside the frame graph) on `frame` (gray, depth),
     then the relocalization and keyframe branches.  imu: (delta_w (3,),
-    ok () bool) on the device.  Returns the output row (need_kf as a ()
-    bool), the keyframe decision as the branches read it and the edges a
-    sharded BA dropped (a host int)."""
+    ok () bool) on the device.  mesh: the keyframe body's windowed BA runs
+    landmark-sharded over it, and its dropped edges add to the carried
+    count.  Returns the output row (need_kf as a () bool) and the keyframe
+    decision as the branches read it."""
     dev = S.T_wc.device
     step = track(S.prev, frame, S.m, S.T_wc, S.velocity, *imu,
                  S.frames_since_kf, S.lost_streak, intrinsics)
@@ -179,8 +185,6 @@ def _frame(S: Carry, track, frame, imu, intrinsics, cfg: SystemConfig,
               lost_streak=torch.where(ok, 0, S.lost_streak).to(torch.int32),
               num_relocs=(S.num_relocs + ok.to(torch.int32)).to(torch.int32))
 
-    dropped = [0]
-
     def keyframe():
         up = slam_mod.keyframe_update(
             S.m, feats, S.T_wc, frame_idx, step.lm_idx, step.lm_ok,
@@ -190,7 +194,9 @@ def _frame(S: Carry, track, frame, imu, intrinsics, cfg: SystemConfig,
               loop_prev_uid=up.loop_prev_uid, loop_consist=up.loop_consist,
               num_loops=(S.num_loops + up.looped).to(torch.int32),
               frames_since_kf=torch.ones_like(S.frames_since_kf))
-        dropped[0] = up.ba_dropped
+        if mesh is not None:
+            S.set(ba_edges_dropped=(S.ba_edges_dropped
+                                    + up.ba_dropped).to(torch.int32))
 
     cond(try_reloc, relocalization)
     cond(need_kf, keyframe)
@@ -199,7 +205,7 @@ def _frame(S: Carry, track, frame, imu, intrinsics, cfg: SystemConfig,
            geo.pose_inverse(ref_pose) @ S.T_wc, S.T_wc.clone(),
            report.tracked_ok, report.need_kf)
     S.set(prev=feats, frame_idx=(frame_idx + 1).to(torch.int32))
-    return row, need_kf, dropped[0]
+    return row, need_kf
 
 
 def frame_extract(cfg: SystemConfig, dev):
@@ -215,10 +221,14 @@ def tracking_graph(state: ScanState, cfg: SystemConfig) -> StepGraph:
                                    key=(cfg, dev), carried=state.graph)
 
 
-def frame_graph(state: ScanState, cfg: SystemConfig) -> FrameGraph:
-    """The state's frame graph when it was made for this configuration and
-    generator; else a new one (warmed up and captured at its first call)."""
+def frame_graph(state: ScanState, cfg: SystemConfig, mesh=None) -> FrameGraph:
+    """The state's frame graph when it was made for this configuration, mesh
+    (None: none) and generator; else a new one (warmed up and captured at
+    its first call).  Raises for a mesh whose collectives a conditional
+    body cannot hold (`Mesh.check_capturable`): no host branches instead."""
     dev = state.T_wc.device
+    if mesh is not None:
+        mesh.check_capturable()
     extract = frame_extract(cfg, dev)
 
     def fn(generator, carried, gray, depth, imu_delta_w, imu_ok, intrinsics):
@@ -227,12 +237,12 @@ def frame_graph(state: ScanState, cfg: SystemConfig) -> FrameGraph:
                                           extract=extract)
 
         S = Carry(dict(zip(_CARRIED, carried)), in_place=True)
-        row, _, _ = _frame(S, track, (gray, depth), (imu_delta_w, imu_ok),
-                           intrinsics, cfg)
+        row, _ = _frame(S, track, (gray, depth), (imu_delta_w, imu_ok),
+                        intrinsics, cfg, mesh)
         return row
 
     return FrameGraph.reuse(state.graph, fn, state.generator,
-                            key=(cfg, dev, "frame"))
+                            key=(cfg, dev, "frame", mesh))
 
 
 def _imu_inputs(imu, dev) -> tuple:
@@ -244,23 +254,26 @@ def _imu_inputs(imu, dev) -> tuple:
 
 
 def _step(state: ScanState, gray, depth, imu, intrinsics,
-          cfg: SystemConfig, mesh=None,
-          graph: Optional[StepGraph] = None) -> tuple[ScanState, tuple]:
+          cfg: SystemConfig, mesh=None, graph: Optional[StepGraph] = None,
+          plain_collectives: bool = False) -> tuple[ScanState, tuple]:
     """One SLAM frame with host branches: the tracking half through `graph`
     (`tracking_graph(state, cfg)` when None), then the branches eagerly, on
     the frame's flags fetched together (one wait), and at a keyframe on its
     verdict and counters (one more).  imu: (delta_w (3,) device tensor or
     None, ok host bool).  Returns the new state and the frame's output row,
-    whose last entry (`is_kf`) is a host bool.  mesh: see `slam_scan`."""
+    whose last entry (`is_kf`) is a host bool.  mesh: see `slam_scan`; the
+    host-branch reference of the mesh run too, whose collectives are the
+    group's own all-reduce (K8's plain version, `Mesh.reference`) when
+    `plain_collectives`."""
+    if mesh is not None and plain_collectives:
+        mesh = mesh.reference()
     dev = state.T_wc.device
     if graph is None:
         graph = tracking_graph(state, cfg)
     S = Carry({f: getattr(state, f) for f in _CARRIED}, in_place=False)
-    row, need_kf, dropped = _frame(S, graph, (gray, depth),
-                                   _imu_inputs(imu, dev), intrinsics, cfg, mesh)
-    new_state = ScanState(
-        **S.fields, generator=state.generator,
-        ba_edges_dropped=state.ba_edges_dropped + dropped, graph=graph)
+    row, need_kf = _frame(S, graph, (gray, depth), _imu_inputs(imu, dev),
+                          intrinsics, cfg, mesh)
+    new_state = ScanState(**S.fields, generator=state.generator, graph=graph)
     return new_state, row[:4] + (need_kf == 1,)
 
 
@@ -289,8 +302,9 @@ def slam_scan(
     state change, no draw; their output row is the carried pose, untracked.
     mesh: a `parallel.mesh.Mesh` on the state's device; every windowed BA
     inside the scan then runs landmark-sharded over it
-    (`parallel.ba_sharded.sharded_local_ba`), and every rank runs the scan
-    in lockstep.
+    (`parallel.ba_sharded.sharded_local_ba`) in the frame graph's keyframe
+    body, and every rank runs the scan in lockstep (each replays its own
+    graph; the branch flags come from state that is the same on every rank).
 
     Returns (final state, per-frame ScanOutput on the device).  Use
     `compose_trajectory` to turn the output into world poses that reflect
@@ -318,33 +332,21 @@ def slam_scan(
         imu_delta_w = as_f32(imu_delta_w, dev)
     imu = [(imu_delta_w[i] if imu_ok[i] else None, imu_ok[i]) for i in range(n)]
     rows = []
-    if mesh is not None:
-        # NCCL inside a conditional body is not captured: host branches
-        graph = tracking_graph(state, cfg)
-        const = slam_mod.step_constants(dev)
-        for i in range(n):
-            if not live[i]:
-                rows.append(_skip(state))
-                continue
-            state, row = _step(state, grays[i], depths[i], imu[i], intrinsics,
-                               cfg, mesh, graph)
-            rows.append(row[:4] + (const["true" if row[4] else "false"],))
-    else:
-        graph = frame_graph(state, cfg)
-        carried = tuple(getattr(state, f) for f in _CARRIED)
-        current = state
-        for i in range(n):
-            if not live[i]:
-                rows.append(_skip(current))
-                continue
-            rows.append(graph(carried, grays[i], depths[i],
-                              *_imu_inputs(imu[i], dev), intrinsics))
-            carried = tuple(graph.carry())
-            current = Carry(dict(zip(_CARRIED, carried)), in_place=False)
-        if any(live):
-            carried = graph.export()
-        state = ScanState(*carried, generator=state.generator,
-                          ba_edges_dropped=state.ba_edges_dropped, graph=graph)
+    graph = frame_graph(state, cfg, mesh)
+    carried = tuple(getattr(state, f) for f in _CARRIED)
+    current = state
+    for i in range(n):
+        if not live[i]:
+            rows.append(_skip(current))
+            continue
+        rows.append(graph(carried, grays[i], depths[i],
+                          *_imu_inputs(imu[i], dev), intrinsics))
+        carried = tuple(graph.carry())
+        current = Carry(dict(zip(_CARRIED, carried)), in_place=False)
+    if any(live):
+        carried = graph.export()
+    state = ScanState(**dict(zip(_CARRIED, carried)),
+                      generator=state.generator, graph=graph)
     ref_uid, T_rel, T_w_emit, tracked, is_kf = zip(*rows)
     return state, ScanOutput(
         ref_uid=torch.stack(ref_uid), T_rel=torch.stack(T_rel),
@@ -423,8 +425,7 @@ class ChunkedSlam:
             self.state, g, d, self.intr, self.cfg,
             imu_delta_w=iw, imu_valid=iv, mesh=self.mesh)
         graph = self.state.graph
-        counts = (graph.branch_counts() if isinstance(graph, FrameGraph)
-                  else None)
+        counts = graph.branch_counts()
         host = fetch(*out, *(() if counts is None else (counts,)))
         if counts is not None:
             graph.settle(host[-1])

@@ -79,11 +79,11 @@ def _slam_check(mesh) -> dict:
                  "ba_edges_dropped": slam.ba_edges_dropped},
         "scan": {"kf_pose": as_list(final.m.kf_pose), "T_rel": as_list(scan.T_rel),
                  "num_kf": int(final.m.num_kf),
-                 "ba_edges_dropped": final.ba_edges_dropped},
+                 "ba_edges_dropped": int(final.ba_edges_dropped)},
         "chunked": {"kf_pose": as_list(ch.state.m.kf_pose),
                     "poses": as_list(chunked),
                     "num_kf": int(ch.state.m.num_kf),
-                    "ba_edges_dropped": ch.state.ba_edges_dropped},
+                    "ba_edges_dropped": int(ch.state.ba_edges_dropped)},
     }
 
 

@@ -7,6 +7,10 @@ PROCESS PER RANK: every rank runs the same program on its own device, owns
 one block of the landmark axis, and each `psum` of the JAX program is an
 `all_reduce(SUM)` over the group.  A one-rank group runs the identical
 program, so the single-card path and the multi-card path are one code path.
+On the card that all-reduce is the hand-written kernel K8
+(`ops/fused_allreduce.py`), eager and inside a CUDA graph alike, so every
+path sums in the same (rank) order; the group's own all-reduce is its plain
+version.
 
   * `init_distributed` joins a group from its arguments or from the
     variables `python -m torch.distributed.run` sets (MASTER_ADDR,
@@ -27,6 +31,7 @@ the landmark axis it owns is its rank (`Mesh.block`).
 
 from __future__ import annotations
 
+import copy
 import datetime
 import os
 from typing import Optional
@@ -34,6 +39,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from jetracer_orbslam2_torch.ops import fused_allreduce
 from jetracer_orbslam2_torch.utils.device import resolve_device
 
 Tensor = torch.Tensor
@@ -95,8 +101,15 @@ class Mesh:
 
     `size` ranks, this process is `rank` on `device`.  The landmark axis of a
     problem whose length is a multiple of `size` splits into `size` equal
-    blocks; rank r owns block r.  `close()` destroys the group if this mesh
-    built it (a one-rank group), and leaves a joined group alone.
+    blocks; rank r owns block r.  A mesh on the card holds the ranks' staging
+    buffers of K8 (`ops/fused_allreduce.map_peers`, made by every rank
+    together at set-up, whatever the backend), and every collective of the
+    mesh is K8, eager or inside a CUDA graph's capture; where K8 cannot serve
+    the group (more than 8 ranks, or ranks on several hosts) `peers` is None
+    and the collectives are the group's own, which a frame graph refuses
+    (`check_capturable`).  A CPU mesh runs the group's.  `close()` releases
+    the buffers, and destroys the group if this mesh built it (a one-rank
+    group), leaving a joined group alone.
     """
 
     def __init__(self, device: torch.device, axis: str = "lm",
@@ -107,6 +120,28 @@ class Mesh:
         self.rank = dist.get_rank()
         self.backend = dist.get_backend()
         self.owns_group = owns_group
+        self.peers = (fused_allreduce.map_peers(self.rank, self.size, device)
+                      if device.type == "cuda" else None)
+
+    def reference(self) -> "Mesh":
+        """This mesh with the plain version of its collectives, the group's
+        `dist.all_reduce`: the host-branch reference step's
+        (`slam_scan._step(plain_collectives=True)`).  It shares the group
+        and has nothing of its own to close."""
+        view = copy.copy(self)
+        view.owns_group, view.peers = False, None
+        return view
+
+    def check_capturable(self) -> None:
+        """Raise unless this mesh's collectives can be nodes of a CUDA graph's
+        conditional body: on the card they must be K8 (the group's captured
+        all-reduce holds event nodes, which a body refuses)."""
+        if self.device.type == "cuda" and self.peers is None:
+            raise RuntimeError(
+                f"{self!r}: a frame graph needs the mesh's collectives to be "
+                f"K8, which maps the ranks' buffers over CUDA IPC: at most "
+                f"{fused_allreduce.MAX_RANKS} ranks on one host, and not the "
+                f"plain reference (Mesh.reference)")
 
     def block(self, length: int) -> slice:
         """This rank's block of an axis of `length` (a multiple of size)."""
@@ -116,11 +151,20 @@ class Mesh:
         lb = length // self.size
         return slice(self.rank * lb, (self.rank + 1) * lb)
 
+    def _all_reduce(self, x: Tensor) -> None:
+        """In-place SUM over the group, queued on the current stream: K8 on
+        the buffers the mesh mapped at set-up, or, without them, the
+        group's all-reduce (its plain version)."""
+        if self.peers is None:
+            fused_allreduce.peer_allreduce_reference(x)
+        else:
+            fused_allreduce.peer_allreduce(x, self.peers)
+
     def psum(self, x: Tensor) -> Tensor:
         """Sum of `x` over the ranks (a new tensor).  Queued on the current
         stream: no host wait."""
         y = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(y, op=dist.ReduceOp.SUM)
+        self._all_reduce(y)
         return y
 
     def gather_blocks(self, block: Tensor) -> Tensor:
@@ -132,10 +176,13 @@ class Mesh:
         lb = block.shape[0]
         full = block.new_zeros((self.size * lb,) + tuple(block.shape[1:]))
         full[self.rank * lb:(self.rank + 1) * lb] = block
-        dist.all_reduce(full, op=dist.ReduceOp.SUM)
+        self._all_reduce(full)
         return full
 
     def close(self) -> None:
+        if self.peers is not None and dist.is_initialized():
+            self.peers.close()
+        self.peers = None
         if self.owns_group and dist.is_initialized():
             dist.destroy_process_group()
         self.owns_group = False
@@ -147,8 +194,9 @@ class Mesh:
         self.close()
 
     def __repr__(self) -> str:
+        route = "K8" if self.peers is not None else "plain collectives"
         return (f"Mesh({self.axis}={self.size}, rank {self.rank}, "
-                f"{self.backend} on {self.device})")
+                f"{self.backend} on {self.device}, {route})")
 
 
 def make_mesh(n_devices: Optional[int] = None, axis: str = "lm",

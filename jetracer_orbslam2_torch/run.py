@@ -330,7 +330,7 @@ def _run_slam(args, src: Source, device, mesh=None):
         }
         if mesh is not None:
             report["mesh_devices"] = mesh.size
-            report["ba_edges_dropped"] = ch.state.ba_edges_dropped
+            report["ba_edges_dropped"] = int(ch.state.ba_edges_dropped)
         return report, poses
     return _run_host_loop(args, src, SystemConfig(frontend=fcfg), device, mesh)
 
@@ -481,6 +481,7 @@ def main(argv=None) -> int:
 
     set_exact_f32()
     had_group = dist.is_initialized()
+    mesh = None
     try:
         if args.distributed:
             multi = mesh_mod.init_distributed(device=args.device)
@@ -491,7 +492,6 @@ def main(argv=None) -> int:
             device = mesh_mod.rank_device(args.device)
         else:
             device = resolve_device(args.device)
-        mesh = None
         if args.mesh:
             world = dist.get_world_size() if dist.is_initialized() else 1
             if args.mesh != world:
@@ -511,6 +511,8 @@ def main(argv=None) -> int:
         else:
             res = _run_slam(args, src, device, mesh)
     finally:
+        if mesh is not None:
+            mesh.close()        # its peer buffers; a group it made
         if dist.is_initialized() and not had_group:
             dist.destroy_process_group()
     if res is None:

@@ -256,25 +256,44 @@ def _cond_library():
         ptr = ctypes.c_void_p
         lib.graph_cond_begin.argtypes = [ptr, ptr, ptr]
         lib.graph_cond_end.argtypes = [ptr]
-        lib.graph_capture_nodes.argtypes = [ptr, ctypes.POINTER(ctypes.c_size_t)]
+        lib.graph_capture_node_types.argtypes = [
+            ptr, ctypes.POINTER(ctypes.c_int), ctypes.c_size_t,
+            ctypes.POINTER(ctypes.c_size_t)]
         for fn in (lib.graph_cond_setup, lib.graph_cond_begin,
-                   lib.graph_cond_end, lib.graph_capture_nodes):
+                   lib.graph_cond_end, lib.graph_capture_node_types):
             fn.restype = ctypes.c_int
         err = lib.graph_cond_setup()
         if err != 0:
             raise RuntimeError(f"graph_cond setup failed: cudaError {err}")
         _cond_fns.update(begin=lib.graph_cond_begin, end=lib.graph_cond_end,
-                         nodes=lib.graph_capture_nodes)
+                         types=lib.graph_capture_node_types)
     return _cond_fns["begin"], _cond_fns["end"]
 
 
-def _captured_nodes(stream) -> int:
-    """The nodes `stream` has captured into its graph so far."""
+# cudaGraphNodeType, in the runtime's order
+NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty",
+              "wait_event", "event_record", "ext_semas_signal",
+              "ext_semas_wait", "mem_alloc", "mem_free", "batch_mem_op",
+              "conditional")
+
+
+def _captured_node_types(stream) -> dict:
+    """The nodes `stream` has captured into its graph so far, counted by
+    type (a nested `if` node is one `conditional` node of its parent)."""
     count = ctypes.c_size_t(0)
-    err = _cond_fns["nodes"](stream.cuda_stream, ctypes.byref(count))
+    err = _cond_fns["types"](stream.cuda_stream, None, 0, ctypes.byref(count))
+    types = (ctypes.c_int * max(count.value, 1))()
+    if err == 0:
+        err = _cond_fns["types"](stream.cuda_stream, types, count.value,
+                                 ctypes.byref(count))
     if err != 0:
-        raise RuntimeError(f"graph_capture_nodes failed: cudaError {err}")
-    return count.value
+        raise RuntimeError(f"graph_capture_node_types failed: cudaError {err}")
+    out: dict = {}
+    for t in types[:count.value]:
+        name = (NODE_TYPES[t] if 0 <= t < len(NODE_TYPES)
+                else "unknown" if t < 0 else f"type {t}")
+        out[name] = out.get(name, 0) + 1
+    return out
 
 
 def cond(pred, body: Callable[[], None]) -> None:
@@ -346,6 +365,7 @@ class _Capture:
         self.taken, self.streams = taken, streams
         self.bodies: list[dict] = []
         self.body_nodes: list[int] = []    # graph nodes of each body
+        self.body_types: list[dict] = []   # ... counted by node type
         self.pools: list = []
         self.depth = 0
 
@@ -364,6 +384,7 @@ class _Capture:
         index, nodes = len(self.bodies), {}
         self.bodies.append(nodes)
         self.body_nodes.append(0)
+        self.body_types.append({})
         # the body's allocations go to a pool of its own: the stream it is
         # captured on is not the graph's, whose pool takes only that stream
         pool = torch.cuda.graph_pool_handle()
@@ -375,11 +396,18 @@ class _Capture:
         self.depth += 1
         try:
             with torch.cuda.stream(inner):
+                # a body's work must see the capture: `note_launch` records
+                # the body's kernels by it
+                if not torch.cuda.is_current_stream_capturing():
+                    raise RuntimeError("FrameGraph: a branch's stream is not "
+                                       "capturing")
                 getattr(torch._C, _POOL_MOVE[0])(dev.index, pool)
                 try:
                     self.taken[index].fill_(True)
                     body()
-                    self.body_nodes[index] = _captured_nodes(inner)
+                    types = _captured_node_types(inner)
+                    self.body_types[index] = types
+                    self.body_nodes[index] = sum(types.values())
                 finally:
                     getattr(torch._C, _POOL_MOVE[1])(dev.index, pool)
         finally:
@@ -387,7 +415,13 @@ class _Capture:
             _recording = saved
             err = end(inner.cuda_stream)
         if err != 0:
-            raise RuntimeError(f"graph_cond_end failed: cudaError {err}")
+            raise RuntimeError(f"graph_cond_end failed: cudaError {err}; "
+                               f"{self.describe()}")
+
+    def describe(self) -> str:
+        """Each body's nodes by type, for the message of a refused capture."""
+        return "branch nodes by type: " + "; ".join(
+            f"{i}: {t}" for i, t in enumerate(self.body_types))
 
 
 def _release(graph, dev_index: int, pools: list) -> None:
@@ -430,6 +464,7 @@ class FrameGraph:
         self.bodies: list[dict] = []
         self.graph_nodes = 0           # graph nodes of the frame, bodies aside
         self.body_nodes: list[int] = []  # graph nodes of each body
+        self.body_types: list[dict] = []  # ... counted by node type
         self.eager_calls = self.captures = self.replays = 0
         self._carry_spec = self._in_spec = None
         self._carry: Optional[list] = None
@@ -541,9 +576,13 @@ class FrameGraph:
                     self._taken.zero_()
                     out = self.fn(self.generator, self.carry(), *inputs)
                     self._totals.add_(self._taken)
-                    self.graph_nodes = _captured_nodes(self._stream)
+                    self.graph_nodes = sum(
+                        _captured_node_types(self._stream).values())
                 finally:
-                    graph.capture_end()
+                    try:
+                        graph.capture_end()     # instantiates the graph
+                    except RuntimeError as e:
+                        raise RuntimeError(f"{e}; {cap.describe()}") from e
             current.wait_stream(self._stream)
             self.nodes = _recording
         finally:
@@ -551,6 +590,7 @@ class FrameGraph:
             if enabled:
                 gc.enable()
         self.bodies, self.body_nodes = cap.bodies, cap.body_nodes
+        self.body_types = cap.body_types
         self._out_leaves = []
         self._out_spec = _flatten(out, self._out_leaves)
         self.graph = graph
