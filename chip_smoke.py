@@ -225,17 +225,27 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
                   NCCL mesh (the keyframe body's BA sharded, its
                   all-reduces K8 launches in the body): the lap and the
                   lifecycle torch.equal to `_step` with the mesh and to the
-                  meshless graph, no host wait to the fetch, K8 = 52 x
-                  keyframes and the nodes of each body by type,
-                  ChunkedSlam --chunked 8 with the mesh one wait a chunk;
-                  K8 vs its plain version (dist.all_reduce) at the
-                  body's payloads, relaunch and replays torch.equal, µs;
-                  then K8 across three ranks on the one card (processes
-                  over a gloo group, the buffers mapped by CUDA IPC) at
-                  the body's payloads and one past the staging buffer:
-                  torch.equal to the rank-order sum of the ranks' inputs,
-                  within 1e-6 of the magnitudes' sum of the group's
-                  all-reduce, relaunch and two replays, launches counted
+                  meshless graph, no host wait to the fetch, K8 = 22 x
+                  keyframes (an LM iteration's packed partials and its
+                  cost, 10 iterations, the initial cost, the gather) and
+                  the nodes of each body by type, ChunkedSlam --chunked 8
+                  with the mesh one wait a chunk; K8 vs its plain version
+                  (dist.all_reduce) at the body's payloads, relaunch and
+                  replays torch.equal, µs; the host-branch route: a
+                  one-rank NCCL mesh whose K8 buffers are released after
+                  set-up (a group K8 cannot serve) runs slam_scan and
+                  ChunkedSlam through `_step`, names the route, launches
+                  no K8 and equals `_step(plain_collectives=True)` and the
+                  meshless graph, host waits counted; then K8 across
+                  three ranks on the one card (processes over a gloo
+                  group, the buffers mapped by CUDA IPC) at the body's
+                  payloads and every launch shape (one block, several,
+                  16, a tail not a multiple of 4, an unaligned tensor,
+                  two chunks): torch.equal to the rank-order sum of the
+                  ranks' inputs, within 1e-6 of the magnitudes' sum of the
+                  group's all-reduce, relaunch and two replays, launches
+                  counted; and 1,000 calls back to back over six payloads
+                  with one rank started 2 s late, every output torch.equal
 Launch counts: a wrapper counts one when it launches its kernel, a replay of
 a captured frame step counts each kernel node of the graph once, and a
 conditional body's kernels count once for each replay that took the body
@@ -3267,6 +3277,11 @@ def _mesh_cli(dev) -> tuple[dict, dict]:
         if rm.get("mesh_devices") != 1 or rm.get("ba_edges_dropped") != 0:
             bad.append(f"{name}: mesh_devices {rm.get('mesh_devices')}, "
                        f"ba_edges_dropped {rm.get('ba_edges_dropped')}")
+        if extra and (rm.get("scan_route"), r0.get("scan_route")) != (
+                "frame_graph", "frame_graph"):
+            bad.append(f"{name}: scan_route {rm.get('scan_route')} / "
+                       f"{r0.get('scan_route')} (frame_graph expected: K8 "
+                       f"serves a one-rank mesh)")
         for key in ("keyframes", "loops", "relocs", "landmarks", "ate_rmse_m"):
             if rm.get(key) != r0.get(key):
                 bad.append(f"{name}: {key} {rm.get(key)} != {r0.get(key)}")
@@ -4450,6 +4465,7 @@ def _branch_run(name, firsts, seconds, intr, cfg, must, dev, mesh=None,
                     for b in graph.bodies]
         differ_meshless = _differing_run((final, out), meshless)
         row.update(mesh_ranks=mesh.size, backend=mesh.backend,
+                   route=final.route,
                    ba_edges_dropped=int(final.ba_edges_dropped),
                    k8_launches=k8, k8_per_body=per_body,
                    graphed_equals_meshless_graph=not differ_meshless,
@@ -4457,6 +4473,8 @@ def _branch_run(name, firsts, seconds, intr, cfg, must, dev, mesh=None,
         if differ_meshless:
             bad.append(f"the mesh graph differs from the meshless graph in "
                        f"{differ_meshless}")
+        if final.route != "frame_graph":
+            bad.append(f"a mesh K8 serves took the {final.route} route")
         if row["ba_edges_dropped"] != 0:
             bad.append(f"ba_edges_dropped {row['ba_edges_dropped']}")
         if not (per_body[1] == K8_PER_KEYFRAME and k8 == per_body[1] * keyframes
@@ -4569,6 +4587,79 @@ def phase_branches(source, args, dev) -> dict:
     return report
 
 
+def _host_branch_route(seq, meshless, dev) -> dict:
+    """(d) a mesh on the card that K8 cannot serve: a one-rank NCCL mesh
+    whose K8 buffers are released after set-up, and whose set-up record
+    (`Mesh.k8_unservable`) says so, stands in for a group of more than 8
+    ranks or several hosts (`map_peers` gives None there, and the mesh
+    records why).
+    `slam_scan` and `ChunkedSlam --chunked 8` on the gated lap take the
+    host-branch route and name it, launch no K8, and their outputs,
+    counters and map are torch.equal to `_step(plain_collectives=True)`'s
+    and to the meshless graph's (final, out); host waits counted (sync
+    debug "warn")."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from jetracer_orbslam2_torch.models import slam_scan as ss
+    from jetracer_orbslam2_torch.parallel import make_mesh
+
+    name, firsts, seconds, intr, cfg, _ = seq
+    if dist.is_initialized():
+        raise SystemExit("FAIL: a process group is still up before the "
+                         "host-branch route")
+    mesh = make_mesh(1)
+    try:
+        mesh.peers.close()
+        mesh.peers = None
+        mesh.k8_unservable = "a stand-in for more than 8 ranks"
+        shown = repr(mesh)
+        state = ss.init_scan_state(firsts[0], seconds[0], intr, cfg)
+        _reset_counters()
+        (final, out), waits = _count_waits(lambda: ss.slam_scan(
+            state, firsts[1:], seconds[1:], intr, cfg, mesh=mesh))
+        launches = _read_counters()
+        k8 = _k8_launches()
+        h_final, h_out = _host_scan_pair(firsts, seconds, intr, cfg, mesh=mesh)
+        differ_step = _differing_run((final, out), (h_final, h_out))
+        differ_meshless = _differing_run((final, out), meshless)
+        ch = ss.ChunkedSlam(cfg, intr, chunk_size=CHUNK, mesh=mesh)
+        chunk_waits = 0
+        for i in range(firsts.shape[0]):
+            chunk_waits += _count_waits(
+                lambda: ch.process_frame(firsts[i], seconds[i]))[1]
+        chunk_waits += _count_waits(ch.flush)[1]
+        merged = [np.concatenate([getattr(o, f) for o in ch._outs])
+                  for f in ss.ScanOutput._fields]
+        differ_chunked = [f for f, a, b in zip(ss.ScanOutput._fields, merged, out)
+                          if not np.array_equal(a, b.cpu().numpy())]
+        differ_chunked += _differing_state(ch.state, final)
+    finally:
+        mesh.close()
+    stepped = firsts.shape[0] - 1
+    keyframes = int(out.is_kf.sum())
+    report = {
+        "sequence": name, "mesh": shown, "route": final.route,
+        "chunked_route": ch.route, "keyframes_inserted": keyframes,
+        "loops": int(final.num_loops), "relocs": int(final.num_relocs),
+        "equals_host_branch_plain": not differ_step,
+        "equals_meshless_graph": not differ_meshless,
+        "chunked_equals_scan": not differ_chunked,
+        "differing": sorted(set(differ_step + differ_meshless
+                                + differ_chunked)),
+        "k8_launches": k8, "k2_launches": launches["fused_normal_schur"],
+        "host_waits": waits, "host_waits_per_frame": waits / stepped,
+        "chunked_host_waits": chunk_waits, "chunks": len(ch._outs)}
+    say("  (d) host-branch route: " + json.dumps(report))
+    if (report["route"], report["chunked_route"]) != ("host_branch",) * 2:
+        raise SystemExit(f"FAIL: a mesh without K8's buffers took "
+                         f"{report['route']} / {report['chunked_route']}")
+    if (report["differing"] or k8 != 0 or keyframes < 1
+            or launches["fused_normal_schur"] != 10 * keyframes):
+        raise SystemExit(f"FAIL: the host-branch route: {report}")
+    return report
+
+
 def _mesh_branches(seqs, results, lap_whole, dev) -> dict:
     """(d) the same frame graph with a one-rank NCCL mesh: the windowed BA
     of the keyframe body is `sharded_local_ba`, its all-reduces and the
@@ -4595,8 +4686,10 @@ def _mesh_branches(seqs, results, lap_whole, dev) -> dict:
         k8 = _k8_check(mesh, dev)
     finally:
         mesh.close()
+    host_route = _host_branch_route(seqs[1], results[1][1:], dev)
     k8_ranks = _k8_ranks()
-    report = {"runs": rows, "chunked": chunked, "k8": k8, "k8_ranks": k8_ranks}
+    report = {"runs": rows, "chunked": chunked, "k8": k8, "k8_ranks": k8_ranks,
+              "host_branch_route": host_route}
     say("  (d) mesh: " + json.dumps(
         {r["sequence"]: {k: r[k] for k in (
             "graphed_equals_host_branch", "graphed_equals_meshless_graph",
@@ -4606,13 +4699,16 @@ def _mesh_branches(seqs, results, lap_whole, dev) -> dict:
 
 
 # K8's payloads in the keyframe body at the window's P 8 and the map's
-# 16,384 landmarks: the cost, Hpp and S (6P x 6P), bp and Gh.bl (6P), the
-# gather of the landmark blocks (L x 3); an LM iteration all-reduces the
-# first five, the solve starts with a cost and ends with the gather
-K8_PAYLOADS = (("cost", 1), ("Hpp", 48 * 48), ("bp", 48),
-               ("gather", 16384 * 3))
-K8_PER_KEYFRAME = 10 * 5 + 1 + 1
-K8_HEADLINE = "Hpp"
+# 16,384 landmarks: the cost; an LM iteration's four pose-sized partials in
+# one buffer (Hpp (P, 6, 6), Gh G^T (6P x 6P), bp and Gh bl (P, 6)), and the
+# larger of them and the smallest alone; the gather of the landmark blocks
+# (L x 3).  An LM iteration all-reduces the packed partials and its cost,
+# the solve starts with a cost and ends with the gather
+K8_PACKED = 8 * 36 + 48 * 48 + 2 * 48
+K8_PAYLOADS = (("cost", 1), ("bp", 48), ("GhG", 48 * 48),
+               ("packed", K8_PACKED), ("gather", 16384 * 3))
+K8_PER_KEYFRAME = 10 * 2 + 1 + 1
+K8_HEADLINE = "packed"
 
 
 def _k8_check(mesh, dev) -> dict:
@@ -4622,8 +4718,9 @@ def _k8_check(mesh, dev) -> dict:
     relaunch and two replays of a captured graph torch.equal.  Then µs a
     call (CUDA events around a replayed graph of 20 calls, median of 20),
     the plain version's (CUDA events around 10 eager calls, median of 10,
-    which is also the one PyTorch call that computes it) and the bound (the
-    call's input read and output written once)."""
+    which is also the one PyTorch call that computes it) and the bound
+    (`fused_allreduce.bound_seconds`: an all-reduce over one rank, in
+    place, moves nothing, so 0; what a call costs there is its launch)."""
     import torch
     from jetracer_orbslam2_torch.ops import fused_allreduce
 
@@ -4659,7 +4756,7 @@ def _k8_check(mesh, dev) -> dict:
         ms = time_launches(lambda: k8(work, mesh.peers), 20, 20)
         plain_ms = _median_event_ms(
             lambda: [plain(work) for _ in range(10)], 10, 10)
-        bound_ms = 2 * 4 * n / HBM_BYTES_PER_S * 1e3
+        bound_ms = fused_allreduce.bound_seconds(n, mesh.size) * 1e3
         row = {"payload": name, "floats": n, "max_abs_err": err,
                "equal": same, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": "bytes"}
@@ -4673,13 +4770,41 @@ def _k8_check(mesh, dev) -> dict:
 
 
 # K8 across processes on the one card: three ranks (with two, a + b = b + a
-# and no order shows), the body's payloads and one past the staging buffer
-# (two chunks); against the group's all-reduce (gloo sums in its own order)
-# within K8_RANK_RTOL of the sum of the inputs' magnitudes
+# and no order shows), the body's payloads and every launch shape the
+# wrapper picks (`fused_allreduce.launch_blocks`): one block, many, a tail
+# that is not a multiple of 4 floats, a tensor that is not 16-byte aligned
+# (the scalar path) and one past the receive area (two chunks); against the
+# group's all-reduce (gloo sums in its own order) within K8_RANK_RTOL of
+# the sum of the inputs' magnitudes.  Then the lockstep stress: K8_STRESS
+# calls back to back over K8_STRESS_SIZES in turn, the last rank started
+# K8_STRESS_LATE_S late, every output torch.equal to the rank-order sum
+# (what a race on the receive area's parity copies would break).
 K8_RANKS = 3
-K8_RANK_PAYLOADS = K8_PAYLOADS + (("two_chunks", 2 * 65536 + 7),)
+K8_RANK_PAYLOADS = K8_PAYLOADS + (
+    ("tail_4099", 4099), ("unaligned_4099", 4099), ("full_chunk", 65536),
+    ("two_chunks", 2 * 65536 + 7))
 K8_RANK_RTOL = 1e-6
 K8_RANK_REPLAYS = 2
+K8_STRESS = 1000
+K8_STRESS_SIZES = (1, K8_PACKED, 4099, 16384 * 3, 7, 2 * 65536 + 7)
+K8_STRESS_LATE_S = 2.0
+
+
+def _k8_rank_inputs(n: int, world: int, dev, unaligned=False) -> tuple:
+    """Every rank's input of n floats from its seed, the rank-order sum and
+    the sum of the magnitudes; unaligned: views one float into a buffer, so
+    no pointer is 16-byte aligned."""
+    import torch
+
+    xs = []
+    for r in range(world):
+        x = torch.randn(n, generator=torch.Generator().manual_seed(97 * n + r))
+        xs.append(torch.cat([x.new_zeros(1), x]).to(dev)[1:] if unaligned
+                  else x.to(dev))
+    want = xs[0].clone()
+    for x in xs[1:]:
+        want = want + x                 # rank order, f32
+    return xs, want, torch.stack(xs).abs().sum(0)
 
 
 def k8_rank(store: str, world: int, rank: int) -> int:
@@ -4688,9 +4813,9 @@ def k8_rank(store: str, world: int, rank: int) -> int:
     over the file store on cuda:0, maps the ranks' buffers
     (`fused_allreduce.map_peers`), and at every payload runs K8 twice on
     this rank's input, the group's all-reduce once, and a captured graph of
-    K8 (warmed up once) replayed twice.  Every rank makes every rank's
-    input from its seed, so each holds K8 against the rank-order sum itself.
-    Prints one JSON line."""
+    K8 (warmed up once) replayed twice; then the lockstep stress.  Every
+    rank makes every rank's input from its seed, so each holds K8 against
+    the rank-order sum itself.  Prints one JSON line."""
     import datetime
     import hashlib
 
@@ -4705,23 +4830,26 @@ def k8_rank(store: str, world: int, rank: int) -> int:
                             timeout=datetime.timedelta(minutes=5))
     k8 = fused_allreduce.peer_allreduce
     rows, digest = [], hashlib.sha256()
+
+    def fresh(x):
+        """A copy of x with x's alignment (a view one float in, if x is)."""
+        if x.data_ptr() % 16 == 0:
+            return x.clone()
+        return torch.cat([x.new_zeros(1), x])[1:]
+
     try:
         peers = fused_allreduce.map_peers(rank, world, dev)
         if peers is None:
             raise SystemExit("FAIL: map_peers gave no buffers on one host")
         k8.launches = 0
         for name, n in K8_RANK_PAYLOADS:
-            xs = [torch.randn(n, generator=torch.Generator().manual_seed(
-                97 * n + r)).to(dev) for r in range(world)]
-            want = xs[0].clone()
-            for x in xs[1:]:
-                want = want + x                 # rank order, f32
-            scale = torch.stack(xs).abs().sum(0)
-            got, again, plain = (xs[rank].clone() for _ in range(3))
+            xs, want, scale = _k8_rank_inputs(n, world, dev,
+                                              name.startswith("unaligned"))
+            got, again, plain = (fresh(xs[rank]) for _ in range(3))
             k8(got, peers)
             k8(again, peers)
             dist.all_reduce(plain)
-            buf = torch.empty_like(got)
+            buf = fresh(xs[rank])
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):
@@ -4739,6 +4867,8 @@ def k8_rank(store: str, world: int, rank: int) -> int:
             del graph
             rel = float(((got - plain).abs() / scale).max())
             row = {"payload": name, "floats": n,
+                   "blocks": fused_allreduce.launch_blocks(n, world),
+                   "aligned": got.data_ptr() % 16 == 0,
                    "equals_rank_order_sum": bool(torch.equal(got, want)),
                    "relaunch_equal": bool(torch.equal(again, got)),
                    "replays_equal": all(bool(torch.equal(r, got))
@@ -4749,25 +4879,55 @@ def k8_rank(store: str, world: int, rank: int) -> int:
             rows.append(row)
             digest.update(got.cpu().numpy().tobytes())
         launches = k8.launches
+        # the lockstep stress: the last rank starts late, then every rank
+        # queues its calls back to back with no wait between them
+        cases = [_k8_rank_inputs(n, world, dev) for n in K8_STRESS_SIZES]
+        torch.cuda.synchronize()
+        dist.barrier()
+        if rank == world - 1:
+            time.sleep(K8_STRESS_LATE_S)
+        t0 = time.perf_counter()
+        outs = []
+        for i in range(K8_STRESS):
+            xs, _, _ = cases[i % len(cases)]
+            out = xs[rank].clone()
+            k8(out, peers)
+            outs.append(out)
+        torch.cuda.synchronize()
+        stress_s = time.perf_counter() - t0
+        stress_bad = [i for i, out in enumerate(outs)
+                      if not torch.equal(out, cases[i % len(cases)][1])]
+        stress_launches = k8.launches - launches
         torch.cuda.synchronize()
         peers.close()
     finally:
         dist.destroy_process_group()
     print(json.dumps({"rank": rank, "world": world, "launches": launches,
-                      "digest": digest.hexdigest(), "payloads": rows}),
+                      "digest": digest.hexdigest(), "payloads": rows,
+                      "stress": {"calls": K8_STRESS, "sizes": K8_STRESS_SIZES,
+                                 "late_rank": world - 1,
+                                 "late_s": K8_STRESS_LATE_S,
+                                 "launches": stress_launches,
+                                 "not_equal": stress_bad[:20],
+                                 "n_not_equal": len(stress_bad),
+                                 "seconds": stress_s}}),
           flush=True)
     return 0
 
 
 def _k8_ranks() -> dict:
     """K8 across K8_RANKS processes on the one card (`k8_rank`): every rank
-    torch.equal to the rank-order sum at every payload, relaunch and replays
-    too, within K8_RANK_RTOL of the group's all-reduce, the ranks' outputs
-    bit-identical, 3 eager launches a payload on each rank (two calls and
-    the graph's warm-up; a replay of a graph captured here counts none)."""
+    torch.equal to the rank-order sum at every payload and launch shape,
+    relaunch and replays too, within K8_RANK_RTOL of the group's
+    all-reduce, the ranks' outputs bit-identical, 3 eager launches a
+    payload on each rank (two calls and the graph's warm-up; a replay of a
+    graph captured here counts none); one block, several and MAX_BLOCKS
+    among the shapes; then the lockstep stress, every output torch.equal."""
     import os
     import shutil
     import tempfile
+
+    from jetracer_orbslam2_torch.ops import fused_allreduce
 
     tmp = tempfile.mkdtemp(prefix="jetracer_k8_ranks_")
     t0 = time.perf_counter()
@@ -4803,6 +4963,16 @@ def _k8_ranks() -> dict:
         if o["launches"] != want_launches:
             bad.append(f"rank {o['rank']}: {o['launches']} launches, "
                        f"{want_launches} expected")
+        st = o["stress"]
+        if st["n_not_equal"] or st["launches"] != K8_STRESS:
+            bad.append(f"rank {o['rank']}'s lockstep stress: {st}")
+    shapes = {(r["blocks"], r["aligned"]) for r in outs[0]["payloads"]}
+    blocks = {b for b, _ in shapes}
+    if not ({1, fused_allreduce.MAX_BLOCKS} <= blocks and len(blocks) > 2
+            and any(not a for _, a in shapes)):
+        bad.append(f"launch shapes {sorted(shapes)}: one block, several, "
+                   f"{fused_allreduce.MAX_BLOCKS} and an unaligned tensor "
+                   f"expected")
     same = len({o["digest"] for o in outs}) == 1
     if not same:
         bad.append("the ranks' sums differ")
@@ -4810,6 +4980,8 @@ def _k8_ranks() -> dict:
         "ranks": K8_RANKS, "backend": "gloo", "ranks_bit_identical": same,
         "launches": [o["launches"] for o in outs],
         "replays_a_payload": K8_RANK_REPLAYS,
+        "launch_shapes": {r["payload"]: [r["blocks"], r["aligned"]]
+                          for r in outs[0]["payloads"]},
         "max_abs_err_vs_plain": max(r["max_abs_err_vs_plain"]
                                     for o in outs for r in o["payloads"]),
         "max_rel_err_vs_plain": max(r["max_rel_err_vs_plain"]
@@ -4817,6 +4989,10 @@ def _k8_ranks() -> dict:
         "rtol": K8_RANK_RTOL,
         "plain_equals_rank_order_sum": [
             r["plain_equals_rank_order_sum"] for r in outs[0]["payloads"]],
+        "stress": {"calls": K8_STRESS, "late_s": K8_STRESS_LATE_S,
+                   "all_equal": all(o["stress"]["n_not_equal"] == 0
+                                    for o in outs),
+                   "seconds": [o["stress"]["seconds"] for o in outs]},
         "seconds": time.perf_counter() - t0}
     say("  K8 ranks: " + json.dumps(report))
     if bad:
@@ -5956,16 +6132,20 @@ def main(argv: list[str]) -> int:
                        "models/backend/ba.py:394), where NCCL's captured "
                        "all-reduce does not instantiate (its event nodes); "
                        f"ms, plain_ms, bound_ms per call at {K8_HEADLINE} "
-                       "(2,304 floats, 6P x 6P at P 8) on the one-rank NCCL "
-                       "mesh; the plain version is dist.all_reduce, the one "
-                       "PyTorch call that computes it (library_ms the same "
-                       "reading); launches are phase 13's ChunkedSlam with "
-                       "the mesh (52 a keyframe), branches_launches phase "
-                       "25 (d)'s lap and lifecycle; max_abs_err the larger "
-                       "of the one-rank check's and ranks_check's (three "
-                       "ranks on the card against gloo's all-reduce, within "
-                       "1e-6 of the inputs' magnitudes; torch.equal to the "
-                       "rank-order sum)",
+                       f"({K8_PACKED} floats: an LM iteration's four "
+                       "pose-sized partials at P 8 in one buffer) on the "
+                       "one-rank NCCL mesh, where bound_ms is 0 (an "
+                       "all-reduce over one rank, in place, moves no byte; "
+                       "the launch is what a call costs); the plain version is "
+                       "dist.all_reduce, the one PyTorch call that computes "
+                       "it (library_ms the same reading); launches are "
+                       "phase 13's ChunkedSlam with the mesh (22 a "
+                       "keyframe), branches_launches phase 25 (d)'s lap and "
+                       "lifecycle; max_abs_err the larger of the one-rank "
+                       "check's and ranks_check's (three ranks on the card "
+                       "against gloo's all-reduce, within 1e-6 of the "
+                       "inputs' magnitudes; torch.equal to the rank-order "
+                       "sum)",
         "payloads": k8["payloads"],
     }
     k5 = graphs["k5"]

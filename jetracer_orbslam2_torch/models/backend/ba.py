@@ -24,9 +24,13 @@ to device memory).
 `lm_run_dense` is the whole LM schedule.  The loop never makes the host wait
 for the device: accept/reject is a tensor (`torch.where` on poses, points,
 lambda and cost), and a Cholesky factorisation that fails is a rejected
-step, not an exception.  `psum` is the hook of the landmark-sharded caller
-(`parallel/ba_sharded.py`): a callable that reduces pose-sized partial sums
-over the shards (identity when unsharded).  Both routes take it.
+step, not an exception.  `psum` and `psum_many` are the hooks of the
+landmark-sharded caller (`parallel/ba_sharded.py`): callables that reduce
+pose-sized partial sums over the shards (identity when unsharded), one
+tensor or several in one collective.  Both routes take them: an LM
+iteration reduces its four pose-sized partials (Hpp, Gh G^T, bp, Gh bl)
+with one `psum_many`, as the JAX package's "psum once per iteration", and
+its cost with one `psum`.
 """
 
 from __future__ import annotations
@@ -46,6 +50,15 @@ Tensor = torch.Tensor
 
 def _identity(x):
     return x
+
+
+def _identity_many(*xs):
+    return xs
+
+
+def _each(psum):
+    """`psum_many` from a one-tensor hook: a collective a partial."""
+    return lambda *xs: tuple(psum(x) for x in xs)
 
 
 class BAProblem(NamedTuple):
@@ -317,16 +330,18 @@ def _reduced_solve(Hpp: Tensor, GhG: Tensor, bp: Tensor, rhs_gh: Tensor,
     return dxp, info == 0
 
 
-def _solve_schur(Hpp, Hll, G, bp, bl, lam, free, lm_free, psum=_identity):
+def _solve_schur(Hpp, Hll, G, bp, bl, lam, free, lm_free,
+                 psum_many=_identity_many):
     """Damped Schur solve.  Returns (dx_pose (P,6), dx_point (3,L), ok ()).
 
-    `psum` reduces pose-sized partials over the landmark shards (identity
-    when unsharded).
+    `psum_many` reduces the four pose-sized partials (Hpp, Gh G^T, bp,
+    Gh bl) over the landmark shards in one collective (identity when
+    unsharded).
     """
     P, L = G.shape[0], G.shape[-1]
     Hll_inv = _damped_hll_inverse(Hll, lam, lm_free)     # (3, 3, L)
     GhG, rhs_gh = _schur_products(G, Hll_inv, bl)
-    dxp, ok = _reduced_solve(Hpp, psum(GhG), bp, psum(rhs_gh), lam, free)
+    dxp, ok = _reduced_solve(*psum_many(Hpp, GhG, bp, rhs_gh), lam, free)
     # back-substitute landmarks: dxl = Hll^-1 (bl - G^T dxp)
     Gt_dxp = (dxp.reshape(1, P * 6) @ G.reshape(P * 6, 3 * L)).reshape(3, L)
     resid = bl - Gt_dxp
@@ -348,12 +363,13 @@ def stack_obs(obs: DenseObs) -> Tensor:
 
 
 def _lm_step_fused(poses_cw, points, obs5, lm_free, free, scal_head,
-                   scal_tail, lam, psum=_identity):
+                   scal_tail, lam, psum_many=_identity_many):
     """One LM linear solve via the fused kernels (ops/fused_ba): Jacobians
     never reach device memory; only Hll^-1 (9, L) and bl (3, L) round-trip
     for the back-substitution.  Same math as dense_normal_equations +
     _solve_schur.  A landmark-sharded caller runs the kernels on its local
-    landmark block and reduces the pose-sized sums once per iteration."""
+    landmark block and reduces the four pose-sized sums in one collective
+    an iteration (`psum_many`)."""
     from jetracer_orbslam2_torch.ops import fused_ba
 
     poses_flat = flatten_poses(poses_cw)
@@ -361,8 +377,7 @@ def _lm_step_fused(poses_cw, points, obs5, lm_free, free, scal_head,
     lm_free1 = lm_free[None]
     Hpp, GhG, bp, rhs_gh, hll_inv, bl = fused_ba.fused_normal_schur(
         poses_flat, points, obs5, lm_free1, scalars)
-    dxp, ok = _reduced_solve(psum(Hpp), psum(GhG), psum(bp), psum(rhs_gh),
-                             lam, free)
+    dxp, ok = _reduced_solve(*psum_many(Hpp, GhG, bp, rhs_gh), lam, free)
     dxl = fused_ba.fused_backsub(
         poses_flat, points, obs5, lm_free1, scalars, hll_inv, bl, dxp)
     return dxp, dxl, ok
@@ -374,13 +389,15 @@ def lm_run_dense(
     psum: Optional[Callable[[Tensor], Tensor]] = None,
     fused: Optional[bool] = None,
     device=None,
+    psum_many: Optional[Callable[..., tuple]] = None,
 ) -> tuple[Tensor, Tensor, Tensor]:
     """The full LM schedule on the dense grid: `cfg.iters` iterations with
     no host wait inside; rejected steps raise lambda and retry.
 
     points is (L, 3) at entry/exit (the public convention); internally the
     solver runs landmark-last.  psum: reduces pose-sized partial sums over
-    landmark shards (None = unsharded).
+    landmark shards (None = unsharded); psum_many: several in one
+    collective, the four of an LM iteration (None = `psum` on each).
     fused: route the per-iteration linear solve through the fused kernels
     (ops/fused_ba).  Default auto: on for a problem (or a landmark shard of
     one) on a CUDA device whose pose count the kernels take
@@ -403,6 +420,7 @@ def lm_run_dense(
 
     P = poses_cw.shape[0]
     psum = psum or _identity
+    psum_many = psum_many or _each(psum)
     if fused is None:
         fused = dev.type == "cuda" and fused_ba.takes_num_poses(P)
     if fused and not fused_ba.takes_num_poses(P):
@@ -434,13 +452,12 @@ def lm_run_dense(
         if fused:
             dxp, dxl, ok = _lm_step_fused(
                 poses_cw, points, obs5, lm_free, free, scal_head, scal_tail,
-                lam, psum)
+                lam, psum_many)
         else:
             Hpp_p, Hll, G, bp_p, bl, _ = dense_normal_equations(
                 poses_cw, points, obs, w_valid, intrinsics, huber)
             dxp, dxl, ok = _solve_schur(
-                psum(Hpp_p), Hll, G, psum(bp_p), bl, lam, free, lm_free,
-                psum)
+                Hpp_p, Hll, G, bp_p, bl, lam, free, lm_free, psum_many)
         new_poses = geo.se3_exp(dxp) @ poses_cw
         new_points = points + dxl * lm_free
         cost1 = cost_only(new_poses, new_points)

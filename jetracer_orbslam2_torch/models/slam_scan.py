@@ -28,7 +28,11 @@ the JAX package's `shard_map`'d BA runs inside its `lax.cond`: the mesh run
 is the same one replay a frame.
 `_step` is the same frame with host branches (the tracking half a graph
 replay, the branches eager, with or without a mesh): the reference the
-graphed frame is held against.
+graphed frame is held against, and the route of a mesh on the card that K8
+cannot serve (more than 8 ranks, ranks on several hosts: its collectives
+are the group's own, which a conditional body cannot hold).  Which route a
+scan takes follows from the mesh as it was set up (`scan_route`), never
+from a failure; the final state names it (`ScanState.route`).
 """
 
 from __future__ import annotations
@@ -73,6 +77,8 @@ class ScanState(NamedTuple):
     ba_edges_dropped: Tensor  # () int32 edges the sharded BA dropped
     graph: object = None    # the run's FrameGraph (or `_step`'s tracking
     #                         StepGraph), carried
+    route: Optional[str] = None  # the last scan's: "frame_graph" or
+    #                         "host_branch" (`scan_route`)
 
 
 class ScanOutput(NamedTuple):
@@ -221,11 +227,29 @@ def tracking_graph(state: ScanState, cfg: SystemConfig) -> StepGraph:
                                    key=(cfg, dev), carried=state.graph)
 
 
+def scan_route(mesh=None) -> str:
+    """The route of `slam_scan` with `mesh`: "frame_graph" (one replay of
+    the frame graph a frame) without a mesh, with a CPU mesh and with a
+    mesh on the card whose collectives are K8; "host_branch" (`_step` a
+    frame, 1 host wait on a plain frame and 2 on a keyframe frame) with a
+    mesh on the card that K8 cannot serve, whose collectives, the group's
+    own, a conditional body cannot hold.  It follows from the record the
+    mesh made as it was set up (`Mesh.k8_unservable`), as NCCL's choice of
+    an algorithm follows from the group's shape: nothing falls back on a
+    failure, and a closed mesh raises."""
+    if mesh is None or mesh.capturable:
+        return "frame_graph"
+    if mesh.k8_unservable is None:
+        mesh.check_capturable()          # closed: raises
+    return "host_branch"
+
+
 def frame_graph(state: ScanState, cfg: SystemConfig, mesh=None) -> FrameGraph:
     """The state's frame graph when it was made for this configuration, mesh
     (None: none) and generator; else a new one (warmed up and captured at
     its first call).  Raises for a mesh whose collectives a conditional
-    body cannot hold (`Mesh.check_capturable`): no host branches instead."""
+    body cannot hold (`Mesh.check_capturable`); `slam_scan` runs such a
+    mesh's frames through `_step` instead (`scan_route`)."""
     dev = state.T_wc.device
     if mesh is not None:
         mesh.check_capturable()
@@ -305,6 +329,9 @@ def slam_scan(
     (`parallel.ba_sharded.sharded_local_ba`) in the frame graph's keyframe
     body, and every rank runs the scan in lockstep (each replays its own
     graph; the branch flags come from state that is the same on every rank).
+    A mesh on the card that K8 cannot serve runs every frame through the
+    host-branch step `_step` with the group's collectives instead
+    (`scan_route`); the final state's `route` names the route taken.
 
     Returns (final state, per-frame ScanOutput on the device).  Use
     `compose_trajectory` to turn the output into world poses that reflect
@@ -331,12 +358,28 @@ def slam_scan(
     if imu_delta_w is not None:
         imu_delta_w = as_f32(imu_delta_w, dev)
     imu = [(imu_delta_w[i] if imu_ok[i] else None, imu_ok[i]) for i in range(n)]
+    frames = (_host_branch_frames if scan_route(mesh) == "host_branch"
+              else _graph_frames)
+    state, rows = frames(state, grays, depths, imu, intrinsics, cfg, mesh,
+                         live)
+    ref_uid, T_rel, T_w_emit, tracked, is_kf = zip(*rows)
+    return state, ScanOutput(
+        ref_uid=torch.stack(ref_uid), T_rel=torch.stack(T_rel),
+        T_w_emit=torch.stack(T_w_emit), tracked=torch.stack(tracked),
+        is_kf=torch.stack(is_kf))
+
+
+def _graph_frames(state, grays, depths, imu, intrinsics, cfg, mesh,
+                  live) -> tuple:
+    """`slam_scan`'s frames as replays of the frame graph: (the final state,
+    the frames' output rows)."""
+    dev = state.T_wc.device
     rows = []
     graph = frame_graph(state, cfg, mesh)
     carried = tuple(getattr(state, f) for f in _CARRIED)
     current = state
-    for i in range(n):
-        if not live[i]:
+    for i, frame_live in enumerate(live):
+        if not frame_live:
             rows.append(_skip(current))
             continue
         rows.append(graph(carried, grays[i], depths[i],
@@ -345,20 +388,34 @@ def slam_scan(
         current = Carry(dict(zip(_CARRIED, carried)), in_place=False)
     if any(live):
         carried = graph.export()
-    state = ScanState(**dict(zip(_CARRIED, carried)),
-                      generator=state.generator, graph=graph)
-    ref_uid, T_rel, T_w_emit, tracked, is_kf = zip(*rows)
-    return state, ScanOutput(
-        ref_uid=torch.stack(ref_uid), T_rel=torch.stack(T_rel),
-        T_w_emit=torch.stack(T_w_emit), tracked=torch.stack(tracked),
-        is_kf=torch.stack(is_kf))
+    return ScanState(**dict(zip(_CARRIED, carried)), generator=state.generator,
+                     graph=graph, route="frame_graph"), rows
+
+
+def _host_branch_frames(state, grays, depths, imu, intrinsics, cfg, mesh,
+                        live) -> tuple:
+    """`slam_scan`'s frames through the host-branch step `_step` with the
+    mesh's collectives (the group's own): (the final state, the frames'
+    output rows, each keyframe flag on the device)."""
+    const = slam_mod.step_constants(state.T_wc.device)
+    rows = []
+    for i, frame_live in enumerate(live):
+        if not frame_live:
+            rows.append(_skip(state))
+            continue
+        state, row = _step(state, grays[i], depths[i], imu[i], intrinsics,
+                           cfg, mesh)
+        rows.append(row[:4] + (const["true" if row[4] else "false"],))
+    return state._replace(route="host_branch"), rows
 
 
 class ChunkedSlam:
     """Online SLAM in micro-batches: frames are processed in fixed-size
     chunks through `slam_scan`, and the host waits on the device ONCE a
     chunk: the chunk's per-frame outputs (and the branches its frames took,
-    for the launch counters) come back in one fetch.  The trade is decision
+    for the launch counters) come back in one fetch.  With a mesh on the
+    card that K8 cannot serve the chunk's frames take the host-branch route
+    (`route`), whose branches wait on the host as well.  The trade is decision
     latency: keyframe, loop and relocalization actions land within the
     chunk, and the host sees reports `chunk_size` frames late."""
 
@@ -369,6 +426,7 @@ class ChunkedSlam:
         set_exact_f32()
         self.device = slam_mod.mesh_device(mesh, device, cfg)
         self.mesh = mesh
+        self.route = scan_route(mesh)
         self.cfg = cfg
         self.intr = as_f32(intrinsics, self.device)
         self.chunk = chunk_size
@@ -425,7 +483,7 @@ class ChunkedSlam:
             self.state, g, d, self.intr, self.cfg,
             imu_delta_w=iw, imu_valid=iv, mesh=self.mesh)
         graph = self.state.graph
-        counts = graph.branch_counts()
+        counts = graph.branch_counts() if self.route == "frame_graph" else None
         host = fetch(*out, *(() if counts is None else (counts,)))
         if counts is not None:
             graph.settle(host[-1])

@@ -21,12 +21,24 @@ on more the kernel sums in rank order, the group in its own order, so they
 agree to rounding (bit for bit where at most two ranks' partials of an
 element are non-zero: a + b = b + a).
 
-The CUDA source is `jetracer_orbslam2_torch/csrc/peer_allreduce.cu`: each
-rank stages its partial in a buffer that every peer maps through CUDA IPC
-(`map_peers`, called by every rank together when a mesh on the card is set
-up), then one block waits on a flag barrier in peer memory, sums the staged
-partials in rank order and ends with a second barrier.  Bound on the card:
-the barriers' round trips (the payloads are a few KB to 196 KB).
+The CUDA source is `jetracer_orbslam2_torch/csrc/peer_allreduce.cu`: every
+rank maps every peer's receive area through CUDA IPC (`map_peers`, called
+by every rank together when a mesh on the card is set up).  A call pushes
+this rank's partial into its slot of every rank's area (16-byte stores
+over NVLink, from `launch_blocks(n, world)` blocks: one up to 4,096
+floats, more at the gather), then each block crosses ONE flag barrier
+with the same block of every peer, and sums its slice of the slots in
+rank order from local memory.  The area is double-buffered by the parity
+of the call's epoch, which is why no second barrier is needed (the
+source's header argues it).  One rank launches a kernel that returns at
+once (in place there is nothing to sum).  Bound on the card
+(`bound_seconds`), what any all-reduce of n floats must move, not what this
+one-shot kernel sends: the larger of the input read and the output written
+once over 3.35 TB/s and the 2 (world - 1) / world * n floats a rank must
+receive over NVLink at least (a reduce-scatter, then an all-gather) over
+450 GB/s: 0.031 us at 2,304 floats on four ranks, 0.66 us at 49,152; on one
+rank in place, 0 bytes and 0.  A call is latency-bound, by the launch and
+one NVLink round trip.
 """
 
 from __future__ import annotations
@@ -45,8 +57,11 @@ Tensor = torch.Tensor
 
 _LIB_NAME = "peer_allreduce"
 MAX_RANKS = 8                 # csrc/peer_allreduce.cu's kMaxRanks
-# a rank's staging buffer: the windowed BA's largest payload, the gather of
-# 16,384 x 3 landmark coordinates, fits whole; a larger one goes in chunks
+MAX_BLOCKS = 16               # its kMaxBlocks: every block resident at once
+FLOATS_PER_BLOCK = 4096       # a block's share before the grid grows
+# a slot of the receive area, the largest chunk: the windowed BA's largest
+# payload, the gather of 16,384 x 3 landmark coordinates, fits whole; a
+# larger one goes in chunks
 STAGING_FLOATS = 65536
 
 _fns: dict = {}
@@ -64,7 +79,7 @@ def _library() -> dict:
         lib.peer_close.argtypes = [ptr]
         lib.peer_handle_bytes.restype = ctypes.c_size_t
         lib.peer_allreduce.argtypes = [ctypes.POINTER(ptr), ptr, ptr, i64, i64,
-                                       i32, i32, ptr, ptr]
+                                       i32, i32, ptr, i32, ptr]
         for name in ("peer_alloc", "peer_free", "peer_handle", "peer_open",
                      "peer_close", "peer_allreduce"):
             getattr(lib, name).restype = i32
@@ -73,23 +88,60 @@ def _library() -> dict:
     return _fns
 
 
+def area_bytes(world: int) -> int:
+    """A rank's receive area: `world` slots of STAGING_FLOATS floats, twice
+    (the parity of the call's epoch picks one copy)."""
+    return 2 * world * STAGING_FLOATS * 4
+
+
+HBM_BYTES_PER_S = 3.35e12     # one H100's device memory
+NVLINK_BYTES_PER_S = 450e9    # one H100's NVLink, each way
+
+
+def bound_seconds(n: int, world: int) -> float:
+    """The least time an in-place all-reduce of n floats over `world` ranks
+    could take, whatever its algorithm: the larger of the input read and
+    the output written once over HBM and the 2 (world - 1) / world * n
+    floats a rank must receive over NVLink (a reduce-scatter, then an
+    all-gather, each shard summed by its owner in rank order).  One rank
+    moves nothing: 0."""
+    if world == 1:
+        return 0.0
+    return max(2 * 4 * n / HBM_BYTES_PER_S,
+               2 * (world - 1) / world * 4 * n / NVLINK_BYTES_PER_S)
+
+
+def launch_blocks(n: int, world: int) -> int:
+    """K8's grid for a payload of n floats over `world` ranks: one block up
+    to FLOATS_PER_BLOCK floats a chunk, where a call is latency-bound, then
+    one more a FLOATS_PER_BLOCK, so that the pushes of a large payload leave
+    from many SMs, at most MAX_BLOCKS (a block waits on the same block of
+    its peers, so the grid must be resident at once).  One rank: one block,
+    which returns at once."""
+    if world == 1:
+        return 1
+    chunk = min(n, STAGING_FLOATS)
+    return max(1, min(MAX_BLOCKS, -(-chunk // FLOATS_PER_BLOCK)))
+
+
 def _check_error(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what} failed: cudaError {err}")
 
 
 class PeerBuffers:
-    """Every rank's staging buffer as this process sees it: its own, and each
-    peer's mapped through CUDA IPC, with the device counter that numbers the
-    kernel's barriers.  Made by `map_peers`, outside any capture.  A CUDA
-    graph that holds K8 must not outlive them."""
+    """Every rank's receive area as this process sees it: its own, and each
+    peer's mapped through CUDA IPC, with the device counters of the
+    kernel's barriers (`epoch`: the chunks done, and the blocks of the
+    current call that finished).  Made by `map_peers`, outside any
+    capture.  A CUDA graph that holds K8 must not outlive them."""
 
     def __init__(self, rank: int, world: int, device: torch.device, own: int,
                  bases: list, opened: list):
         self.rank, self.world, self.device = rank, world, device
         self._own, self._opened = own, opened
         self.bases = (ctypes.c_void_p * world)(*bases)
-        self.epoch = torch.zeros((), dtype=torch.int32, device=device)
+        self.epoch = torch.zeros(2, dtype=torch.int32, device=device)
 
     def close(self) -> None:
         """Unmap the peers' buffers, wait for every rank to do the same, and
@@ -109,7 +161,7 @@ class PeerBuffers:
 
 def map_peers(rank: int, world: int,
               device: torch.device) -> Optional[PeerBuffers]:
-    """The ranks' staging buffers, mapped by every rank of the default group
+    """The ranks' receive areas, mapped by every rank of the default group
     together (each allocates its own and the handles go round with
     `all_gather_object`; a one-rank group exchanges nothing).  None, the same
     on every rank, where K8 cannot serve the group: more than MAX_RANKS
@@ -119,7 +171,7 @@ def map_peers(rank: int, world: int,
         return None
     fns = _library()
     own = ctypes.c_void_p()
-    _check_error(fns["peer_alloc"](STAGING_FLOATS * 4, ctypes.byref(own)),
+    _check_error(fns["peer_alloc"](area_bytes(world), ctypes.byref(own)),
                  "peer_alloc")
     handle = ctypes.create_string_buffer(fns["handle_bytes"])
     _check_error(fns["peer_handle"](own.value, handle), "peer_handle")
@@ -168,6 +220,7 @@ def peer_allreduce(x: Tensor, peers: Optional[PeerBuffers]) -> None:
     err = _library()["peer_allreduce"](
         peers.bases, x.data_ptr(), x.data_ptr(), x.numel(), STAGING_FLOATS,
         peers.rank, peers.world, peers.epoch.data_ptr(),
+        launch_blocks(x.numel(), peers.world),
         torch.cuda.current_stream(x.device).cuda_stream)
     _check_error(err, "peer_allreduce launch")
     note_launch(peer_allreduce)

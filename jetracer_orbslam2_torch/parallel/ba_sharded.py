@@ -8,14 +8,18 @@ Counterpart of `jetracer_orbslam2_tpu/parallel/ba_sharded.py`:
     back-substitution are local to a rank (no communication), and every
     rank does the same work (empty slots cost what valid ones cost).
   * Each rank forms its partial reduced camera system and its partial Hpp,
-    bp and cost; ONE all-reduce a partial (`Mesh.psum`, 6P x 6P at most)
-    sums them, and every rank solves the same reduced system.  The traffic
-    an LM iteration is O(P^2), whatever the landmark count.
-  * The per-slot math is `ba.lm_run_dense` itself (psum=mesh.psum), so the
-    one-rank and the unsharded solvers cannot drift apart: on one rank the
-    all-reduce of a partial is the partial.  On a CUDA device each rank runs
-    the fused kernels (K2 and K3, `ops/fused_ba.py`) on its block, as the
-    unsharded solve does.
+    bp and cost; an LM iteration sums the four pose-sized partials in ONE
+    all-reduce (`Mesh.psum_many`: 2,688 floats at P 8) and its cost in
+    another (`Mesh.psum`), and every rank solves the same reduced system.
+    The traffic an LM iteration is O(P^2), whatever the landmark count.  On
+    a mesh K8 cannot serve (more than 8 ranks, several hosts) these are the
+    group's own all-reduces, and `slam_scan` runs the windowed BA in its
+    host-branch step instead of a frame graph's keyframe body.
+  * The per-slot math is `ba.lm_run_dense` itself (psum=mesh.psum,
+    psum_many=mesh.psum_many), so the one-rank and the unsharded solvers
+    cannot drift apart: on one rank the all-reduce of a partial is the
+    partial.  On a CUDA device each rank runs the fused kernels (K2 and K3,
+    `ops/fused_ba.py`) on its block, as the unsharded solve does.
 
 Where the port differs: the JAX package returns the points as a sharded
 global array, and its `Slam` holds a map whose landmark axis is sharded.
@@ -112,7 +116,7 @@ def _sharded_lm_run(poses_wc, points, obs: ba_core.DenseObs, fixed,
     poses_cw, pts, trace = ba_core.lm_run_dense(
         geo.pose_inverse(poses_wc), points[blk].contiguous(), local, fixed,
         lm_valid[blk].contiguous(), intrinsics, cfg, psum=mesh.psum,
-        fused=fused, device=mesh.device)
+        fused=fused, device=mesh.device, psum_many=mesh.psum_many)
     return geo.pose_inverse(poses_cw), mesh.gather_blocks(pts), trace
 
 
@@ -143,8 +147,9 @@ def sharded_local_ba(
     Drop-in for `models/slam.local_ba`: the same window and gauge
     (`slam.window_problem`), the same grid (`ba.edges_to_dense`), the same
     per-slot math, with the landmark axis split over the ranks and the
-    reduced camera system all-reduced (one O(P^2) collective a partial and
-    LM iteration).  On one rank it is `local_ba`, bit for bit.
+    reduced camera system all-reduced (one O(P^2) collective of the four
+    partials and one of the cost an LM iteration).  On one rank it is
+    `local_ba`, bit for bit.
 
     Returns (new MapState, n_dropped): a (landmark, window-pose) pair
     observed twice keeps one observation, and n_dropped (a device scalar)

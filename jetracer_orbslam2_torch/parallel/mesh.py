@@ -10,7 +10,8 @@ program, so the single-card path and the multi-card path are one code path.
 On the card that all-reduce is the hand-written kernel K8
 (`ops/fused_allreduce.py`), eager and inside a CUDA graph alike, so every
 path sums in the same (rank) order; the group's own all-reduce is its plain
-version.
+version, and the collectives of a mesh K8 cannot serve (more than 8 ranks,
+several hosts), whose `slam_scan` then takes the host-branch route.
 
   * `init_distributed` joins a group from its arguments or from the
     variables `python -m torch.distributed.run` sets (MASTER_ADDR,
@@ -105,11 +106,17 @@ class Mesh:
     buffers of K8 (`ops/fused_allreduce.map_peers`, made by every rank
     together at set-up, whatever the backend), and every collective of the
     mesh is K8, eager or inside a CUDA graph's capture; where K8 cannot serve
-    the group (more than 8 ranks, or ranks on several hosts) `peers` is None
-    and the collectives are the group's own, which a frame graph refuses
-    (`check_capturable`).  A CPU mesh runs the group's.  `close()` releases
-    the buffers, and destroys the group if this mesh built it (a one-rank
-    group), leaving a joined group alone.
+    the group (more than 8 ranks, or ranks on several hosts) `peers` is None,
+    `k8_unservable` says why, and the collectives are the group's own, which
+    a frame graph refuses (`check_capturable`): `slam_scan` with such a mesh
+    runs its frames through the host-branch step, as `Slam` does.  That
+    record is made at set-up and never changes, so the route cannot switch
+    in the middle of a run.  A CPU mesh runs the group's.  An LM
+    iteration's four pose-sized partials go through `psum_many`, one
+    collective.  `close()` releases the buffers, and destroys the group if
+    this mesh built it (a one-rank group), leaving a joined group alone; a
+    closed mesh on the card takes no route (`check_capturable` and
+    `slam_scan` raise).
     """
 
     def __init__(self, device: torch.device, axis: str = "lm",
@@ -120,8 +127,17 @@ class Mesh:
         self.rank = dist.get_rank()
         self.backend = dist.get_backend()
         self.owns_group = owns_group
-        self.peers = (fused_allreduce.map_peers(self.rank, self.size, device)
-                      if device.type == "cuda" else None)
+        self.peers = None
+        # why K8 does not serve this mesh on the card, None where it does
+        # (and on the CPU): recorded here, at set-up, never after
+        self.k8_unservable: Optional[str] = None
+        if device.type == "cuda":
+            self.peers = fused_allreduce.map_peers(self.rank, self.size, device)
+            if self.peers is None:
+                self.k8_unservable = (
+                    f"more than {fused_allreduce.MAX_RANKS} ranks"
+                    if self.size > fused_allreduce.MAX_RANKS
+                    else "ranks on several hosts")
 
     def reference(self) -> "Mesh":
         """This mesh with the plain version of its collectives, the group's
@@ -130,13 +146,30 @@ class Mesh:
         and has nothing of its own to close."""
         view = copy.copy(self)
         view.owns_group, view.peers = False, None
+        view.k8_unservable = "the plain reference (Mesh.reference)"
         return view
 
-    def check_capturable(self) -> None:
-        """Raise unless this mesh's collectives can be nodes of a CUDA graph's
+    @property
+    def capturable(self) -> bool:
+        """Whether this mesh's collectives can be nodes of a CUDA graph's
         conditional body: on the card they must be K8 (the group's captured
-        all-reduce holds event nodes, which a body refuses)."""
-        if self.device.type == "cuda" and self.peers is None:
+        all-reduce holds event nodes, which a body refuses); on the CPU a
+        frame graph runs its bodies as host `if`s.  Set by the mesh as it
+        was set up (`map_peers`), never by a failure; False once closed."""
+        return self.device.type != "cuda" or self.peers is not None
+
+    @property
+    def closed(self) -> bool:
+        """A mesh on the card whose K8 buffers `close()` released: it has
+        neither K8 nor a reason recorded at set-up for doing without."""
+        return (self.device.type == "cuda" and self.peers is None
+                and self.k8_unservable is None)
+
+    def check_capturable(self) -> None:
+        """Raise unless `capturable`."""
+        if self.closed:
+            raise RuntimeError(f"{self!r}: closed, its K8 buffers released")
+        if not self.capturable:
             raise RuntimeError(
                 f"{self!r}: a frame graph needs the mesh's collectives to be "
                 f"K8, which maps the ranks' buffers over CUDA IPC: at most "
@@ -167,6 +200,18 @@ class Mesh:
         self._all_reduce(y)
         return y
 
+    def psum_many(self, *xs: Tensor) -> tuple:
+        """The sums of several partials over the ranks in ONE collective:
+        one buffer (its `torch.cat` takes the place of `psum`'s clones),
+        one in-place all-reduce, and views of it in the partials' shapes.
+        Bit for bit a `psum` each: K8 and the one-rank group sum every
+        element in rank order, whatever the packing.  Queued on the current
+        stream: no host wait."""
+        flat = torch.cat([x.reshape(-1) for x in xs])
+        self._all_reduce(flat)
+        return tuple(part.view(x.shape) for part, x in
+                     zip(flat.split([x.numel() for x in xs]), xs))
+
     def gather_blocks(self, block: Tensor) -> Tensor:
         """Concatenate every rank's `block` along axis 0, on every rank.
 
@@ -194,7 +239,8 @@ class Mesh:
         self.close()
 
     def __repr__(self) -> str:
-        route = "K8" if self.peers is not None else "plain collectives"
+        route = ("K8" if self.peers is not None else "closed" if self.closed
+                 else f"plain collectives: {self.k8_unservable or 'CPU'}")
         return (f"Mesh({self.axis}={self.size}, rank {self.rank}, "
                 f"{self.backend} on {self.device}, {route})")
 

@@ -37,7 +37,9 @@ run's device; more ranks need a joined group: start the processes with
 `python -m torch.distributed.run --nproc-per-node N` and pass
 `--distributed`, which joins the group from its variables (and, with none
 set, logs the single-process fallback and runs on).  A distributed run's
-device is `cuda:LOCAL_RANK`.
+device is `cuda:LOCAL_RANK`.  With `--chunked C` the report's `scan_route`
+names the scan's route: `frame_graph`, or `host_branch` for a mesh on the
+card that K8 cannot serve (more than 8 ranks, several hosts).
 """
 
 from __future__ import annotations
@@ -327,6 +329,7 @@ def _run_slam(args, src: Source, device, mesh=None):
             "landmarks": int(ch.state.m.num_lm),
             "loops": int(ch.state.num_loops),
             "relocs": int(ch.state.num_relocs),
+            "scan_route": ch.route,
         }
         if mesh is not None:
             report["mesh_devices"] = mesh.size

@@ -35,7 +35,10 @@ Needs CUDA cards; NCCL; rank r on cuda:r; one process a rank.  Three parts:
      Whether the graph is bit-equal to `_step` with the group's all-reduce
      is reported, with, for one windowed BA on each final map, how many
      elements of the all-reduced partials 0, 1, ... ranks hold non-zero
-     (with at most two the order of the sum leaves no trace).
+     (with at most two the order of the sum leaves no trace).  Last, K8
+     against NCCL's all-reduce at the body's payloads (Gh G^T, an LM
+     iteration's packed partials, the same in the JAX package's layout,
+     the gather), eager and as a replayed graph, beside K8's bound.
 
 Prints the cards' names and power limits first, one line a part, and a JSON
 summary last.  Exits non-zero if a part fails.  Every subprocess has a
@@ -208,11 +211,11 @@ def _sequence(label: str, slots, args, src, dev):
 
 
 class _CountingMesh:
-    """A mesh whose psum also counts, for every element of every partial,
-    how many ranks' partials are non-zero there (an all-gather beside the
-    all-reduce): the terms whose order the sum can feel.  With at most two
-    non-zero terms every order gives the same bits (a + b = b + a, x + 0 =
-    x)."""
+    """A mesh whose psum and psum_many also count, for every element of
+    every partial, how many ranks' partials are non-zero there (an
+    all-gather beside the all-reduce): the terms whose order the sum can
+    feel.  With at most two non-zero terms every order gives the same bits
+    (a + b = b + a, x + 0 = x)."""
 
     def __init__(self, mesh):
         import torch
@@ -223,7 +226,7 @@ class _CountingMesh:
     def __getattr__(self, name):
         return getattr(self.mesh, name)
 
-    def psum(self, x):
+    def _count(self, x):
         import torch
         import torch.distributed as dist
 
@@ -231,7 +234,16 @@ class _CountingMesh:
         dist.all_gather(parts, x.contiguous())
         nonzero = (torch.stack(parts) != 0).sum(0).flatten()
         self.hist += torch.bincount(nonzero, minlength=self.mesh.size + 1).cpu()
+
+    def psum(self, x):
+        self._count(x)
         return self.mesh.psum(x)
+
+    def psum_many(self, *xs):
+        import torch
+
+        self._count(torch.cat([x.reshape(-1) for x in xs]))
+        return self.mesh.psum_many(*xs)
 
 
 def _contributors(m, intr, cfg, mesh) -> list:
@@ -245,17 +257,32 @@ def _contributors(m, intr, cfg, mesh) -> list:
     return counting.hist.tolist()
 
 
+# K8's payloads timed against NCCL: Gh G^T (6P x 6P at P 8), an LM
+# iteration's four partials packed (Hpp (P, 6, 6), Gh G^T, bp, Gh bl), the
+# same four in the JAX package's layout (its Hpp 6P x 6P as well), and the
+# gather of the 16,384 x 3 landmark coordinates
+K8_TIMED = (("GhG", 48 * 48), ("packed", 8 * 36 + 48 * 48 + 2 * 48),
+            ("packed_jax_layout", 2 * 48 * 48 + 2 * 48),
+            ("gather", 16384 * 3))
+
+
 def _k8_times(mesh, dev) -> dict:
-    """µs a call of K8 and of its plain version (NCCL's all-reduce) at a
-    6P x 6P partial (P 8) and at the 16,384 x 3 gather, every rank in
-    lockstep: CUDA events around 100 eager calls after 10."""
+    """µs a call of K8 and of its plain version (NCCL's all-reduce) at
+    K8_TIMED's payloads, every rank in lockstep: eager (CUDA events around
+    100 calls after 10) and graphed (a captured graph of 20 calls, replayed
+    20 times after a warm-up replay; the median replay over 20), K8's bound
+    beside them (`fused_allreduce.bound_seconds`)."""
+    import statistics
+
     import torch
+    import torch.distributed as dist
 
     from jetracer_orbslam2_torch.ops import fused_allreduce
 
     out = {}
-    for name, n in (("Hpp", 48 * 48), ("gather", 16384 * 3)):
+    for name, n in K8_TIMED:
         x = torch.randn(n, device=dev)
+        out[f"bound_us_{name}"] = fused_allreduce.bound_seconds(n, mesh.size) * 1e6
         for route, fn in (
                 ("k8", lambda: fused_allreduce.peer_allreduce(x, mesh.peers)),
                 ("nccl", lambda: fused_allreduce.peer_allreduce_reference(x))):
@@ -269,6 +296,23 @@ def _k8_times(mesh, dev) -> dict:
             stop.record()
             stop.synchronize()
             out[f"{route}_us_{name}"] = start.elapsed_time(stop) * 10
+            dist.barrier()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                for _ in range(20):
+                    fn()
+            graph.replay()
+            times = []
+            for _ in range(20):
+                start.record()
+                graph.replay()
+                stop.record()
+                stop.synchronize()
+                times.append(start.elapsed_time(stop) * 1e3 / 20)
+            out[f"{route}_graphed_us_{name}"] = statistics.median(times)
+            del graph
+            torch.cuda.synchronize()
+            dist.barrier()
     return out
 
 

@@ -191,7 +191,8 @@ def _no_host_read(fn) -> list:
 
 @pytest.mark.parametrize("fn", [ba_sharded.sharded_local_ba,
                                 ba_sharded._sharded_lm_run, Mesh.psum,
-                                Mesh.gather_blocks, Mesh._all_reduce,
+                                Mesh.psum_many, Mesh.gather_blocks,
+                                Mesh._all_reduce,
                                 fused_allreduce.peer_allreduce],
                          ids=lambda f: f.__name__)
 def test_the_sharded_ba_reads_nothing_back(fn):
@@ -237,7 +238,8 @@ def test_every_collective_of_a_mesh_on_the_card_goes_through_k8(monkeypatch):
 def test_a_frame_graph_on_the_card_needs_k8(runs, monkeypatch):
     """A mesh on the card without K8's buffers (more than 8 ranks, several
     hosts, or the plain reference view) makes no frame graph: it raises
-    before the warm-up, and no path falls back to host branches."""
+    before the warm-up (`slam_scan` runs such a mesh's frames through the
+    host-branch step, `tests/test_torch_fused_allreduce.py`)."""
     final = runs["meshless"][0]
     assert not dist.is_initialized()
     mesh = make_mesh(device="cpu")
@@ -302,7 +304,7 @@ def test_peer_buffers_only_where_k8_can_serve_the_group(case, monkeypatch):
         assert peers is None and fake.log == []
     elif case == "two_hosts":
         assert peers is None
-        assert fake.log == [("alloc", 4 * fused_allreduce.STAGING_FLOATS),
+        assert fake.log == [("alloc", fused_allreduce.area_bytes(2)),
                             "handle", ("free", 4096)]
     else:
         assert list(peers.bases) == [4096, 8192][:world]
