@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py             # no arguments, one GPU
     python3 chip_smoke.py --kernels   # phases 1-3, 6, 7, 11, 16 only
-    python3 chip_smoke.py --branches  # phases 1, 2, 25 only
+    python3 chip_smoke.py --branches  # phases 1, 2, 25 and 26 only
 
 Drives `jetracer_orbslam2_torch`'s paths through the functions a user calls:
 RGB-D odometry on a synthetic 640x480 sequence at the CLI's defaults (4
@@ -20,7 +20,12 @@ EuRoC and KITTI fixtures; and the CLI's host loop behind the runtime
 (frame pipeline, watchdog, WebSocket telemetry, checkpoint and resume) on a
 640x480 TUM-layout sequence.  The odometry step and the tracking half of a
 SLAM frame are captured once into a CUDA graph and replayed once a frame on
-every path; phase 22 holds them against their eager steps.  It builds the
+every path; phase 22 holds them against their eager steps.  A graph is
+captured once per configuration and cached, as `jax.jit` compiles once: a
+fresh state of a configuration already captured replays from its first
+frame (phase 26), and the timed runs of phases 12, 13 and 18 are such
+states, after one untimed run of the configuration (their cold start on a
+line of its own).  It builds the
 hand-written CUDA kernels from the sources in this checkout, holds each
 against its plain PyTorch version, shows that each path launched its
 kernels (a replay launches each of its graph's kernel nodes once), and times
@@ -75,7 +80,8 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
                   frames must agree; over three draws of the noise every lap
                   must track, close a loop and leave at most half of the
                   revisit's gap that a run with no closure leaves, and the
-                  median ATE must stay under 58 cm
+                  median ATE must stay under 58 cm; the timed runs are
+                  fresh states on the cached graphs
   13 SLAM path    slam_scan over 1,200 frames of 640x480, three laps, map of
                   128 keyframe slots / 16,384 landmarks / 65,536 observations:
                   tracked fraction, loops, ATE, every kernel's launch count
@@ -89,6 +95,8 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
                   (the sharded BA in the keyframe body): torch.equal to the
                   graphed run, the same bars, ms a frame in turns against
                   the host-branch step with the mesh
+                  (an untimed 40-frame run first, for each route; the
+                  timed runs replay the cached graphs)
   14 lifecycle    three laps at 240x180 with 32 keyframe slots: keyframes are
                   culled and their slots recycled, tracking holds to the end
   15 CLI          run.main at its default mode (slam), whole and --chunked 8
@@ -104,7 +112,8 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
   18 stereo path  slam_scan over 120 stereo pairs of 640x480, an arc and a
                   lap of 105 (bench.py's stereo rows): ATE, tracked fraction,
                   loops and keyframes as the JAX package reaches them, every
-                  kernel's launch count; frames/s
+                  kernel's launch count; frames/s of fresh states on the
+                  cached graph (an untimed 30-frame run first)
   19 datasets     run.main --dataset on every fixture (TUM registered and
                   not, EuRoC rectified and distorted, KITTI; whole and
                   --chunked 4) on the card with the CPU tests' bars; which
@@ -164,13 +173,16 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
                   the 120 frames under set_sync_debug_mode("error"); (c)
                   odometry_scan's graph against the eager step loop: poses
                   and flags torch.equal, ATE < 10 cm, tracked >= 0.95, one
-                  capture, frames - 2 replays after one eager warm-up frame,
+                  capture, frames - 2 replays after one eager warm-up frame
+                  (the cache cleared; a second run on the cached graph: no
+                  capture, no eager frame, frames - 1 replays, 1 cache hit),
                   K1 = K4 = frames and K5 = K6 = K7 = stepped frames by
                   nodes x replays; (d) slam_scan (its frame graph) and Slam
                   (the tracking graph) against their eager steps: poses,
                   flags, keyframes, loops equal, no host wait in the scan,
                   one a plain frame of Slam, the frame graph one capture and
-                  a replay a frame; the same equalities on the arc's first
+                  a replay a frame (a second run on the cached graph: no
+                  capture, a replay a frame, 1 cache hit); the same equalities on the arc's first
                   60 frames with frames 30-33 blank, where both relocalize
                   (>= 1 reloc each); (e) ms a frame graphed and eager in
                   turns, and each one's device-busy share and device kernels
@@ -245,7 +257,24 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
                   ranks' inputs, within 1e-6 of the magnitudes' sum of the
                   group's all-reduce, relaunch and two replays, launches
                   counted; and 1,000 calls back to back over six payloads
-                  with one rank started 2 s late, every output torch.equal
+                  with one rank started 2 s late, every output torch.equal;
+                  every run of phase 25 is cold (the cache cleared first:
+                  one capture and warm-up, no cache hit)
+  26 graph cache  one captured graph per configuration: on the gated lap
+                  the first frame of a fresh state after
+                  clear_graph_cache(), split into warm-up, capture and
+                  instantiation, and of a second fresh state of another
+                  seed (0 captures, 0 warm-ups, 1 cache hit); slam_scan,
+                  odometry_scan (three calls from one state, bench.py's
+                  protocol), Slam, ChunkedSlam --chunked 8, the stereo lap
+                  and ChunkedSlam with a one-rank mesh on the cached graph,
+                  torch.equal (outputs, every state tensor, the generator's
+                  state) to the same seed on a freshly captured graph; two
+                  states interleaved chunk by chunk, each torch.equal to its
+                  run alone, the bytes copied in at each switch; Mesh.close()
+                  drops the mesh's graph; at the end the graphs held, hits,
+                  misses, captures (never more than misses), and the device
+                  memory reserved
 Launch counts: a wrapper counts one when it launches its kernel, a replay of
 a captured frame step counts each kernel node of the graph once, and a
 conditional body's kernels count once for each replay that took the body
@@ -281,7 +310,7 @@ F32_OPS_PER_S = 67e12
 FAST_THRESHOLD, FAST_ARC, FAST_BORDER = 13.0, 12, 19
 SLAM_FAST_MIN_THRESHOLD = 7.0   # the SLAM path's second FAST threshold
 N_FRAMES = 120
-N_PHASES = 25
+N_PHASES = 26
 BRANCHES_TITLE = (
     "branches: slam_scan's frame graph (relocalization and keyframe "
     "branches as conditional nodes) vs the host-branch step, torch.equal, "
@@ -1785,6 +1814,17 @@ def _check_obs_prefix(m, what: str) -> None:
         raise SystemExit(f"FAIL: {what}: obs_kf is not sorted over its valid prefix")
 
 
+def _cold_start(label: str, graph) -> dict:
+    """A run's cold start on a line of its own: its graph handle's captures,
+    warm-ups and cache hits, and the warm-up, capture and instantiate ms of
+    the capture that made its graph (`StepGraph` ends the capture and
+    instantiates in one step)."""
+    row = {"captures": graph.captures, "warmups": graph.warmups,
+           "cache_hits": graph.cache_hits, **graph.cold_start()}
+    say(f"  cold start, {label}: " + json.dumps(row))
+    return row
+
+
 def phase_slam_lap(dev) -> dict:
     """The gated lap: slam_scan and Slam on the same noisy frames, then the
     lap with and without loop closure over LAP_NOISE_SEEDS draws of the noise."""
@@ -1800,7 +1840,21 @@ def phase_slam_lap(dev) -> dict:
         frontend=FrontendConfig(height=h, width=w, num_levels=3, max_keypoints=512),
         tracking=TrackingConfig(match_window=16.0))
     seq, depth = _lap(LAP_SHAPE, LAP_FRAMES, LAP_LENGTH, LAP_NOISE, 0, dev)
-    _, _, warm_poses, _ = _scan(seq, depth, cfg)             # warm-up
+    # one untimed run of each configuration, as bench.py compiles before it
+    # times: the timed runs are fresh states on the cached graphs
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm_final, _, warm_poses, _ = _scan(seq, depth, cfg)
+    torch.cuda.synchronize()
+    cold = {"scan": _cold_start("gated lap, slam_scan's untimed run",
+                                warm_final.graph)}
+    cold["scan"]["run_s"] = time.perf_counter() - t0
+    warm_slam = Slam(cfg, seq.intrinsics)
+    for i in range(3):
+        warm_slam.process_frame(seq.gray[i], depth[i])
+    cold["slam"] = _cold_start("gated lap, Slam's untimed first frames",
+                               warm_slam._graphs["rgbd"])
+    del warm_final, warm_slam
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     final, out, poses, rmse = _scan(seq, depth, cfg)
@@ -1862,6 +1916,10 @@ def phase_slam_lap(dev) -> dict:
             d["no_loop_ate_rmse_m"] for d in draws),
         "slam_ate_rmse_m": slam_rmse, "scan_vs_slam_max_pose_diff": pose_diff,
         "scan_fps": LAP_FRAMES / scan_s, "slam_fps": LAP_FRAMES / slam_s,
+        "fps_are": "fresh states on the cached graphs (host clock)",
+        "scan_cache_hits": final.graph.cache_hits,
+        "slam_cache_hits": slam._graphs["rgbd"].cache_hits,
+        "cold_start": cold,
         "tpu_bar_ate_m": 0.27, "tpu_bar_met": bool(median_ate <= 0.27),
     }
     say("  gated lap: " + json.dumps(report))
@@ -1875,6 +1933,9 @@ def phase_slam_lap(dev) -> dict:
     if not median_ate <= LAP_ATE_M:
         raise SystemExit(f"FAIL: gated lap median ATE {median_ate:.3f} m > "
                          f"{LAP_ATE_M} m")
+    if (report["scan_cache_hits"], report["slam_cache_hits"]) != (1, 1):
+        raise SystemExit(f"FAIL: the timed lap runs did not replay the cached "
+                         f"graphs: {report}")
     return report
 
 
@@ -1897,13 +1958,18 @@ def phase_slam_path(dev) -> tuple[dict, dict]:
     # warm-up on the first frames: every shape of the run has been seen once;
     # the device memory the frame graph's capture reserves (its pool and
     # its branches' pools) is read around it
+    # (bench.py's compile before it times: the timed run is a fresh state on
+    # the cached graph; the warm-up's and the capture's calls are counted
+    # with the timed run's)
     warm = seq._replace(gray=seq.gray[:40], depth=depth[:40], poses=seq.poses[:40])
     torch.cuda.synchronize()
     reserved0 = torch.cuda.memory_reserved()
-    warm_final, _, _, _ = _scan(warm, depth[:40], cfg)
+    with counting_calls() as warm_calls:
+        warm_final, _, _, _ = _scan(warm, depth[:40], cfg)
     torch.cuda.synchronize()
     pool_bytes = torch.cuda.memory_reserved() - reserved0
     fg_nodes = (warm_final.graph.graph_nodes, warm_final.graph.body_nodes)
+    cold = _cold_start("SLAM path, the untimed 40 frames", warm_final.graph)
     del warm_final
     _reset_counters()
     start = torch.cuda.Event(enable_timing=True)
@@ -1917,6 +1983,7 @@ def phase_slam_path(dev) -> tuple[dict, dict]:
     taken = _branches_taken(final)
     launches = _read_counters()
     ms = start.elapsed_time(stop)
+    calls = {k: v + warm_calls[k] for k, v in calls.items()}
     inserted = int(out.is_kf.sum())
     m = final.m
     k1_k4 = _without_k5_k7(launches, LONG_FRAMES - 1, "SLAM path")
@@ -1936,10 +2003,16 @@ def phase_slam_path(dev) -> tuple[dict, dict]:
         "frame_graph": {
             "nodes": fg_nodes[0], "body_nodes": fg_nodes[1],
             "captures": final.graph.captures, "replays": final.graph.replays,
-            "reserved_bytes_by_warm_scan": pool_bytes},
+            "cache_hits": final.graph.cache_hits,
+            "reserved_bytes_by_warm_scan": pool_bytes, "cold_start": cold},
     }
+    if (final.graph.captures, final.graph.cache_hits) != (0, 1):
+        raise SystemExit(f"FAIL: SLAM path: the timed run did not replay the "
+                         f"cached graph: {report['frame_graph']}")
     # the same frames through the host-branch step (the tracking half a graph
-    # replay, the branches eager), against the frame graph, in turns
+    # replay, the branches eager), against the frame graph, in turns; the
+    # host-branch step's tracking graph captured by an untimed run first
+    _host_scan_pair(seq.gray[:40], depth[:40], seq.intrinsics, cfg)
     turns = {"graphed": [ms]}
     for name in ("host", "host", "graphed"):
         torch.cuda.synchronize()
@@ -1995,6 +2068,17 @@ def _slam_path_mesh(seq, depth, cfg, final, out) -> dict:
     mesh = make_mesh(1)
     turns, report = {}, {}
     try:
+        # one untimed run of the configuration with this mesh: the gated
+        # run is a fresh state on the cached mesh graph
+        warm = ss.ChunkedSlam(cfg, seq.intrinsics, chunk_size=CHUNK, mesh=mesh)
+        for i in range(40):
+            warm.process_frame(seq.gray[i], depth[i])
+        warm.flush()
+        cold = _cold_start("SLAM path with the mesh, the untimed 40 frames",
+                           warm.state.graph)
+        _host_scan_pair(seq.gray[:40], depth[:40], seq.intrinsics, cfg,
+                        mesh=mesh)
+        del warm
         for name in ("chunked", "host", "host", "chunked"):
             if not report:
                 _reset_counters()     # the gated run's launches
@@ -2035,7 +2119,9 @@ def _slam_path_mesh(seq, depth, cfg, final, out) -> dict:
                                        launches["fused_backsub"]],
                     "captures": ch.state.graph.captures,
                     "replays": ch.state.graph.replays,
-                    "body_nodes": ch.state.graph.body_nodes}
+                    "cache_hits": ch.state.graph.cache_hits,
+                    "body_nodes": ch.state.graph.body_nodes,
+                    "cold_start": cold}
     finally:
         mesh.close()
     report["ms_per_frame_in_turns"] = turns
@@ -2045,6 +2131,9 @@ def _slam_path_mesh(seq, depth, cfg, final, out) -> dict:
     if report["differing"]:
         raise SystemExit(f"FAIL: SLAM path: ChunkedSlam with the mesh differs "
                          f"from the meshless graph in {report['differing']}")
+    if (report["captures"], report["cache_hits"]) != (0, 1):
+        raise SystemExit(f"FAIL: SLAM path with the mesh: the gated run did "
+                         f"not replay the cached graph: {report}")
     if (report["tracked_frac"] < 0.95 or report["loops"] < 1
             or not report["ate_rmse_m"] <= LONG_ATE_M
             or report["ba_edges_dropped"] != 0):
@@ -2310,9 +2399,15 @@ def phase_stereo_path(dev) -> dict:
     torch.cuda.synchronize()
     say(f"  rendered 2 x {STEREO_FRAMES} stereo pairs of 640x480 on the card in "
         f"{time.perf_counter() - t0:.2f} s")
+    # one untimed run of the configuration (bench.py's compile): the timed
+    # runs are fresh states on the cached graph; the untimed run's calls of
+    # the canvas route are counted with each timed run's
     warm = seqs["arc"]
-    _scan_pair(warm.left[:30], warm.right[:30], warm.intrinsics,
-               warm.poses[:30], cfg)
+    with counting_calls() as warm_calls:
+        warm_final, _, _, _ = _scan_pair(warm.left[:30], warm.right[:30],
+                                         warm.intrinsics, warm.poses[:30], cfg)
+    cold = _cold_start("stereo, the untimed 30 frames", warm_final.graph)
+    del warm_final
     report = {}
     for name, seq in seqs.items():
         _reset_counters()
@@ -2328,6 +2423,7 @@ def phase_stereo_path(dev) -> dict:
         taken = _branches_taken(final)
         launches = _read_counters()
         ms = start.elapsed_time(stop)
+        calls = {k: v + warm_calls[k] for k, v in calls.items()}
         inserted = int(out.is_kf.sum())
         row = {
             "frames": STEREO_FRAMES, "shape": [480, 640], "levels": 4,
@@ -2339,9 +2435,13 @@ def phase_stereo_path(dev) -> dict:
             "ate_limit_m": STEREO_ATE_M[name],
             "ms_per_frame": ms / STEREO_FRAMES, "fps": STEREO_FRAMES / (ms / 1e3),
             "launches": launches, "k4_route_calls": calls,
-            "branches_taken": taken,
+            "branches_taken": taken, "cache_hits": final.graph.cache_hits,
+            "captures": final.graph.captures, "untimed_run_cold_start": cold,
         }
         say(f"  stereo {name}: " + json.dumps(row))
+        if (row["captures"], row["cache_hits"]) != (0, 1):
+            raise SystemExit(f"FAIL: stereo {name}: the timed run did not "
+                             f"replay the cached graph: {row}")
         if not rmse <= STEREO_ATE_M[name]:
             raise SystemExit(f"FAIL: stereo {name} ATE {rmse:.3f} m > "
                              f"{STEREO_ATE_M[name]} m")
@@ -4011,9 +4111,13 @@ def _timed(fn) -> float:
 def _graphed_window(gray, depth, intr, fcfg, tcfg, dev) -> tuple:
     """`_device_busy` of frames BUSY of a graphed odometry_scan in steady
     state: the graph captured and replayed on frames 1 to BUSY[0] - 1
-    first."""
+    first.  The cache is cleared first: phases 23 and 24 swap a function
+    of the step (K6, K7 against their plain versions), which no key of the
+    graph cache names, so each turn captures its own graph."""
     from jetracer_orbslam2_torch.models import odometry as odo
+    from jetracer_orbslam2_torch.utils import step_graph
 
+    step_graph.clear_graph_cache()
     st = odo.init_state(gray[0], depth[0], intr, fcfg, tcfg, device=dev)
     st, _, _ = odo.odometry_scan(st, gray[1:BUSY[0]], depth[1:BUSY[0]], intr,
                                  fcfg, tcfg)
@@ -4028,6 +4132,7 @@ def _graph_odometry(gray, depth, intr, gt, fcfg, tcfg, dev) -> dict:
     import torch
     from jetracer_orbslam2_torch.evaluation import ate
     from jetracer_orbslam2_torch.models import odometry as odo
+    from jetracer_orbslam2_torch.utils import step_graph
 
     n = gray.shape[0]
     runs = {}
@@ -4056,14 +4161,19 @@ def _graph_odometry(gray, depth, intr, gt, fcfg, tcfg, dev) -> dict:
     walls = {"eager": [_timed(eager)]}
     eager(sync_error=True)                       # (b): raises at a host wait
     ref = runs["eager"]
+    # the first graphed run is cold (the cache cleared: it warms up and
+    # captures), the second a fresh state on the cached graph
+    step_graph.clear_graph_cache()
     _reset_counters()
     walls["graphed"] = [_timed(graphed)]
     launches = _read_counters()
     poses, oks, graph = runs["graphed"]
     walls["graphed"].append(_timed(graphed))
+    cached = runs["graphed"][2]
     walls["eager"].append(_timed(eager))
     same = (torch.equal(poses, ref[0]) and torch.equal(oks, ref[1])
             and torch.equal(runs["graphed"][0], poses)
+            and torch.equal(runs["graphed"][1], oks)
             and torch.equal(runs["eager"][0], ref[0]))
     rmse = float(ate(poses.cpu(), torch.as_tensor(gt)).rmse)
 
@@ -4086,6 +4196,10 @@ def _graph_odometry(gray, depth, intr, gt, fcfg, tcfg, dev) -> dict:
         "graphed_equals_eager": same, "eager_host_waits": 0,
         "captures": graph.captures, "replays": graph.replays,
         "eager_calls": graph.eager_calls,
+        "cached_run": {"captures": cached.captures, "replays": cached.replays,
+                       "eager_calls": cached.eager_calls,
+                       "cache_hits": cached.cache_hits},
+        "cold_start": graph.cold_start(),
         "nodes": {fn.__name__: k for fn, k in graph.nodes.items()},
         "launches": launches,
         "ms_per_frame": {k: [w / (n - 1) * 1e3 for w in v]
@@ -4095,8 +4209,9 @@ def _graph_odometry(gray, depth, intr, gt, fcfg, tcfg, dev) -> dict:
         "device_kernels_per_frame": {k: b[2] / window for k, b in busy.items()},
         "traced_ms_per_frame": {k: b[0] / window * 1e3 for k, b in busy.items()},
         "idle_share": {k: 1 - b[1] / b[0] for k, b in busy.items()},
-        "turns": "eager, graphed, graphed, eager over every frame; then "
-                 f"frames {BUSY[0]}-{BUSY[1] - 1} of each, traced on the device",
+        "turns": "eager, graphed (cold), graphed (cached), eager over every "
+                 f"frame; then frames {BUSY[0]}-{BUSY[1] - 1} of each, traced "
+                 "on the device",
     }
     say("  odometry graph: " + json.dumps(report))
     if not same:
@@ -4109,12 +4224,17 @@ def _graph_odometry(gray, depth, intr, gt, fcfg, tcfg, dev) -> dict:
     want = {"fast_nms_pyramid": n, "extract_patches_fused": n,
             "rigid_fit": n - 1, "pose_polish": n - 1, "ransac_select": n - 1}
     got = {k: launches[k] for k in want}
-    if (graph.captures, graph.replays, graph.eager_calls) != (1, n - 2, 1) \
-            or got != want:
+    if (graph.captures, graph.replays, graph.eager_calls,
+            graph.cache_hits) != (1, n - 2, 1, 0) or got != want:
         raise SystemExit(f"FAIL: odometry graph: captures {graph.captures}, "
                          f"replays {graph.replays}, eager calls "
-                         f"{graph.eager_calls}, launches {got}; expected 1, "
-                         f"{n - 2}, 1, {want}")
+                         f"{graph.eager_calls}, cache hits {graph.cache_hits}, "
+                         f"launches {got}; expected 1, {n - 2}, 1, 0, {want}")
+    if (cached.captures, cached.replays, cached.eager_calls,
+            cached.cache_hits) != (0, n - 1, 0, 1):
+        raise SystemExit(f"FAIL: odometry graph, the cached run: "
+                         f"{report['cached_run']}; expected 0 captures, "
+                         f"{n - 1} replays, 0 eager calls, 1 cache hit")
     return report
 
 
@@ -4142,6 +4262,7 @@ def _graph_slam(gray, depth, intr, gt, cfg, dev) -> dict:
     from jetracer_orbslam2_torch.evaluation import ate
     from jetracer_orbslam2_torch.models import slam as slam_mod
     from jetracer_orbslam2_torch.models import slam_scan as ss
+    from jetracer_orbslam2_torch.utils import step_graph
 
     n = gray.shape[0]
     waits = {"scan": [], "slam": []}
@@ -4205,6 +4326,7 @@ def _graph_slam(gray, depth, intr, gt, cfg, dev) -> dict:
                 == (b.num_keyframes, b.num_loops, b.num_relocs))
 
     eager_scan = summary(*scan(eager=True))
+    step_graph.clear_graph_cache()               # a cold run: it captures
     _reset_counters()
     ss._step, slam_mod.Slam._track = scan_step, slam_track
     try:
@@ -4246,7 +4368,9 @@ def _graph_slam(gray, depth, intr, gt, cfg, dev) -> dict:
         raise SystemExit("FAIL: slam_scan took the host-branch step")
     plain = {"slam": [w for w, is_plain in waits["slam"][2:] if is_plain]}
     walls = {"eager": [_timed(lambda: scan(eager=True))]}
-    walls["graphed"] = [_timed(scan), _timed(scan)]
+    held = {}
+    walls["graphed"] = [_timed(lambda: held.update(run=scan())), _timed(scan)]
+    cached = held["run"][0].graph            # a fresh state, the cached graph
     walls["eager"].append(_timed(lambda: scan(eager=True)))
     # the device-busy share over frames BUSY, after frames 1.. of a run
     st_g, _ = scan(upto=BUSY[0])
@@ -4266,6 +4390,10 @@ def _graph_slam(gray, depth, intr, gt, cfg, dev) -> dict:
         "slam_graphed_equals_eager": same_slam,
         "captures": graph.captures, "replays": graph.replays,
         "eager_calls": graph.eager_calls,
+        "cached_run": {"captures": cached.captures, "replays": cached.replays,
+                       "eager_calls": cached.eager_calls,
+                       "warmups": cached.warmups,
+                       "cache_hits": cached.cache_hits},
         "launches": launches,
         "plain_frames": {k: len(v) for k, v in plain.items()},
         "host_waits_per_plain_frame": {
@@ -4299,11 +4427,19 @@ def _graph_slam(gray, depth, intr, gt, cfg, dev) -> dict:
     if not (rmse < 0.10 and report["tracked_frac"] >= 0.95):
         raise SystemExit(f"FAIL: graphed SLAM ATE {rmse} / tracked "
                          f"{report['tracked_frac']}")
-    if (graph.captures, graph.replays, graph.eager_calls) != (1, n - 1, 0):
+    if (graph.captures, graph.replays, graph.eager_calls,
+            graph.cache_hits) != (1, n - 1, 0, 0):
         raise SystemExit(f"FAIL: SLAM frame graph captures {graph.captures}, "
                          f"replays {graph.replays}, eager calls "
-                         f"{graph.eager_calls}; expected 1, {n - 1}, 0 (a "
-                         "warm-up on a copy, then every frame a replay)")
+                         f"{graph.eager_calls}, cache hits {graph.cache_hits}; "
+                         f"expected 1, {n - 1}, 0, 0 (a warm-up on a copy, "
+                         "then every frame a replay)")
+    if (cached.captures, cached.replays, cached.eager_calls, cached.warmups,
+            cached.cache_hits) != (0, n - 1, 0, 0, 1):
+        raise SystemExit(f"FAIL: SLAM frame graph, the cached run: "
+                         f"{report['cached_run']}; expected 0 captures, "
+                         f"{n - 1} replays, 0 eager calls and warm-ups, 1 "
+                         "cache hit")
     if scan_waits != 0:
         raise SystemExit(f"FAIL: slam_scan made {scan_waits} host waits "
                          "(none expected before the caller's fetch)")
@@ -4452,6 +4588,7 @@ def _branch_run(name, firsts, seconds, intr, cfg, must, dev, mesh=None,
                            "compact_map": int(taken[4])},
         "graphed_equals_host_branch": not differ, "differing": differ,
         "captures": graph.captures, "replays": graph.replays,
+        "warmups": graph.warmups, "cache_hits": graph.cache_hits,
         "graph_nodes": graph.graph_nodes, "body_nodes": graph.body_nodes,
         "body_node_types": graph.body_types,
         "launches": launches, "graphed_s_with_capture": graphed_s,
@@ -4486,8 +4623,12 @@ def _branch_run(name, firsts, seconds, intr, cfg, must, dev, mesh=None,
         bad.append(f"graphed differs from the host-branch step in {differ}")
     if keyframes != row["keyframes_inserted"] or int(taken[2]) != row["loops"]:
         bad.append("the branch flags disagree with is_kf or the loop count")
-    if (graph.captures, graph.replays) != (1, stepped):
-        bad.append(f"captures {graph.captures}, replays {graph.replays}")
+    # a cold run: each sequence's configuration (and mesh) is new to the
+    # cache, which phase 25 clears first
+    if (graph.captures, graph.replays, graph.warmups,
+            graph.cache_hits) != (1, stepped, 1, 0):
+        bad.append(f"captures {graph.captures}, replays {graph.replays}, "
+                   f"warm-ups {graph.warmups}, cache hits {graph.cache_hits}")
     # counted from the first stepped frame (the bootstrap frame ran before)
     want = {"fast_nms_pyramid": stepped, "fused_normal_schur": 10 * keyframes,
             "fused_backsub": 10 * keyframes,
@@ -4548,8 +4689,10 @@ def phase_branches(source, args, dev) -> dict:
     timed graphed and host-branch in turns."""
     import torch
     from jetracer_orbslam2_torch.models import slam_scan as ss
+    from jetracer_orbslam2_torch.utils import step_graph
 
     seqs = _branch_sequences(source, args, dev)
+    step_graph.clear_graph_cache()           # every sequence's run is cold
     results = [_branch_run(*seq, dev) for seq in seqs]
     runs = [r[0] for r in results]
     _, lap, lap_depth, lap_intr, lap_cfg, _ = seqs[1]
@@ -4559,8 +4702,8 @@ def phase_branches(source, args, dev) -> dict:
     mesh_report = _mesh_branches(seqs, results, whole, dev)
     turns, first = {}, {}
     for name in ("graphed", "host", "host", "graphed"):
-        # frame 1 from a fresh state (the frame graph's warm-up and capture,
-        # the tracking graph's warm-up), then frames 2.. timed
+        # frame 1 from a fresh state (on the graph the cache holds: the
+        # cold start is phase 26's), then frames 2.. timed
         st = ss.init_scan_state(lap[0], lap_depth[0], lap_intr, lap_cfg)
         held = {}
         if name == "graphed":
@@ -4580,8 +4723,8 @@ def phase_branches(source, args, dev) -> dict:
               "lap_first_frame_ms": first,
               "turns": "graphed, host, host, graphed over the gated lap: "
                        "frames 2.. timed, after frame 1 from a fresh state "
-                       "(lap_first_frame_ms, for the frame graph its warm-up "
-                       "and capture)"}
+                       "on the cached graphs (lap_first_frame_ms; phase 26 "
+                       "splits the cold start)"}
     say("  branches: " + json.dumps({k: v for k, v in report.items()
                                      if k not in ("runs", "mesh")}))
     return report
@@ -4696,6 +4839,341 @@ def _mesh_branches(seqs, results, lap_whole, dev) -> dict:
             "body_nodes", "k8_launches", "k8_per_body",
             "ba_edges_dropped")} for r in rows}))
     return report
+
+
+# ---------------------------------------------------------------------------
+# phase 26: one captured graph per configuration (the graph cache)
+# ---------------------------------------------------------------------------
+
+GRAPH_CACHE_TITLE = (
+    "graph cache: one captured graph per configuration, as jax.jit compiles "
+    "one program per configuration: the gated lap's cold start split and a "
+    "second state's cached start; cached runs torch.equal to runs on a "
+    "freshly captured graph (slam_scan, odometry_scan three times from one "
+    "state, Slam, ChunkedSlam --chunked 8, the stereo lap, the one-rank "
+    "mesh ChunkedSlam); two states interleaved chunk by chunk")
+CACHE_SEED = 1           # the second state's seed (the first's is 0)
+
+
+def _first_frame_run(firsts, seconds, intr, cfg, seed: int) -> tuple:
+    """slam_scan from a fresh state of `seed`: its first frame alone, timed
+    on the host clock with the device synchronized around it, then the
+    rest.  -> (final, out, first-frame ms)."""
+    import torch
+    from jetracer_orbslam2_torch.models import slam_scan as ss
+
+    state = ss.init_scan_state(firsts[0], seconds[0], intr, cfg, seed=seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, first = ss.slam_scan(state, firsts[1:2], seconds[1:2], intr, cfg)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    final, rest = ss.slam_scan(state, firsts[2:], seconds[2:], intr, cfg)
+    out = ss.ScanOutput(*(torch.cat([a, b]) for a, b in zip(first, rest)))
+    return final, out, first_ms
+
+
+def _run_counters(graph) -> dict:
+    return {"captures": graph.captures, "warmups": graph.warmups,
+            "cache_hits": graph.cache_hits, "replays": graph.replays,
+            "eager_calls": graph.eager_calls}
+
+
+def _same_generator(a, b) -> bool:
+    return bool(a.get_state().equal(b.get_state()))
+
+
+def _cached_against_fresh(name: str, run, bad: list) -> dict:
+    """`run()` -> (outputs, state, generator, graph handle) of one seed's run
+    from a fresh state; run twice: on the graph the cache holds (it must
+    capture nothing, warm nothing up and hit the cache once), then after
+    clear_graph_cache() (it captures).  Outputs, every state tensor and the
+    generator's state afterwards must be torch.equal."""
+    import torch
+    from jetracer_orbslam2_torch.utils import step_graph
+
+    run()                                    # the cache holds the graph
+    cached = run()
+    step_graph.clear_graph_cache()
+    fresh = run()
+    differ = [f"output {i}" for i, (a, b) in enumerate(zip(cached[0], fresh[0]))
+              if not torch.equal(a, b)]
+    differ += [f"state {i}" for i, (a, b) in enumerate(zip(cached[1], fresh[1]))
+               if not torch.equal(a, b)]
+    if not _same_generator(cached[2], fresh[2]):
+        differ.append("generator")
+    row = {"cached": _run_counters(cached[3]), "fresh": _run_counters(fresh[3]),
+           "equal": not differ, "differing": differ}
+    say(f"  cached vs fresh, {name}: " + json.dumps(row))
+    if differ:
+        bad.append(f"{name}: the cached run differs from the fresh capture "
+                   f"in {differ}")
+    if (row["cached"]["captures"], row["cached"]["warmups"],
+            row["cached"]["cache_hits"]) != (0, 0, 1):
+        bad.append(f"{name}: the cached run {row['cached']}")
+    if row["fresh"]["cache_hits"] != 0 or row["fresh"]["captures"] != 1:
+        bad.append(f"{name}: the fresh run {row['fresh']}")
+    return row
+
+
+def _scan_tensors(final, out) -> tuple:
+    """(outputs, every state tensor) of a scan, flat."""
+    from jetracer_orbslam2_torch.models import slam_scan as ss
+
+    state = []
+    for f in ss._CARRIED:
+        v = getattr(final, f)
+        state.extend(v if isinstance(v, tuple) else (v,))
+    return tuple(out), tuple(state)
+
+
+def _interleaved(lap, lap_depth, intr, cfg, alone: dict, bad: list) -> dict:
+    """Two states (seeds 0 and CACHE_SEED) take turns CHUNK frames at a time
+    through slam_scan, one cached graph: each must be torch.equal to its
+    run alone (`alone[seed]` = (final, out)); the bytes of state each turn
+    copies into the graph's buffers."""
+    import torch
+    from jetracer_orbslam2_torch.models import slam_scan as ss
+
+    seeds = (0, CACHE_SEED)
+    states = {s: ss.init_scan_state(lap[0], lap_depth[0], intr, cfg, seed=s)
+              for s in seeds}
+    outs = {s: [] for s in seeds}
+    copied = {s: [] for s in seeds}
+    for i in range(1, lap.shape[0], CHUNK):
+        for s in seeds:
+            st = states[s]
+            before = 0 if st.graph is None else st.graph.state_bytes_in
+            st, out = ss.slam_scan(st, lap[i:i + CHUNK], lap_depth[i:i + CHUNK],
+                                   intr, cfg)
+            states[s] = st
+            outs[s].append(out)
+            copied[s].append(st.graph.state_bytes_in - before)
+    differ = {}
+    for s in seeds:
+        out = ss.ScanOutput(*(torch.cat(f) for f in zip(*outs[s])))
+        d = _differing_run((states[s], out), alone[s])
+        if not _same_generator(states[s].generator, alone[s][0].generator):
+            d.append("generator")
+        differ[s] = d
+    shared = states[0].graph._shared is states[CACHE_SEED].graph._shared
+    row = {"chunk": CHUNK, "turns": len(copied[0]),
+           "one_graph": shared,
+           "state_bytes_copied_at_each_switch": copied,
+           "equal_to_alone": {s: not d for s, d in differ.items()},
+           "differing": differ,
+           "run_counters": {s: _run_counters(states[s].graph) for s in seeds}}
+    say("  interleaved: " + json.dumps(row))
+    if any(differ.values()) or not shared:
+        bad.append(f"interleaved states: {differ}, one graph {shared}")
+    if any(c == 0 for c in copied[0] + copied[CACHE_SEED]):
+        bad.append("a switch of states copied no state into the buffers")
+    return row
+
+
+def phase_graph_cache(source, args, dev) -> dict:
+    """Phase 26: one captured graph per configuration.  On the gated lap:
+    the cold start after clear_graph_cache() split into warm-up, capture
+    and instantiation, and a second fresh state of another seed on the
+    cached graph (0 captures, 0 warm-ups, 1 cache hit); then each entry
+    point's cached run torch.equal to the same seed's run on a freshly
+    captured graph, and two states interleaved chunk by chunk."""
+    import numpy as np
+    import torch
+    from jetracer_orbslam2_torch import run
+    from jetracer_orbslam2_torch.config import (
+        FrontendConfig, StereoConfig, SystemConfig, TrackingConfig)
+    from jetracer_orbslam2_torch.io.synthetic import generate_stereo_lap_sequence
+    from jetracer_orbslam2_torch.models import odometry as odo
+    from jetracer_orbslam2_torch.models import slam as slam_mod
+    from jetracer_orbslam2_torch.models import slam_scan as ss
+    from jetracer_orbslam2_torch.parallel import make_mesh
+    from jetracer_orbslam2_torch.utils import step_graph
+
+    bad: list = []
+    h, w = LAP_SHAPE
+    cfg = SystemConfig(
+        frontend=FrontendConfig(height=h, width=w, num_levels=3, max_keypoints=512),
+        tracking=TrackingConfig(match_window=16.0))
+    seq, depth = _lap(LAP_SHAPE, LAP_FRAMES, LAP_LENGTH, LAP_NOISE, 0, dev)
+    lap, intr = seq.gray, seq.intrinsics
+
+    # the cold start and a second state's cached start
+    step_graph.clear_graph_cache()
+    cold_final, cold_out, cold_ms = _first_frame_run(lap, depth, intr, cfg, 0)
+    cold = {"first_frame_ms": cold_ms, **_run_counters(cold_final.graph),
+            **cold_final.graph.cold_start()}
+    cached_final, cached_out, cached_ms = _first_frame_run(
+        lap, depth, intr, cfg, CACHE_SEED)
+    cached = {"first_frame_ms": cached_ms, "seed": CACHE_SEED,
+              "state_bytes_copied_in": cached_final.graph.state_bytes_in,
+              **_run_counters(cached_final.graph)}
+    say(f"  cold start, gated lap (the cache cleared, seed 0): "
+        + json.dumps(cold))
+    say(f"  cached start, gated lap (a second fresh state, seed "
+        f"{CACHE_SEED}): " + json.dumps(cached))
+    say(f"  first frame: cold {cold_ms:.2f} ms (warm-up "
+        f"{cold.get('warmup_ms', 0):.2f} ms host / "
+        f"{cold.get('warmup_device_ms', 0):.2f} ms device, capture "
+        f"{cold.get('capture_ms', 0):.2f} ms, instantiate "
+        f"{cold.get('instantiate_ms', 0):.2f} ms), cached {cached_ms:.2f} ms; "
+        f"{card_line()}")
+    n = lap.shape[0]
+    if (cold["captures"], cold["warmups"], cold["cache_hits"],
+            cold["replays"]) != (1, 1, 0, n - 1):
+        bad.append(f"the cold run {cold}")
+    if (cached["captures"], cached["warmups"], cached["cache_hits"],
+            cached["replays"]) != (0, 0, 1, n - 1):
+        bad.append(f"the cached run {cached}")
+
+    equal = {}
+
+    def scan_run(firsts, seconds, intr_, cfg_):
+        def go():
+            st = ss.init_scan_state(firsts[0], seconds[0], intr_, cfg_,
+                                    seed=CACHE_SEED)
+            final, out = ss.slam_scan(st, firsts[1:], seconds[1:], intr_, cfg_)
+            return (*_scan_tensors(final, out), final.generator, final.graph)
+        return go
+
+    equal["slam_scan"] = _cached_against_fresh(
+        "slam_scan, gated lap", scan_run(lap, depth, intr, cfg), bad)
+    # the alone runs the interleaving is held to: seed 0 (the cold run) and
+    # CACHE_SEED on the cached graph
+    alone = {0: (cold_final, cold_out), CACHE_SEED: (cached_final, cached_out)}
+    equal["interleaved"] = _interleaved(lap, depth, intr, cfg, alone, bad)
+    del cold_final, cold_out, cached_final, cached_out, alone
+
+    # odometry_scan three times from one state0, as bench.py times it: the
+    # generator set back to state0's before each call
+    frames = list(source.frames())
+    gray = torch.stack([f[0] for f in frames])
+    gdepth = torch.stack([f[1] for f in frames])
+    fcfg, tcfg = run._frontend_cfg(args, source.hw, source.cal), TrackingConfig()
+    step_graph.clear_graph_cache()
+    st0 = odo.init_state(gray[0], gdepth[0], source.intr, fcfg, tcfg,
+                         seed=CACHE_SEED)
+    g0 = st0.generator.get_state()
+    calls = []
+    for _ in range(3):
+        st0.generator.set_state(g0)
+        final, poses, oks = odo.odometry_scan(st0, gray[1:], gdepth[1:],
+                                              source.intr, fcfg, tcfg)
+        calls.append((final, poses, oks, final.generator.get_state()))
+    odo_differ = [
+        k for k, (final, poses, oks, gen) in enumerate(calls[1:], 1)
+        if not (torch.equal(poses, calls[0][1]) and torch.equal(oks, calls[0][2])
+                and torch.equal(gen, calls[0][3])
+                and all(torch.equal(a, b) for a, b in
+                        zip(final.prev, calls[0][0].prev))
+                and torch.equal(final.T_wc, calls[0][0].T_wc))]
+    equal["odometry_scan"] = {
+        "calls": [_run_counters(c[0].graph) for c in calls],
+        "equal": not odo_differ, "differing_calls": odo_differ}
+    say("  odometry_scan x3 from one state0: "
+        + json.dumps(equal["odometry_scan"]))
+    nf = gray.shape[0]
+    want = [(1, 1, 0, nf - 2), (0, 0, 1, nf - 1), (0, 0, 1, nf - 1)]
+    got = [(c["captures"], c["warmups"], c["cache_hits"], c["replays"])
+           for c in equal["odometry_scan"]["calls"]]
+    if odo_differ or got != want:
+        bad.append(f"odometry_scan x3: differing calls {odo_differ}, "
+                   f"counters {got}, expected {want}")
+    del calls
+
+    def slam_run():
+        s = slam_mod.Slam(cfg, intr, seed=CACHE_SEED)
+        for i in range(n):
+            s.process_frame(lap[i], depth[i])
+        o = s.result()
+        outs = (torch.from_numpy(np.ascontiguousarray(o.poses)),
+                torch.from_numpy(np.asarray(o.tracked)),
+                torch.tensor([o.num_keyframes, o.num_loops, o.num_relocs]))
+        return outs, tuple(s.m) + (s.T_wc, s.velocity), s.generator, \
+            s._graphs["rgbd"]
+
+    equal["slam"] = _cached_against_fresh("Slam, gated lap", slam_run, bad)
+
+    def chunked_run(mesh=None, firsts=lap, seconds=depth, intr_=intr,
+                    cfg_=cfg):
+        def go():
+            ch = ss.ChunkedSlam(cfg_, intr_, chunk_size=CHUNK, seed=CACHE_SEED,
+                                mesh=mesh)
+            for i in range(firsts.shape[0]):
+                ch.process_frame(firsts[i], seconds[i])
+            ch.flush()
+            outs = tuple(torch.from_numpy(np.concatenate(
+                [getattr(o, f) for o in ch._outs])) for f in ss.ScanOutput._fields)
+            _, state = _scan_tensors(ch.state, ())
+            return outs, state, ch.state.generator, ch.state.graph
+        return go
+
+    equal["chunked"] = _cached_against_fresh(
+        f"ChunkedSlam --chunked {CHUNK}, gated lap", chunked_run(), bad)
+
+    stereo_cfg = SystemConfig(
+        frontend=FrontendConfig(height=480, width=640,
+                                fast_min_threshold=SLAM_FAST_MIN_THRESHOLD),
+        tracking=TrackingConfig(max_depth=80.0),
+        stereo=StereoConfig(baseline=STEREO_BASELINE))
+    stereo = generate_stereo_lap_sequence(
+        STEREO_FRAMES, (480, 640), lap_frames=STEREO_LAP,
+        baseline=STEREO_BASELINE, device=dev)
+    equal["stereo_lap"] = _cached_against_fresh(
+        "slam_scan, stereo lap",
+        scan_run(stereo.left, stereo.right, stereo.intrinsics, stereo_cfg), bad)
+    del stereo
+
+    # the one-rank mesh ChunkedSlam; then Mesh.close() drops its graph
+    mesh = make_mesh(1)
+    try:
+        mesh_go = chunked_run(mesh)
+        equal["mesh_chunked"] = _cached_against_fresh(
+            f"ChunkedSlam(mesh=make_mesh(1)) --chunked {CHUNK}, gated lap",
+            mesh_go, bad)
+        held = mesh_go()[3]
+        before = step_graph.graph_cache_info()
+    finally:
+        mesh.close()
+    after = step_graph.graph_cache_info()
+    carried = tuple(held.carry())
+    try:
+        held(carried, lap[1], depth[1],
+             *ss._imu_inputs((None, False), lap.device), intr)
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    dropped = {"dropped": after["dropped"] - before["dropped"],
+               "held_before": before["held"], "held_after": after["held"],
+               "a_held_graph_raises": raised}
+    say("  Mesh.close(): " + json.dumps(dropped))
+    if dropped["dropped"] < 1 or raised is None:
+        bad.append(f"Mesh.close() kept its graph: {dropped}")
+    equal["mesh_close"] = dropped
+    del held, carried
+
+    report = {"cold": cold, "cached": cached, "equal": equal}
+    if bad:
+        raise SystemExit("FAIL: phase 26: " + "; ".join(bad))
+    return report
+
+
+def graph_cache_summary() -> dict:
+    """The cache at the end of the smoke: graphs held, hits, misses,
+    captures (each a miss's: a key captures once until it is evicted),
+    evictions, and the device memory reserved now and at most."""
+    import torch
+    from jetracer_orbslam2_torch.utils import step_graph
+
+    info = step_graph.graph_cache_info()
+    info.update(memory_reserved=torch.cuda.memory_reserved(),
+                max_memory_reserved=torch.cuda.max_memory_reserved())
+    say("  graph cache at the end: " + json.dumps(info))
+    if info["captures"] > info["misses"]:
+        raise SystemExit(f"FAIL: a key captured twice while cached: {info}")
+    if any(k > info["size_per_device"] for k in info["held"].values()):
+        raise SystemExit(f"FAIL: the cache holds more than its bound: {info}")
+    return info
 
 
 # K8's payloads in the keyframe body at the window's P 8 and the map's
@@ -5823,7 +6301,8 @@ def main(argv: list[str]) -> int:
         return 2
     # --kernels: build, check and time the kernels only (phases 1-3, 6, 7, 11, 16)
     kernels_only = argv == ["--kernels"]
-    # --branches: the frame graph's branches only (phases 1, 2 and 25)
+    # --branches: the frame graph's branches and the graph cache only
+    # (phases 1, 2, 25 and 26)
     branches_only = argv == ["--branches"]
 
     import torch
@@ -5875,8 +6354,12 @@ def main(argv: list[str]) -> int:
             phase(25, BRANCHES_TITLE)
             _, args, source, _ = open_source(N_FRAMES, dev)
             branches = phase_branches(source, args, dev)
+            phase(26, GRAPH_CACHE_TITLE)
+            graph_cache = phase_graph_cache(source, args, dev)
+            graph_cache["end"] = graph_cache_summary()
         say(card)
-        say(json.dumps({"branches": branches, "card": card}))
+        say(json.dumps({"branches": branches, "graph_cache": graph_cache,
+                        "card": card}))
         return 0
 
     with torch.no_grad():
@@ -5998,6 +6481,10 @@ def main(argv: list[str]) -> int:
 
         phase(25, BRANCHES_TITLE)
         branches = phase_branches(source, args, dev)
+
+        phase(26, GRAPH_CACHE_TITLE)
+        graph_cache = phase_graph_cache(source, args, dev)
+        graph_cache["end"] = graph_cache_summary()
     torch.cuda.synchronize()
 
     k1 = times["odometry"]
@@ -6289,6 +6776,7 @@ def main(argv: list[str]) -> int:
     say(json.dumps({"polish": polish, "card": card}))
     say(json.dumps({"ransac": ransac, "card": card}))
     say(json.dumps({"branches": branches, "card": card}))
+    say(json.dumps({"graph_cache": graph_cache, "card": card}))
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -4,8 +4,11 @@ Counterpart of `jetracer_orbslam2_tpu/models/odometry.py`, whose
 `odometry_step` is one dispatch a frame and whose `odometry_scan` keeps the
 loop on the device.  Here `odometry_step` is the eager step, and
 `odometry_scan` (with `ChunkedOdometry` on top) replays it as a CUDA graph:
-captured once, replayed once a frame (`utils/step_graph.StepGraph`; the
-first tracked frame runs eagerly and warms up, on the CPU every frame runs
+captured once per configuration, as `jax.jit` compiles once, and replayed
+once a frame (`utils/step_graph.StepGraph`, from the process-wide cache of
+graphs: the first tracked frame of a configuration not yet captured runs
+eagerly and warms up, the second captures; any later state of the
+configuration replays from its first frame; on the CPU every frame runs
 eagerly through the graph's buffers).  No step reads a value back to the
 host: the rigid refit pair is one K5 launch on the card
 (`fused_rigid.rigid_refit`), so a frame makes the host wait for nothing, and
@@ -37,7 +40,7 @@ class OdomState(NamedTuple):
     prev: Features      # features of the previous frame
     frame_idx: Tensor   # () int32
     generator: torch.Generator  # RANSAC draws (the JAX state's base_key)
-    graph: Optional[StepGraph] = None  # the scan's captured step, carried
+    graph: Optional[StepGraph] = None  # the scan's handle on its graph, carried
 
 
 def make_generator(seed: int, device) -> torch.Generator:
@@ -103,8 +106,9 @@ def _graph_step(generator, prev: Features, gray, depth, T_wc, velocity,
 
 def step_graph(state: OdomState, frame_shape, fcfg: FrontendConfig,
                tcfg: TrackingConfig) -> StepGraph:
-    """The state's graph when it was made for this configuration, frame
-    shape and generator; else a new one (captured at its second call)."""
+    """The state's handle when it was made for this configuration, frame
+    shape and generator; else a new handle on the cached graph of the
+    configuration (captured at the second call of the first run)."""
     return StepGraph.reuse(
         state.graph, lambda gen, *a: _graph_step(gen, *a, fcfg=fcfg, tcfg=tcfg),
         state.generator, (fcfg, tcfg, tuple(frame_shape), state.T_wc.device))
@@ -122,7 +126,9 @@ def odometry_scan(
 
     Returns (final state, (N,4,4) poses T_wc, (N,) tracked_ok), all device
     tensors; the caller fetches them once.  The final state carries the
-    graph, so a later scan from it (a chunk) replays the same capture.
+    graph's handle, so a later scan from it (a chunk) counts on the same
+    handle; a scan from another state of the configuration (or from the
+    same state again, as `bench.py` times three) replays the same capture.
     live: (N,) HOST booleans, optional — False rows are inert padding (they
     leave the state untouched, draw nothing, and report the carried pose
     with tracked_ok False).
@@ -161,7 +167,7 @@ class ChunkedOdometry:
     `odometry_scan` in fixed-size chunks with `OdomState` carried across —
     device memory holds one chunk instead of the whole sequence.  One host
     sync per chunk; the state carries the step's graph, so the whole run
-    captures once.  Results equal the whole-sequence scan exactly (the same
+    captures at most once (none when the configuration's graph is cached).  Results equal the whole-sequence scan exactly (the same
     generator is advanced by the same frames in the same order)."""
 
     def __init__(self, intrinsics, fcfg: FrontendConfig,

@@ -304,11 +304,23 @@ def tracking_graph(generator: torch.Generator, cfg: SystemConfig,
                    carried: Optional[StepGraph] = None) -> StepGraph:
     """A `StepGraph` of `tracking_step` (with `extract`, the front-end too),
     called with the arguments of `tracking_step` after the generator:
-    `carried` when it was made for `key` and `generator`, else a new one."""
+    `carried` when it was made for `key` and `generator`, else a new handle
+    on the cached graph of `key`, which must name what `extract` closes
+    over (configuration, device, the extract's kind)."""
     return StepGraph.reuse(
         carried,
         lambda gen, *a: tracking_step(gen, *a, cfg=cfg, extract=extract),
         generator, key)
+
+
+def rgbd_extract(cfg: SystemConfig, dev):
+    """The RGB-D front-end as the `extract` of `tracking_step`: it closes
+    over the configuration and the device only, so a cached graph of it
+    holds no system alive."""
+    t = cfg.tracking
+    return lambda gray, depth, intr: frontend_gray_depth(
+        gray, depth, intr, cfg.frontend, min_depth=t.min_depth,
+        max_depth=t.max_depth, device=dev)
 
 
 _STEP_CONSTANTS: dict = {}
@@ -514,6 +526,7 @@ class Slam:
             cfg.map, cfg.frontend.max_keypoints,
             cfg.frontend.num_descriptor_words, device=self.device)
         self.generator = make_generator(seed, self.device)
+        self._frame_extract = rgbd_extract(cfg, self.device)
         self.prev: Optional[Features] = None
         self.T_wc = torch.eye(4, dtype=torch.float32, device=self.device)
         self.velocity = torch.eye(4, dtype=torch.float32, device=self.device)
@@ -546,7 +559,9 @@ class Slam:
         self.imu_state = imu_mod.init_state()
         self._imu_delta_w = np.zeros(3, np.float32)
         self._imu_delta_ok = False
-        # the tracking graphs (of given features, of an image pair)
+        # the handles on the tracking graphs (of given features, of an image
+        # pair), cached per (configuration, device, kind): a second Slam of
+        # the configuration replays at its first tracked frame
         self._graphs: dict = {}
 
     def features(self, gray, depth) -> Features:
@@ -592,18 +607,12 @@ class Slam:
         if imu_packet is not None:
             self.process_imu(imu_packet)
         frame = (as_f32(gray, self.device), as_f32(depth, self.device))
-        return self._track(frame, self._graph("frame", self._extract))
-
-    def _extract(self, gray, depth, intrinsics) -> Features:
-        t = self.cfg.tracking
-        return frontend_gray_depth(
-            gray, depth, intrinsics, self.cfg.frontend,
-            min_depth=t.min_depth, max_depth=t.max_depth, device=self.device)
+        return self._track(frame, self._graph("rgbd", self._frame_extract))
 
     def _graph(self, name: str, extract=None) -> StepGraph:
         g = self._graphs[name] = tracking_graph(
-            self.generator, self.cfg, extract, key=name,
-            carried=self._graphs.get(name))
+            self.generator, self.cfg, extract,
+            key=(self.cfg, self.device, name), carried=self._graphs.get(name))
         return g
 
     @torch.no_grad()

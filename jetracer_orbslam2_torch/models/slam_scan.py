@@ -4,8 +4,10 @@ Counterpart of `jetracer_orbslam2_tpu/models/slam_scan.py`.  There the whole
 system is one compiled `lax.scan` with `lax.cond` picking the keyframe and
 relocalization branches on the device: zero host round trips per frame.
 Here `slam_scan` is a Python loop over the stack, and a frame is one replay
-of a CUDA graph captured once a run (`utils/step_graph.FrameGraph`, carried
-in the state): the tracking half (front-end, `track_and_associate`, the
+of a CUDA graph captured once per configuration, as `jax.jit` compiles
+once (`utils/step_graph.FrameGraph`, from the process-wide cache of graphs:
+a new state of a configuration already captured replays at its first
+frame; the run's handle is carried in the state): the tracking half (front-end, `track_and_associate`, the
 flags), then the relocalization branch and the keyframe branch (insert,
 windowed BA, the loop retrieval and the top-n verifications as one batch,
 and inside it the loop closure and the keyframe and map compaction), each
@@ -220,11 +222,12 @@ def frame_extract(cfg: SystemConfig, dev):
 
 
 def tracking_graph(state: ScanState, cfg: SystemConfig) -> StepGraph:
-    """The state's tracking graph when it was made for this configuration
-    and generator; else a new one (captured at its second call)."""
+    """The state's handle on the tracking graph when it was made for this
+    configuration and generator; else a new handle on the cached graph of
+    the configuration (captured at the second call of the first run)."""
     dev = state.T_wc.device
     return slam_mod.tracking_graph(state.generator, cfg, frame_extract(cfg, dev),
-                                   key=(cfg, dev), carried=state.graph)
+                                   key=(cfg, dev, "frame"), carried=state.graph)
 
 
 def scan_route(mesh=None) -> str:
@@ -245,11 +248,13 @@ def scan_route(mesh=None) -> str:
 
 
 def frame_graph(state: ScanState, cfg: SystemConfig, mesh=None) -> FrameGraph:
-    """The state's frame graph when it was made for this configuration, mesh
-    (None: none) and generator; else a new one (warmed up and captured at
-    its first call).  Raises for a mesh whose collectives a conditional
-    body cannot hold (`Mesh.check_capturable`); `slam_scan` runs such a
-    mesh's frames through `_step` instead (`scan_route`)."""
+    """The state's handle on the frame graph when it was made for this
+    configuration, mesh (None: none) and generator; else a new handle on the
+    cached graph of the configuration and mesh (warmed up and captured at
+    the first call of the first run; `Mesh.close` drops a mesh's graphs).
+    Raises for a mesh whose collectives a conditional body cannot hold
+    (`Mesh.check_capturable`); `slam_scan` runs such a mesh's frames
+    through `_step` instead (`scan_route`)."""
     dev = state.T_wc.device
     if mesh is not None:
         mesh.check_capturable()

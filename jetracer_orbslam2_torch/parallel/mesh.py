@@ -41,6 +41,7 @@ import torch
 import torch.distributed as dist
 
 from jetracer_orbslam2_torch.ops import fused_allreduce
+from jetracer_orbslam2_torch.utils import step_graph
 from jetracer_orbslam2_torch.utils.device import resolve_device
 
 Tensor = torch.Tensor
@@ -225,6 +226,10 @@ class Mesh:
         return full
 
     def close(self) -> None:
+        """Drop the graphs keyed on this mesh (their K8 nodes point into its
+        buffers: a handle that still holds one raises), release the
+        buffers, and destroy the group if this mesh built it."""
+        step_graph.drop_graphs(self)
         if self.peers is not None and dist.is_initialized():
             self.peers.close()
         self.peers = None

@@ -5,21 +5,36 @@ dispatches it once a frame.  The port's counterpart is a CUDA graph:
 `StepGraph(fn, generator)` wraps `fn(generator, *inputs)`, whose inputs and
 outputs are tensors or (named) tuples of tensors of fixed shapes.
 
-On a CUDA device:
+One graph per configuration, as `jax.jit` compiles one program per
+configuration: the captured graphs live in a process-wide cache keyed by
+what `fn` closes over (the caller's `key`: configuration, device, the
+graph's kind, a mesh) and by the structure, plain values, shapes and dtypes
+of its state and inputs.  A `StepGraph` or `FrameGraph` is one run's handle
+on the graph of its key, with the run's generator and counters; another
+shape is another key and another graph.  Each device keeps CACHE_SIZE
+graphs, the least recently used leaving first (a handle keeps its graph);
+`clear_graph_cache` is `jax.clear_caches`, and a mesh's graphs go with
+`Mesh.close` (`drop_graphs`).
+
+On a CUDA device, for a key not in the cache:
   * the first call runs `fn` eagerly on the graph's side stream, with the
     run's generator: it is a real step (its draws are the run's) and the
     warm-up that builds the kernels and fills every cached constant;
   * the second call copies its inputs into static buffers, captures `fn` on
-    them with the generator registered with the graph
+    them with the graph's own generator registered with the graph
     (`CUDAGraph.register_generator_state`), and replays it; every later call
-    copies the inputs that changed into the buffers and replays.  A replay
-    advances the generator as an eager step would, so eager draws between
-    replays keep their order;
-  * outputs are cloned out of the graph's pool, which the next replay
-    overwrites.  A capture that fails raises; there is no eager fallback.
+    copies the inputs that changed into the buffers and replays.
+A key in the cache replays from a run's first call.  Before each replay the
+graph's own generator takes the run's generator's state and after it hands
+the advanced state back, so a run draws what a graph captured with its own
+generator would draw; a replay advances the generator as an eager step
+would, so eager draws between replays keep their order.  Outputs are cloned
+out of the graph's pool, which the next replay overwrites.  A capture that
+fails raises; there is no eager fallback.
 
-On the CPU every call runs `fn` eagerly through the same static buffers, so
-the tests exercise the copies in and out.
+On the CPU every call runs `fn` eagerly through the same static buffers and
+the same cache, so the tests exercise the keys, the copies in and out and
+the generator's hand-over.
 
 An input is copied into its buffer only when it is another tensor than the
 one copied last time, or the same tensor modified in place since (its
@@ -44,8 +59,10 @@ that fetches the counts with its outputs, `FrameGraph.settle`) adds them.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import gc
+import time
 import weakref
 from typing import Any, Callable, Optional
 
@@ -81,15 +98,15 @@ def note_launch(wrapper) -> None:
 
 def _flatten(tree, leaves: list):
     """Tensors of `tree` appended to `leaves`; returns the structure with
-    each tensor replaced by its index (None and plain values kept)."""
+    each tensor replaced by its index (None and plain values kept), as
+    nested tuples: hashable, so it can be part of a cache key."""
     if isinstance(tree, Tensor):
         leaves.append(tree)
         return len(leaves) - 1
     if isinstance(tree, tuple):
-        items = [_flatten(x, leaves) for x in tree]
-        return ("tuple", type(tree), items)
+        return ("tuple", type(tree), tuple(_flatten(x, leaves) for x in tree))
     if isinstance(tree, list):
-        return ("list", list, [_flatten(x, leaves) for x in tree])
+        return ("list", list, tuple(_flatten(x, leaves) for x in tree))
     return ("leaf", tree)
 
 
@@ -106,122 +123,365 @@ def _unflatten(spec, leaves: list):
     return cls(*items) if cls is not tuple and hasattr(cls, "_fields") else tuple(items)
 
 
+def _signature(leaves: list) -> tuple:
+    """Each leaf's shape, dtype and device: with the structure, what tells
+    one graph of a configuration from another (as a shape does a jit
+    compile)."""
+    return tuple((tuple(x.shape), x.dtype, x.device) for x in leaves)
+
+
+class _OtherShape(ValueError):
+    """A tensor of another shape, dtype or device than the graph's buffer."""
+
+
 def _load(owner: str, leaves: list, static: Optional[list], copied: list,
-          what: str) -> list:
-    """The static buffers holding `leaves`: made at the first call (copies),
-    then each leaf copied in only when it is another tensor than the one
-    copied last time, or the same tensor modified in place since (its
-    version counter moved).  `copied` holds (tensor, version) of each."""
+          what: str, sig: tuple) -> tuple[list, int]:
+    """(The static buffers holding `leaves`, the bytes copied into them):
+    the buffers made at the first call (copies), then each leaf copied in
+    only when it is another tensor than the one copied last time, or the
+    same tensor modified in place since (its version counter moved).
+    `copied` holds (a weak reference to the tensor, its version) of each,
+    so a buffer keeps no caller's tensor alive.  Raises `_OtherShape` for
+    leaves that do not fit the buffers (`sig`)."""
     if static is None:
-        copied[:] = [(x, x._version) for x in leaves]
-        return [x.clone() for x in leaves]
+        if _signature(leaves) != sig:
+            raise _OtherShape(f"{owner}: the {what} tensors' shapes differ "
+                              f"from the graph's")
+        copied[:] = [(weakref.ref(x), x._version) for x in leaves]
+        return ([x.clone() for x in leaves],
+                sum(x.numel() * x.element_size() for x in leaves))
     if len(leaves) != len(static):
-        raise ValueError(f"{owner}: {len(leaves)} {what} tensors, the graph "
-                         f"has {len(static)}")
+        raise _OtherShape(f"{owner}: {len(leaves)} {what} tensors, the graph "
+                          f"has {len(static)}")
+    nbytes = 0
     for i, (x, s) in enumerate(zip(leaves, static)):
         last, version = copied[i]
-        if last is x and x._version == version:
+        if last() is x and x._version == version:
             continue
         if x.shape != s.shape or x.dtype != s.dtype or x.device != s.device:
-            raise ValueError(
+            raise _OtherShape(
                 f"{owner} {what} {i}: {tuple(x.shape)} {x.dtype} on "
                 f"{x.device}, the graph holds {tuple(s.shape)} {s.dtype} on "
                 f"{s.device}")
-        s.copy_(x)
-        copied[i] = (x, x._version)
-    return static
+        if x is not s:
+            s.copy_(x)
+            nbytes += s.numel() * s.element_size()
+        copied[i] = (weakref.ref(x), x._version)
+    return static, nbytes
 
 
-class StepGraph:
-    """`fn(generator, *inputs)` captured once and replayed per call (CUDA),
-    or run eagerly through the same static buffers (CPU).  Counters:
-    `eager_calls`, `captures`, `replays`; `nodes` maps each kernel wrapper
-    to its launches in one replay."""
+def _held(copied: list) -> list:
+    """(tensor or None, version) of each entry of a `_load` record."""
+    return [(ref(), version) for ref, version in copied]
+
+
+# --- the cache of captured graphs ---------------------------------------------
+#
+# `jax.jit` compiles one program per configuration (its static arguments, the
+# structure, shapes and dtypes of its array arguments) and runs any state of
+# that configuration on it.  The port keeps one captured graph per
+# configuration the same way: the graphs below live in a process-wide cache
+# keyed by what `fn` closes over (the caller's key: configuration, device,
+# the graph's kind, a mesh), the kind of graph, and the structure, plain
+# values, shapes and dtypes of the state and inputs.  A `StepGraph` or
+# `FrameGraph` is one run's handle on its cached graph: it holds the run's
+# generator and counters; the graph, its buffers and its own generator are
+# shared by every handle of the key.
+
+CACHE_SIZE = 8   # graphs kept a device; the least recently used goes first
+
+_cache: dict = {}          # str(device) -> OrderedDict(key -> shared graph)
+_stats = {"hits": 0, "misses": 0, "captures": 0, "evicted": 0, "cleared": 0,
+          "dropped": 0, "most_held": 0}
+
+
+def _lookup(dev, key, make: Callable[[], Any]) -> tuple[Any, bool]:
+    """(The graph cached under `key` on `dev`, True), or (`make()` now
+    cached there, False).  Past CACHE_SIZE graphs on the device the least
+    recently used leaves the cache: a handle that holds it keeps it."""
+    held = _cache.setdefault(str(dev), collections.OrderedDict())
+    shared = held.get(key)
+    if shared is not None:
+        held.move_to_end(key)
+        _stats["hits"] += 1
+        return shared, True
+    _stats["misses"] += 1
+    shared = held[key] = make()
+    while len(held) > CACHE_SIZE:
+        held.popitem(last=False)
+        _stats["evicted"] += 1
+    _stats["most_held"] = max(_stats["most_held"], len(held))
+    return shared, False
+
+
+def clear_graph_cache(device=None) -> int:
+    """Drop the cache's graphs (of `device`, or of every device): the
+    counterpart of `jax.clear_caches()`.  A handle that holds a graph keeps
+    it; the next new state of its configuration captures anew.  Their
+    branch launches are settled first.  Returns how many were dropped."""
+    dropped = 0
+    for dev in list(_cache):
+        if device is not None and dev != str(torch.device(device)):
+            continue
+        for shared in _cache.pop(dev).values():
+            if isinstance(shared, _FrameShared):
+                shared.settle()
+            dropped += 1
+    _stats["cleared"] += dropped
+    return dropped
+
+
+def drop_graphs(mesh) -> int:
+    """Drop every graph keyed on `mesh` (`parallel.mesh.Mesh.close` calls
+    this before it releases the mesh's buffers, which those graphs' K8 nodes
+    point into): out of the cache, its branch launches settled, its graph
+    and pools released, and any handle that still holds it raises.
+    Returns how many were dropped."""
+    def keyed_on(shared) -> bool:
+        key = shared.key if isinstance(shared.key, tuple) else (shared.key,)
+        return any(part is mesh for part in key)
+
+    dropped = 0
+    for held in _cache.values():
+        for key in [k for k, shared in held.items() if keyed_on(shared)]:
+            del held[key]
+    for shared in list(_live_frame_graphs):
+        if shared.dead is None and keyed_on(shared):
+            shared.settle()
+            shared.dead = f"its mesh {mesh!r} was closed"
+            if shared.release is not None:
+                shared.release()
+            dropped += 1
+    _stats["dropped"] += dropped
+    return dropped
+
+
+def graph_cache_info() -> dict:
+    """The graphs the cache holds on each device, and since the process
+    started: hits, misses, captures (each a miss's; a key captures once
+    until it leaves the cache), evicted, cleared and dropped graphs, and the
+    most graphs a device held at once."""
+    return {"held": {dev: len(held) for dev, held in _cache.items()},
+            "size_per_device": CACHE_SIZE, **_stats}
+
+
+def _lend(shared, generator: Optional[torch.Generator]):
+    """The graph's own generator (registered with its capture) holding
+    `generator`'s state, or None: the run's draws are its state's."""
+    if generator is None:
+        return None
+    if shared.generator is None:
+        shared.generator = torch.Generator(device=generator.device)
+    shared.generator.set_state(generator.get_state())
+    return shared.generator
+
+
+def _give_back(shared, generator: Optional[torch.Generator]) -> None:
+    """`generator` where the run left the graph's own: as a run on a graph
+    captured with `generator` itself leaves it."""
+    if generator is not None:
+        generator.set_state(shared.generator.get_state())
+
+
+class _Handle:
+    """What a StepGraph and a FrameGraph share: a run's handle on the graph
+    of its key (`key` None: a graph of its own, never cached)."""
+
+    kind = ""
 
     def __init__(self, fn: Callable[..., Any],
                  generator: Optional[torch.Generator], key=None):
-        self.fn = fn
-        self.generator = generator
-        self.key = key
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self.nodes: dict = {}
+        self.fn, self.generator, self.key = fn, generator, key
+        # this run's: calls run eagerly (the CPU; a StepGraph's warm-up),
+        # captures, replays, warm-ups and graphs found in the cache
         self.eager_calls = self.captures = self.replays = 0
-        self._spec = None
-        self._static: Optional[list] = None
-        self._copied: list = []          # (tensor, version) last copied
-        self._out_leaves: Optional[list] = None
-        self._out_spec = None
-        self._stream = None
+        self.warmups = self.cache_hits = 0
+        self._shared = None
 
     @classmethod
-    def reuse(cls, carried: Optional["StepGraph"], fn: Callable[..., Any],
-              generator: Optional[torch.Generator], key) -> "StepGraph":
-        """`carried` when it was made for `key` and draws from `generator`,
-        else a new graph of `fn` (captured at its second call): how a caller
-        keeps one graph across calls.  `key` names everything `fn` closes
-        over (configuration, shapes, device)."""
-        if (carried is not None and carried.key == key
+    def reuse(cls, carried, fn: Callable[..., Any],
+              generator: Optional[torch.Generator], key):
+        """`carried` when it is a handle of this kind made for `key` that
+        draws from `generator`, else a new handle (which finds the graph of
+        its key in the cache at its first call).  `key` names everything
+        `fn` closes over (configuration, device, kind, mesh)."""
+        if (isinstance(carried, cls) and carried.key == key
                 and carried.generator is generator):
             return carried
         return cls(fn, generator, key)
 
+    def _resolve(self, spec, leaves: list):
+        """The shared graph of this call's structure and shapes: the cached
+        one of the key, or a new one (cached unless the key is None)."""
+        sig = _signature(leaves)
+        if self.key is None:
+            if self._shared is None:
+                self._shared = self._make(spec, sig)
+            elif (spec, sig) != (self._shared.spec, self._shared.sig):
+                raise ValueError(f"{type(self).__name__}: the structure or "
+                                 "plain values of the inputs differ from the "
+                                 "first call's")
+            return self._shared
+        self._shared, hit = _lookup(
+            leaves[0].device, (self.kind, self.key, spec, sig),
+            lambda: self._make(spec, sig))
+        self.cache_hits += hit
+        return self._shared
+
+    def _bind(self, spec, leaves: list):
+        shared = self._shared
+        if shared is None or spec != shared.spec:
+            shared = self._resolve(spec, leaves)
+        if shared.dead is not None:
+            raise RuntimeError(f"{type(self).__name__}: the graph is gone: "
+                               f"{shared.dead}")
+        return shared
+
+    @property
+    def graph(self):
+        return None if self._shared is None else self._shared.graph
+
+    @property
+    def nodes(self) -> dict:
+        return {} if self._shared is None else self._shared.nodes
+
+    def cold_start(self) -> dict:
+        """The host ms of the shared graph's warm-up, capture and
+        instantiation (the device ms of its warm-up from its events, read
+        after a wait), {} before its capture."""
+        if self._shared is None or not self._shared.cold:
+            return {}
+        out = dict(self._shared.cold)
+        events = out.pop("warmup_events", None)
+        if events is not None:
+            events[1].synchronize()
+            out["warmup_device_ms"] = events[0].elapsed_time(events[1])
+        return out
+
+
+class _StepShared:
+    """What every StepGraph of one key shares: `fn`, the static buffers,
+    the captured graph, its nodes and its own generator."""
+
+    def __init__(self, fn, spec, sig, key):
+        self.fn, self.spec, self.sig, self.key = fn, spec, sig, key
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.nodes: dict = {}
+        self.warmed = False
+        self.static: Optional[list] = None
+        self.copied: list = []           # (weak ref, version) last copied
+        self.out_leaves: Optional[list] = None
+        self.out_spec = None
+        self.stream = None
+        self.generator: Optional[torch.Generator] = None
+        self.dead: Optional[str] = None
+        self.cold: dict = {}
+
+
+class StepGraph(_Handle):
+    """`fn(generator, *inputs)` captured once per key and replayed per call
+    (CUDA), or run eagerly through the same static buffers (CPU).  Counters
+    (this run's): `eager_calls`, `captures`, `replays`, `warmups`,
+    `cache_hits`; `nodes` maps each kernel wrapper to its launches in one
+    replay.
+
+    On a CUDA device, for a key not in the cache the first call runs `fn`
+    eagerly on the graph's side stream with the run's generator (a real
+    step, and the warm-up that builds the kernels), the second captures;
+    a key already captured replays from the first call."""
+
+    kind = "StepGraph"
+
+    def _make(self, spec, sig):
+        return _StepShared(self.fn, spec, sig, self.key)
+
+    @property
+    def _static(self):
+        return None if self._shared is None else self._shared.static
+
+    @property
+    def _copied(self) -> list:
+        return [] if self._shared is None else _held(self._shared.copied)
+
     def __call__(self, *inputs):
         leaves: list = []
         spec = _flatten(inputs, leaves)
-        if self._spec is None:
-            self._spec = spec
-        elif spec != self._spec:
-            raise ValueError("StepGraph: the inputs' structure or plain "
-                             "values differ from the first call's")
-        dev = leaves[0].device
-        if dev.type == "cuda":
-            return self._call_cuda(leaves, inputs)
-        self._static = _load("StepGraph", leaves, self._static, self._copied,
-                             "input")
-        out = self.fn(self.generator, *_unflatten(self._spec, self._static))
+        shared = self._bind(spec, leaves)
+        while True:
+            try:
+                return self._run(shared, leaves, inputs)
+            except _OtherShape:
+                if self.key is None:
+                    raise
+                shared = self._resolve(spec, leaves)
+
+    def _load(self, shared, leaves: list) -> list:
+        shared.static, _ = _load("StepGraph", leaves, shared.static,
+                                 shared.copied, "input", shared.sig)
+        return shared.static
+
+    def _run(self, shared, leaves: list, inputs: tuple):
+        if leaves[0].device.type == "cuda":
+            return self._run_cuda(shared, leaves, inputs)
+        static = self._load(shared, leaves)
+        generator = _lend(shared, self.generator)
+        out = shared.fn(generator, *_unflatten(shared.spec, static))
+        _give_back(shared, self.generator)
         self.eager_calls += 1
         out_leaves: list = []
         out_spec = _flatten(out, out_leaves)
         return _unflatten(out_spec, [x.clone() for x in out_leaves])
 
-    def _call_cuda(self, leaves: list, inputs: tuple):
+    def _run_cuda(self, shared, leaves: list, inputs: tuple):
         global _recording
         current = torch.cuda.current_stream()
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(device=leaves[0].device)
-        if self.eager_calls == 0 and self.graph is None:
-            # the warm-up: a real step, eager, on the capture stream
-            self._stream.wait_stream(current)
-            with torch.cuda.stream(self._stream):
-                out = self.fn(self.generator, *inputs)
-            current.wait_stream(self._stream)
+        if shared.stream is None:
+            shared.stream = torch.cuda.Stream(device=leaves[0].device)
+        if not shared.warmed:
+            # the warm-up: a real step, eager, on the capture stream, with
+            # the run's own generator
+            t0 = time.perf_counter()
+            shared.stream.wait_stream(current)
+            with torch.cuda.stream(shared.stream):
+                out = shared.fn(self.generator, *inputs)
+            current.wait_stream(shared.stream)
+            shared.warmed = True
+            shared.cold["warmup_ms"] = (time.perf_counter() - t0) * 1e3
             self.eager_calls += 1
+            self.warmups += 1
             return out
-        self._static = _load("StepGraph", leaves, self._static, self._copied,
-                             "input")
-        if self.graph is None:
+        static = self._load(shared, leaves)
+        if shared.graph is None:
             graph = torch.cuda.CUDAGraph()
             if self.generator is not None:
-                graph.register_generator_state(self.generator)
+                _lend(shared, self.generator)
+                graph.register_generator_state(shared.generator)
+            t0 = time.perf_counter()
             _recording = {}
             try:
-                with torch.cuda.graph(graph, stream=self._stream,
+                with torch.cuda.graph(graph, stream=shared.stream,
                                       capture_error_mode="thread_local"):
-                    out = self.fn(self.generator,
-                                  *_unflatten(self._spec, self._static))
-                self.nodes = _recording
+                    out = shared.fn(shared.generator,
+                                    *_unflatten(shared.spec, static))
+                shared.nodes = _recording
             finally:
                 _recording = None
-            self._out_leaves = []
-            self._out_spec = _flatten(out, self._out_leaves)
-            self.graph = graph
+            # torch.cuda.graph ends the capture and instantiates as one step
+            shared.cold["capture_and_instantiate_ms"] = (
+                time.perf_counter() - t0) * 1e3
+            shared.out_leaves = []
+            shared.out_spec = _flatten(out, shared.out_leaves)
+            shared.graph = graph
             self.captures += 1
-        self.graph.replay()
+            _stats["captures"] += 1
+        _lend(shared, self.generator)
+        shared.graph.replay()
+        _give_back(shared, self.generator)
         self.replays += 1
-        for wrapper, k in self.nodes.items():
+        for wrapper, k in shared.nodes.items():
             wrapper.launches += k
-        return _unflatten(self._out_spec,
-                          [x.clone() for x in self._out_leaves])
+        return _unflatten(shared.out_spec,
+                          [x.clone() for x in shared.out_leaves])
 
 
 # --- branches on the device -------------------------------------------------
@@ -430,203 +690,281 @@ def _release(graph, dev_index: int, pools: list) -> None:
         torch._C._cuda_releasePool(dev_index, pool)
 
 
-_live_frame_graphs: "weakref.WeakSet[FrameGraph]" = weakref.WeakSet()
+# every FrameGraph's shared graph alive (cached, or held by a handle)
+_live_frame_graphs: "weakref.WeakSet[_FrameShared]" = weakref.WeakSet()
 
 
-class FrameGraph:
-    """`fn(generator, carry, *inputs)`, a step that reads the carried state
-    `carry` (a tree of tensors), rewrites it in place and returns the step's
-    outputs, with `cond` for its branches: captured once and replayed per
-    call on a CUDA device, run on the same buffers on the CPU.
+class _FrameShared:
+    """What every FrameGraph of one key shares: `fn`, the carried state's
+    and the inputs' buffers, the captured graph with its branches, its
+    counts of the branches taken and its own generator."""
 
-    The carried state lives in the graph's buffers (`carry`): a call copies
-    in only a state that is not the one these buffers hold (another tensor,
-    or one changed in place since), and `export` hands the state out as a
-    copy.  Outputs are copies.  Counters: `eager_calls` (CPU), `captures`,
-    `replays`; `nodes` maps each kernel wrapper to its launches in every
-    replay, `bodies` holds each branch's in capture order; `graph_nodes`
-    and `body_nodes` count the graph's nodes (a branch is one node of the
-    graph that holds it, and its body's nodes are counted apart).
-
-    The first CUDA call warms up: `fn` runs once on a copy of the state with
-    a generator of its own and every branch taken (it builds each kernel,
-    fills each cached constant and library handle; it is thrown away and
-    counts no launch), then captures `fn` with the run's generator and
-    replays it.  A capture that fails raises; there is no eager fallback.
-    The run's draws are the replays': no draw may sit inside a branch (a
-    replay advances the generator by the whole graph's draws, taken or not)."""
-
-    def __init__(self, fn: Callable[..., Any],
-                 generator: Optional[torch.Generator], key=None):
-        self.fn, self.generator, self.key = fn, generator, key
+    def __init__(self, fn, spec, sig, key):
+        self.fn, self.spec, self.sig, self.key = fn, spec, sig, key
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.nodes: dict = {}
         self.bodies: list[dict] = []
-        self.graph_nodes = 0           # graph nodes of the frame, bodies aside
+        self.graph_nodes = 0             # graph nodes of the frame, bodies aside
         self.body_nodes: list[int] = []  # graph nodes of each body
         self.body_types: list[dict] = []  # ... counted by node type
-        self.eager_calls = self.captures = self.replays = 0
-        self._carry_spec = self._in_spec = None
-        self._carry: Optional[list] = None
-        self._carry_copied: list = []
-        self._in: Optional[list] = None
-        self._in_copied: list = []
-        self._out_leaves: Optional[list] = None
-        self._out_spec = None
-        self._stream = None
-        self._taken: Optional[Tensor] = None     # (MAX_BODIES,) this replay's
-        self._totals: Optional[Tensor] = None    # replays that took each body
-        self._unsettled = False
+        self.carry: Optional[list] = None
+        self.carry_copied: list = []
+        self.inputs: Optional[list] = None
+        self.in_copied: list = []
+        self.out_leaves: Optional[list] = None
+        self.out_spec = None
+        self.stream = None
+        self.taken: Optional[Tensor] = None     # (MAX_BODIES,) this replay's
+        self.totals: Optional[Tensor] = None    # replays that took each body
+        self.unsettled = False
+        self.generator: Optional[torch.Generator] = None
+        self.dead: Optional[str] = None
+        self.release = None              # releases the graph and its pools
+        self.cold: dict = {}
         _live_frame_graphs.add(self)
 
-    @classmethod
-    def reuse(cls, carried, fn: Callable[..., Any],
-              generator: Optional[torch.Generator], key) -> "FrameGraph":
-        """`carried` when it is a FrameGraph made for `key` that draws from
-        `generator`, else a new one."""
-        if (isinstance(carried, cls) and carried.key == key
-                and carried.generator is generator):
-            return carried
-        return cls(fn, generator, key)
+    def carried(self):
+        return _unflatten(self.spec[0], self.carry)
 
-    def carry(self):
-        """The carried state as the graph's buffers hold it (not a copy)."""
-        return _unflatten(self._carry_spec, self._carry)
+    def settle(self, counts=None) -> None:
+        if not self.unsettled:
+            return
+        if counts is None:
+            counts = self.totals[:len(self.bodies)].cpu()
+        self.totals.zero_()
+        self.unsettled = False
+        for taken, nodes in zip(np.asarray(counts).tolist(), self.bodies):
+            for wrapper, k in nodes.items():
+                wrapper.launches += k * int(taken)
 
-    def export(self):
-        """A copy of the carried state; handed back to the next call it is
-        not copied in again (unless changed in place meanwhile)."""
-        out = [x.clone() for x in self._carry]
-        self._carry_copied = [(x, x._version) for x in out]
-        return _unflatten(self._carry_spec, out)
-
-    def __call__(self, carry, *inputs):
-        c_leaves: list = []
-        c_spec = _flatten(carry, c_leaves)
-        i_leaves: list = []
-        i_spec = _flatten(inputs, i_leaves)
-        if self._carry_spec is None:
-            self._carry_spec, self._in_spec = c_spec, i_spec
-        elif c_spec != self._carry_spec or i_spec != self._in_spec:
-            raise ValueError("FrameGraph: the structure or plain values of "
-                             "the state or the inputs differ from the first "
-                             "call's")
-        self._carry = _load("FrameGraph", c_leaves, self._carry,
-                            self._carry_copied, "state")
-        self._in = _load("FrameGraph", i_leaves, self._in, self._in_copied,
-                         "input")
-        if c_leaves[0].device.type == "cuda":
-            return self._call_cuda(c_leaves[0].device)
-        out = self.fn(self.generator, self.carry(),
-                      *_unflatten(self._in_spec, self._in))
-        self._carry_copied = [(x, x._version) for x in self._carry]
-        self.eager_calls += 1
-        leaves: list = []
-        spec = _flatten(out, leaves)
-        return _unflatten(spec, [x.clone() for x in leaves])
-
-    def _call_cuda(self, dev):
-        if self.graph is None:
-            self._capture(dev)
-        # the replay runs on the caller's stream, after its copies in
-        self.graph.replay()
-        self.replays += 1
-        for wrapper, k in self.nodes.items():
-            wrapper.launches += k
-        self._unsettled = bool(self.bodies)
-        return _unflatten(self._out_spec, [x.clone() for x in self._out_leaves])
-
-    def _capture(self, dev) -> None:
+    def capture(self, dev, generator: Optional[torch.Generator]) -> None:
+        """Warm up on a copy of the state, then capture `fn` on the buffers
+        with the graph's own generator registered (loaded with the run's
+        state: `_lend`)."""
         global _warming, _frame_capture, _recording
         current = torch.cuda.current_stream(dev)
-        self._stream = torch.cuda.Stream(device=dev)
+        self.stream = torch.cuda.Stream(device=dev)
         streams = [torch.cuda.Stream(device=dev) for _ in range(3)]
-        self._taken = torch.zeros(MAX_BODIES, dtype=torch.bool, device=dev)
-        self._totals = torch.zeros(MAX_BODIES, dtype=torch.int64, device=dev)
-        inputs = _unflatten(self._in_spec, self._in)
-        self._stream.wait_stream(current)
-        with torch.cuda.stream(self._stream):
+        self.taken = torch.zeros(MAX_BODIES, dtype=torch.bool, device=dev)
+        self.totals = torch.zeros(MAX_BODIES, dtype=torch.int64, device=dev)
+        inputs = _unflatten(self.spec[1], self.inputs)
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            events[0].record()
             scratch = torch.Generator(device=dev)
             scratch.manual_seed(0)
-            warm = _unflatten(self._carry_spec, [x.clone() for x in self._carry])
+            warm = _unflatten(self.spec[0], [x.clone() for x in self.carry])
             _warming = True
             try:
                 self.fn(scratch, warm, *inputs)
             finally:
                 _warming = False
             del warm
+            events[1].record()
         for s in streams:            # each body stream's library workspace
             with torch.cuda.stream(s):
                 torch.cuda.current_blas_handle()
-        current.wait_stream(self._stream)
+        current.wait_stream(self.stream)
         _cond_library()
+        t1 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
-        if self.generator is not None:
+        if generator is not None:
+            _lend(self, generator)
             graph.register_generator_state(self.generator)
-        cap = _Capture(self._taken, streams)
+        cap = _Capture(self.taken, streams)
         enabled = gc.isenabled()
         gc.disable()                 # no finalizer may run inside a capture
         _frame_capture, _recording = cap, {}
         try:
             # capture_begin / capture_end, not `torch.cuda.graph`, whose
             # entry synchronizes the device: the capture makes no host wait
-            with torch.cuda.stream(self._stream):
+            with torch.cuda.stream(self.stream):
                 graph.capture_begin(capture_error_mode="thread_local")
                 try:
-                    self._taken.zero_()
-                    out = self.fn(self.generator, self.carry(), *inputs)
-                    self._totals.add_(self._taken)
+                    self.taken.zero_()
+                    out = self.fn(self.generator, self.carried(), *inputs)
+                    self.totals.add_(self.taken)
                     self.graph_nodes = sum(
-                        _captured_node_types(self._stream).values())
+                        _captured_node_types(self.stream).values())
                 finally:
+                    t2 = time.perf_counter()
                     try:
                         graph.capture_end()     # instantiates the graph
                     except RuntimeError as e:
                         raise RuntimeError(f"{e}; {cap.describe()}") from e
-            current.wait_stream(self._stream)
+            current.wait_stream(self.stream)
             self.nodes = _recording
         finally:
             _frame_capture, _recording = None, None
             if enabled:
                 gc.enable()
+        t3 = time.perf_counter()
         self.bodies, self.body_nodes = cap.bodies, cap.body_nodes
         self.body_types = cap.body_types
-        self._out_leaves = []
-        self._out_spec = _flatten(out, self._out_leaves)
+        self.out_leaves = []
+        self.out_spec = _flatten(out, self.out_leaves)
         self.graph = graph
-        self.captures += 1
-        weakref.finalize(self, _release, graph, dev.index, cap.pools)
+        self.cold = {"warmup_ms": (t1 - t0) * 1e3, "capture_ms": (t2 - t1) * 1e3,
+                     "instantiate_ms": (t3 - t2) * 1e3, "warmup_events": events}
+        self.release = weakref.finalize(self, _release, graph, dev.index,
+                                        cap.pools)
+        _stats["captures"] += 1
+
+
+class FrameGraph(_Handle):
+    """`fn(generator, carry, *inputs)`, a step that reads the carried state
+    `carry` (a tree of tensors), rewrites it in place and returns the step's
+    outputs, with `cond` for its branches: captured once per key and
+    replayed per call on a CUDA device, run on the same buffers on the CPU.
+
+    The carried state lives in the graph's buffers (`carry`): a call copies
+    in only a state that is not the one these buffers hold (another tensor,
+    or one changed in place since: another state of the configuration is
+    copied in whole), and `export` hands the state out as a copy.  Outputs
+    are copies.  Counters (this run's): `eager_calls` (CPU), `captures`,
+    `replays`, `warmups`, `cache_hits`, `state_bytes_in` (the bytes of
+    state copied into the buffers); `nodes` maps each kernel wrapper to its
+    launches in every replay, `bodies` holds each branch's in capture order;
+    `graph_nodes` and `body_nodes` count the graph's nodes (a branch is one
+    node of the graph that holds it, and its body's nodes are counted
+    apart).
+
+    The first CUDA call of a key not in the cache warms up: `fn` runs once
+    on a copy of the state with a generator of its own and every branch
+    taken (it builds each kernel, fills each cached constant and library
+    handle; it is thrown away and counts no launch), then captures `fn` and
+    replays it.  A capture that fails raises; there is no eager fallback.
+    The run's draws are the replays': the graph's own generator holds the
+    run's generator's state for each replay and hands it back after, and
+    no draw may sit inside a branch (a replay advances the generator by the
+    whole graph's draws, taken or not)."""
+
+    kind = "FrameGraph"
+
+    def __init__(self, fn: Callable[..., Any],
+                 generator: Optional[torch.Generator], key=None):
+        super().__init__(fn, generator, key)
+        self.state_bytes_in = 0
+
+    def _make(self, spec, sig):
+        return _FrameShared(self.fn, spec, sig, self.key)
+
+    # what the shared graph recorded at its capture
+    @property
+    def bodies(self) -> list:
+        return [] if self._shared is None else self._shared.bodies
+
+    @property
+    def graph_nodes(self) -> int:
+        return 0 if self._shared is None else self._shared.graph_nodes
+
+    @property
+    def body_nodes(self) -> list:
+        return [] if self._shared is None else self._shared.body_nodes
+
+    @property
+    def body_types(self) -> list:
+        return [] if self._shared is None else self._shared.body_types
+
+    @property
+    def _carry(self):
+        return None if self._shared is None else self._shared.carry
+
+    @property
+    def _carry_copied(self) -> list:
+        return [] if self._shared is None else _held(self._shared.carry_copied)
+
+    def carry(self):
+        """The carried state as the graph's buffers hold it (not a copy)."""
+        return self._shared.carried()
+
+    def export(self):
+        """A copy of the carried state; handed back to the next call it is
+        not copied in again (unless changed in place meanwhile)."""
+        shared = self._shared
+        out = [x.clone() for x in shared.carry]
+        shared.carry_copied = [(weakref.ref(x), x._version) for x in out]
+        return _unflatten(shared.spec[0], out)
+
+    def __call__(self, carry, *inputs):
+        c_leaves: list = []
+        c_spec = _flatten(carry, c_leaves)
+        i_leaves: list = []
+        i_spec = _flatten(inputs, i_leaves)
+        spec, leaves = (c_spec, i_spec), c_leaves + i_leaves
+        shared = self._bind(spec, leaves)
+        n = len(c_leaves)
+        while True:
+            try:
+                shared.carry, state_bytes = _load(
+                    "FrameGraph", c_leaves, shared.carry, shared.carry_copied,
+                    "state", shared.sig[:n])
+                shared.inputs, _ = _load(
+                    "FrameGraph", i_leaves, shared.inputs, shared.in_copied,
+                    "input", shared.sig[n:])
+                break
+            except _OtherShape:
+                if self.key is None:
+                    raise
+                shared = self._resolve(spec, leaves)
+        self.state_bytes_in += state_bytes
+        dev = c_leaves[0].device
+        if dev.type == "cuda":
+            if shared.graph is None:
+                shared.capture(dev, self.generator)
+                self.captures += 1
+                self.warmups += 1
+            # the replay runs on the caller's stream, after its copies in
+            _lend(shared, self.generator)
+            shared.graph.replay()
+            _give_back(shared, self.generator)
+            self.replays += 1
+            for wrapper, k in shared.nodes.items():
+                wrapper.launches += k
+            shared.unsettled = bool(shared.bodies)
+            out = _unflatten(shared.out_spec,
+                             [x.clone() for x in shared.out_leaves])
+        else:
+            generator = _lend(shared, self.generator)
+            res = shared.fn(generator, shared.carried(),
+                            *_unflatten(shared.spec[1], shared.inputs))
+            _give_back(shared, self.generator)
+            self.eager_calls += 1
+            leaves = []
+            out = _unflatten(_flatten(res, leaves),
+                             [x.clone() for x in leaves])
+        # the buffers hold the state this call left: handed back, they are
+        # not copied in again
+        shared.carry_copied = [(weakref.ref(x), x._version)
+                               for x in shared.carry]
+        return out
 
     def branch_counts(self) -> Optional[Tensor]:
-        """(bodies,) int64 on the device: how many replays since the last
-        `settle` took each branch, in capture order (None when there is
-        nothing to count)."""
-        if not self._unsettled:
+        """(bodies,) int64 on the device: how many replays of the graph
+        since the last `settle` took each branch, in capture order (None
+        when there is nothing to count)."""
+        shared = self._shared
+        if shared is None or not shared.unsettled:
             return None
-        return self._totals[:len(self.bodies)].clone()
+        return shared.totals[:len(shared.bodies)].clone()
 
     def settle(self, counts=None) -> None:
         """Add each branch's kernel launches once for every replay that took
         it, and start counting again.  counts: `branch_counts()` already
         fetched with the caller's outputs (host values), else fetched here
         (one wait)."""
-        if not self._unsettled:
-            return
-        if counts is None:
-            counts = self.branch_counts().cpu()
-        self._totals.zero_()
-        self._unsettled = False
-        for taken, nodes in zip(np.asarray(counts).tolist(), self.bodies):
-            for wrapper, k in nodes.items():
-                wrapper.launches += k * int(taken)
+        if self._shared is not None:
+            self._shared.settle(counts)
 
 
 def settle_launches() -> None:
     """Settle every live FrameGraph's branch launches (see
     `FrameGraph.settle`; one wait a graph replayed since): what a reader of
     the `launches` counters calls first."""
-    for g in list(_live_frame_graphs):
-        g.settle()
+    for shared in list(_live_frame_graphs):
+        shared.settle()
 
 
 def fetch(*tensors) -> list:

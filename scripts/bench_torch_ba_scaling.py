@@ -369,6 +369,7 @@ def chunked_rank(out_dir: str) -> int:
                     waits=np.array(waits, np.int64),
                     captures=ch.state.graph.captures,
                     replays=ch.state.graph.replays,
+                    cache_hits=ch.state.graph.cache_hits,
                     landmarks=int(ch.state.m.num_lm), final_map=ch.state.m)
             # the host-branch step with the same mesh, from the same start:
             # K8's collectives, then the group's own
@@ -407,6 +408,7 @@ def chunked_rank(out_dir: str) -> int:
                     [i, int(k)] for i, (k, c) in enumerate(m0["waits"].tolist())
                     if k and not c],
                 "captures": gr["captures"], "replays": gr["replays"],
+                "cache_hits": gr["cache_hits"],
                 "graph_equals_host_branch": {
                     route: bool(np.array_equal(gr["T_rel"], t_rel)
                                 and np.array_equal(gr["kf_pose"], kf_pose))
@@ -459,7 +461,8 @@ def chunked_across_cards(n: int, tmp: str) -> tuple[dict, bool]:
                  <= TRAJ_ATOL)
         waits = all(not r["calls_with_other_waits"] and r["chunks"] > 0
                     and all(k == 1 for k in r["waits_in_chunk_calls"])
-                    and (r["captures"], r["replays"]) == (1, r["frames"] - 1)
+                    and (r["captures"], r["replays"], r["cache_hits"])
+                    == (1, r["frames"] - 1, 0)
                     for r in ranks)
         # K8 in the graph and K8 eagerly: the same sums in the same order
         same_k8 = all(r["graph_equals_host_branch"]["k8"] for r in ranks)

@@ -292,21 +292,14 @@ def profile_slam(rows: int, stereo: bool = False) -> None:
         report_syncs(front, "one frontend_stereo call")
         report_op_counts(front, rows, "one frontend_stereo call")
 
-    lap_graph = {}
-
     def lap_pass():
-        """The lap through the frame graph, after the first pass replays
-        only: the first pass's graph and generator, reseeded, carried in."""
+        """The lap through the frame graph from a fresh state: after the
+        first pass, a replay of the cached graph from the first frame."""
         state = ss.init_scan_state(firsts[0], depth[0], intr, cfg)
-        if lap_graph:
-            lap_graph["graph"].generator.manual_seed(0)
-            state = state._replace(generator=lap_graph["graph"].generator,
-                                   graph=lap_graph["graph"])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         final, out = ss.slam_scan(state, firsts[1:], depth[1:], intr, cfg)
         torch.cuda.synchronize()
-        lap_graph["graph"] = final.graph
         return final, out, time.perf_counter() - t0
 
     def eager_step(state):
@@ -397,9 +390,10 @@ def profile_slam(rows: int, stereo: bool = False) -> None:
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 final, out, wall = lap_pass()
             keyframes = int(out.is_kf.sum())
-            graph = (f"; its graph: {final.graph.captures} capture, "
-                     f"{final.graph.replays} replays, "
-                     f"{final.graph.eager_calls} eager call")
+            graph = (f"; this pass's graph: {final.graph.captures} "
+                     f"capture, {final.graph.replays} replays, "
+                     f"{final.graph.eager_calls} eager call, "
+                     f"{final.graph.cache_hits} cache hit")
         else:
             _, plain_wall = eager_pass()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -515,7 +509,10 @@ def main(argv=None) -> int:
                 oks.append(res.tracked_ok)
             out = (st, None, torch.stack(oks))
         else:
-            out = odometry_scan(state, seq.gray[warm + 1:warm + 1 + frames],
+            # a handle of this pass's own (the cached graph): its counters
+            # are this pass's
+            out = odometry_scan(state._replace(graph=None),
+                                seq.gray[warm + 1:warm + 1 + frames],
                                 seq.depth[warm + 1:warm + 1 + frames],
                                 seq.intrinsics, fcfg, tcfg)
         torch.cuda.synchronize()
@@ -535,9 +532,9 @@ def main(argv=None) -> int:
         dev_s = sum(e.self_device_time_total for e in on_device) / 1e6
         launches = sum(e.count for e in on_device)
         graph = "" if eager else (
-            f"; the scan's graph: {final.graph.captures} capture, "
+            f"; this pass's graph: {final.graph.captures} capture, "
             f"{final.graph.replays} replays, {final.graph.eager_calls} eager "
-            "call over the warm-up and every pass so far")
+            f"call, {final.graph.cache_hits} cache hit")
         print(f"{n} frames, {route} step, device-traced pass: wall "
               f"{wall / n * 1e3:.3f} ms/frame, device busy "
               f"{dev_s / n * 1e3:.3f} ms/frame = {dev_s / wall:.1%} of "
