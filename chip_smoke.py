@@ -231,7 +231,10 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
                   laps in 32 slots (the map compacts); no host wait from
                   slam_scan's entry to the caller's fetch (sync debug
                   "error"); K7 once a stepped frame, a relocalization tried
-                  and a keyframe, K2 = K3 = 10 x keyframes; ChunkedSlam
+                  and a keyframe, K2 = K3 = 10 x keyframes; each body's
+                  device ms beside its count (two clock-mark nodes a body,
+                  counted in its nodes), the keyframe body's covering the
+                  bodies inside it; ChunkedSlam
                   --chunked 8 waits once a chunk; the lap's ms a frame
                   graphed and host-branch in turns; (d) with a one-rank
                   NCCL mesh (the keyframe body's BA sharded, its
@@ -1790,9 +1793,43 @@ def _branches_taken(final) -> dict:
     if not isinstance(graph, step_graph.FrameGraph):
         return {}
     counts = graph.branch_counts()
-    taken = [0] * 5 if counts is None else counts.tolist()
+    taken = [0] * 5 if counts is None else counts[0].tolist()
     return dict(zip(("relocalization", "keyframe", "loop_close",
                      "compact_keyframes", "compact_map"), taken))
+
+
+def _body_rows(names, counts, what: str) -> dict:
+    """Each conditional body: the replays that took it and their device ms
+    (the frame graph's clock marks at the body's edges), from the graph's
+    (2, bodies) counts fetched to the host.  Every body taken has a time,
+    and the keyframe body's covers the bodies inside it (loop closure and
+    the compactions)."""
+    rows = {name: {"taken": int(n), "device_ms": ns / 1e6,
+                   "device_ms_each": ns / 1e6 / n if n else 0.0}
+            for name, n, ns in zip(names, *counts.tolist())}
+    untimed = [k for k, r in rows.items() if r["taken"] and r["device_ms"] <= 0]
+    inner = sum(r["device_ms"] for k, r in rows.items()
+                if k not in ("relocalization", "keyframe"))
+    if untimed or ("keyframe" in rows
+                   and rows["keyframe"]["device_ms"] < inner):
+        raise SystemExit(f"FAIL: {what}: body times {rows}")
+    return rows
+
+
+def _bodies(final, what: str) -> dict:
+    """`_body_rows` of a scan's frame graph since its last settle, which
+    this settles; {} for a scan that ran no frame graph."""
+    from jetracer_orbslam2_torch.utils import step_graph
+
+    graph = final.graph
+    if not isinstance(graph, step_graph.FrameGraph):
+        return {}
+    counts = graph.branch_counts()
+    if counts is None:
+        return {}
+    host = counts.cpu().numpy()
+    graph.settle(host)
+    return _body_rows(graph.body_names, host, what)
 
 
 def _k7_exact(launches: dict, stepped: int, taken: dict, what: str) -> None:
@@ -1834,6 +1871,7 @@ def phase_slam_lap(dev) -> dict:
         FrontendConfig, LoopClosureConfig, SystemConfig, TrackingConfig)
     from jetracer_orbslam2_torch.evaluation import ate
     from jetracer_orbslam2_torch.models.slam import Slam
+    from jetracer_orbslam2_torch.utils import step_graph
 
     h, w = LAP_SHAPE
     cfg = SystemConfig(
@@ -1855,6 +1893,7 @@ def phase_slam_lap(dev) -> dict:
     cold["slam"] = _cold_start("gated lap, Slam's untimed first frames",
                                warm_slam._graphs["rgbd"])
     del warm_final, warm_slam
+    step_graph.settle_launches()    # the bodies' times below are the runs'
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     final, out, poses, rmse = _scan(seq, depth, cfg)
@@ -1903,7 +1942,9 @@ def phase_slam_lap(dev) -> dict:
             raise SystemExit("FAIL: a loop closed with the retrieval gate shut")
         draws.append({
             "noise_seed": noise_seed, "keyframes": int(final.m.num_kf),
-            "loops": int(final.num_loops), "relocs": int(final.num_relocs),
+            "loops": int(final.num_loops),
+            "bodies": _bodies(final, f"gated lap, noise seed {noise_seed}"),
+            "relocs": int(final.num_relocs),
             "tracked_frac": float(out.tracked.float().mean()),
             "ate_rmse_m": rmse, "revisit_gap_mean_m": revisit_gap(poses),
             "no_loop_ate_rmse_m": open_rmse,
@@ -1981,6 +2022,7 @@ def phase_slam_path(dev) -> tuple[dict, dict]:
         stop.record()
         stop.synchronize()
     taken = _branches_taken(final)
+    bodies = _bodies(final, "SLAM path")
     launches = _read_counters()
     ms = start.elapsed_time(stop)
     calls = {k: v + warm_calls[k] for k, v in calls.items()}
@@ -1999,7 +2041,7 @@ def phase_slam_path(dev) -> tuple[dict, dict]:
         "observations": int(m.num_obs), "ate_rmse_m": rmse,
         "ms_per_frame": ms / LONG_FRAMES, "fps": LONG_FRAMES / (ms / 1e3),
         "launches": launches, "k4_route_calls": calls,
-        "branches_taken": taken,
+        "branches_taken": taken, "bodies": bodies,
         "frame_graph": {
             "nodes": fg_nodes[0], "body_nodes": fg_nodes[1],
             "captures": final.graph.captures, "replays": final.graph.replays,
@@ -2421,6 +2463,7 @@ def phase_stereo_path(dev) -> dict:
             stop.record()
             stop.synchronize()
         taken = _branches_taken(final)
+        bodies = _bodies(final, f"stereo {name}")
         launches = _read_counters()
         ms = start.elapsed_time(stop)
         calls = {k: v + warm_calls[k] for k, v in calls.items()}
@@ -2435,7 +2478,8 @@ def phase_stereo_path(dev) -> dict:
             "ate_limit_m": STEREO_ATE_M[name],
             "ms_per_frame": ms / STEREO_FRAMES, "fps": STEREO_FRAMES / (ms / 1e3),
             "launches": launches, "k4_route_calls": calls,
-            "branches_taken": taken, "cache_hits": final.graph.cache_hits,
+            "branches_taken": taken, "bodies": bodies,
+            "cache_hits": final.graph.cache_hits,
             "captures": final.graph.captures, "untimed_run_cold_start": cold,
         }
         say(f"  stereo {name}: " + json.dumps(row))
@@ -4570,7 +4614,8 @@ def _branch_run(name, firsts, seconds, intr, cfg, must, dev, mesh=None,
     graph.settle(host[-1])
     launches = _read_counters()
     k8 = _k8_launches()
-    taken = host[-1].tolist()
+    taken = host[-1][0].tolist()
+    bodies = _body_rows(graph.body_names, host[-1], f"phase 25, {name}")
     h_final, h_out = _host_scan_pair(firsts, seconds, intr, cfg, mesh=mesh)
     differ = _differing_run((final, out), (h_final, h_out))
     stepped = n - 1
@@ -4586,6 +4631,7 @@ def _branch_run(name, firsts, seconds, intr, cfg, must, dev, mesh=None,
                            "loop_close": int(taken[2]),
                            "compact_keyframes": int(taken[3]),
                            "compact_map": int(taken[4])},
+        "bodies": bodies,
         "graphed_equals_host_branch": not differ, "differing": differ,
         "captures": graph.captures, "replays": graph.replays,
         "warmups": graph.warmups, "cache_hits": graph.cache_hits,

@@ -16,6 +16,13 @@
 //     the node;
 //   graph_cond_end(body_stream)
 //     ends the body's capture.
+//   graph_body_mark(body_stream, marks, elapsed, index, last)
+//     a one-thread kernel node on the body's stream that reads the device's
+//     nanosecond clock (%globaltimer): the first mark of body `index` keeps
+//     the time in marks[index], the last (`last` != 0) adds the time since
+//     to elapsed[index], so `elapsed` sums the device ns of every replay
+//     that took the body.  A replay runs its bodies one after another, so
+//     one thread each, with no atomics, suffices.
 //
 //   graph_capture_node_types(stream, types, capacity, &count)
 //     the nodes of the graph `stream` is capturing into so far (a nested
@@ -35,13 +42,31 @@ __global__ void set_condition_kernel(cudaGraphConditionalHandle handle,
   cudaGraphSetConditional(handle, *pred ? 1u : 0u);
 }
 
+__global__ void body_mark_kernel(long long* marks, long long* elapsed,
+                                 int index, int last) {
+  unsigned long long now;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+  if (last)
+    elapsed[index] += static_cast<long long>(now) - marks[index];
+  else
+    marks[index] = static_cast<long long>(now);
+}
+
 }  // namespace
 
-// Loads the kernel ahead of any capture (a module loaded lazily would load
+// Loads the kernels ahead of any capture (a module loaded lazily would load
 // inside the capture).
 extern "C" int graph_cond_setup() {
   cudaFuncAttributes attr;
-  return cudaFuncGetAttributes(&attr, set_condition_kernel);
+  cudaError_t err = cudaFuncGetAttributes(&attr, set_condition_kernel);
+  if (err != cudaSuccess) return err;
+  return cudaFuncGetAttributes(&attr, body_mark_kernel);
+}
+
+extern "C" int graph_body_mark(cudaStream_t body_stream, long long* marks,
+                               long long* elapsed, int index, int last) {
+  body_mark_kernel<<<1, 1, 0, body_stream>>>(marks, elapsed, index, last);
+  return cudaGetLastError();
 }
 
 extern "C" int graph_cond_begin(cudaStream_t capture_stream, const bool* pred,

@@ -12,7 +12,7 @@ configuration replays from its first frame; on the CPU every frame runs
 eagerly through the graph's buffers).  No step reads a value back to the
 host: the rigid refit pair is one K5 launch on the card
 (`fused_rigid.rigid_refit`), so a frame makes the host wait for nothing, and
-results are fetched once per scan or chunk.  RANSAC draws come from one
+results are fetched at the end of a scan or chunk.  RANSAC draws come from one
 `torch.Generator` carried in the state, advanced once per tracked frame, in
 a replay exactly as in an eager step.
 """
@@ -30,6 +30,7 @@ from jetracer_orbslam2_torch.models.frontend import Features, frontend_gray_dept
 from jetracer_orbslam2_torch.utils.device import as_f32, resolve_device
 from jetracer_orbslam2_torch.utils.precision import set_exact_f32
 from jetracer_orbslam2_torch.utils.step_graph import StepGraph
+from jetracer_orbslam2_torch.utils.timing import RECORDER
 
 Tensor = torch.Tensor
 
@@ -162,13 +163,30 @@ def odometry_scan(
     return state._replace(graph=graph), torch.stack(poses), torch.stack(oks)
 
 
+def _fetch(t: Tensor) -> np.ndarray:
+    """`t` on the host: one wait, a span `entry.fetch`."""
+    span = RECORDER.begin("entry.fetch")
+    out = t.cpu().numpy()
+    RECORDER.end(span, out.nbytes)
+    return out
+
+
 class ChunkedOdometry:
     """Constant-memory streaming odometry: frames run through
     `odometry_scan` in fixed-size chunks with `OdomState` carried across —
-    device memory holds one chunk instead of the whole sequence.  One host
-    sync per chunk; the state carries the step's graph, so the whole run
-    captures at most once (none when the configuration's graph is cached).  Results equal the whole-sequence scan exactly (the same
-    generator is advanced by the same frames in the same order)."""
+    device memory holds one chunk instead of the whole sequence.  The host
+    waits twice a chunk, at its end: the chunk's poses are fetched, then
+    its tracked flags.  The state carries the step's graph, so the whole
+    run captures at most once (none when the configuration's graph is
+    cached).  Results equal the whole-sequence scan exactly (the same
+    generator is advanced by the same frames in the same order).
+
+    Spans (`utils/timing.RECORDER`), a chunk's request id on each:
+    `entry.frame` for a frame's own part of `process_frame`, inside it
+    `entry.copy` (the frame's copies to the device; its bytes there as the
+    value); `entry.chunk` for each `flush`, inside it `entry.stack` (the
+    chunk's frames stacked), the replays' `graph.replay` and one
+    `entry.fetch` a wait (the bytes fetched)."""
 
     def __init__(self, intrinsics, fcfg: FrontendConfig,
                  tcfg: TrackingConfig, chunk_size: int = 32, seed: int = 0,
@@ -183,15 +201,25 @@ class ChunkedOdometry:
         self._pending_d: list = []
         self._poses: list = [np.eye(4, dtype=np.float32)[None]]
         self._ok: list = [np.ones(1, bool)]
+        self._request = RECORDER.new_request()
 
     def process_frame(self, gray, depth) -> None:
-        if self.state is None:
-            self.state = init_state(
-                gray, depth, self.intr, self.fcfg, self.tcfg,
-                seed=self.seed, device=self.device)
-            return
-        self._pending_g.append(as_f32(gray, self.device))
-        self._pending_d.append(as_f32(depth, self.device))
+        frame = RECORDER.begin("entry.frame", self._request)
+        try:
+            if self.state is None:
+                self.state = init_state(
+                    gray, depth, self.intr, self.fcfg, self.tcfg,
+                    seed=self.seed, device=self.device)
+                return
+            # no local holds the frame: the chunk's stack must be its only
+            # copy once the pending lists are cleared
+            copy = RECORDER.begin("entry.copy")
+            self._pending_g.append(as_f32(gray, self.device))
+            self._pending_d.append(as_f32(depth, self.device))
+            RECORDER.end(copy, self._pending_g[-1].nbytes
+                         + self._pending_d[-1].nbytes)
+        finally:
+            RECORDER.end(frame)
         if len(self._pending_g) >= self.chunk:
             self.flush()
 
@@ -199,16 +227,23 @@ class ChunkedOdometry:
         n = len(self._pending_g)
         if n == 0:
             return
-        # a ragged tail is simply a shorter chunk: the graph holds one
-        # frame's step, so a chunk's length is no shape of it
-        g = torch.stack(self._pending_g)
-        d = torch.stack(self._pending_d)
-        self._pending_g.clear()
-        self._pending_d.clear()
-        self.state, poses, ok = odometry_scan(
-            self.state, g, d, self.intr, self.fcfg, self.tcfg)
-        self._poses.append(poses.cpu().numpy())
-        self._ok.append(ok.cpu().numpy())
+        chunk = RECORDER.begin("entry.chunk", self._request)
+        try:
+            # a ragged tail is simply a shorter chunk: the graph holds one
+            # frame's step, so a chunk's length is no shape of it
+            stack = RECORDER.begin("entry.stack")
+            g = torch.stack(self._pending_g)
+            d = torch.stack(self._pending_d)
+            RECORDER.end(stack, g.nbytes + d.nbytes)
+            self._pending_g.clear()
+            self._pending_d.clear()
+            self.state, poses, ok = odometry_scan(
+                self.state, g, d, self.intr, self.fcfg, self.tcfg)
+            self._poses.append(_fetch(poses))
+            self._ok.append(_fetch(ok))
+        finally:
+            RECORDER.end(chunk)
+            self._request = RECORDER.new_request()
 
     def result(self) -> tuple[np.ndarray, np.ndarray]:
         """((N, 4, 4) poses, (N,) tracked) for all processed frames."""

@@ -412,9 +412,10 @@ def compact_if_full(m: MapState, cfg: SystemConfig, num_obs, num_lm,
     cond(kf_full, lambda: box.set(m=map_mod.compact_keyframes(
         box.m, mc.kf_cull_redundancy, mc.kf_cull_min_covisible,
         mc.kf_protect_recent, round(mc.kf_target_fill * kf_cap),
-        mc.kf_protect_loop_recent, device=dev)))
+        mc.kf_protect_loop_recent, device=dev)), name="compact_keyframes")
     cond(need_compact, lambda: box.set(m=map_mod.compact_map(
-        box.m, mc.cull_min_obs, mc.cull_min_age_kf, device=dev)))
+        box.m, mc.cull_min_obs, mc.cull_min_age_kf, device=dev)),
+        name="compact_map")
     return box.m, need_compact
 
 
@@ -462,7 +463,8 @@ def keyframe_update(
         loop_ok, m.num_obs, m.num_lm, m.num_kf, *counters)
     box = Carry({"m": m}, in_place=in_graph())
     cond(looped, lambda: box.set(m=loop_mod.close(
-        box.m, slot, cand_idx, T_ab, cfg.pose_graph, device=dev)))
+        box.m, slot, cand_idx, T_ab, cfg.pose_graph, device=dev)),
+        name="loop_closure")
     # the live pose rides the optimized (and corrected) newest keyframe
     T_wc = loop_mod._row(box.m.kf_pose, slot)
     m, compacted = compact_if_full(box.m, cfg, num_obs, num_lm, num_kf, dev)

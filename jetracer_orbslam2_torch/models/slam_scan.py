@@ -39,6 +39,7 @@ from a failure; the final state names it (`ScanState.route`).
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -58,6 +59,7 @@ from jetracer_orbslam2_torch.utils.device import as_f32, resolve_device
 from jetracer_orbslam2_torch.utils.precision import set_exact_f32
 from jetracer_orbslam2_torch.utils.step_graph import (
     Carry, FrameGraph, StepGraph, branch_values, cond, fetch)
+from jetracer_orbslam2_torch.utils.timing import RECORDER
 
 Tensor = torch.Tensor
 
@@ -206,8 +208,8 @@ def _frame(S: Carry, track, frame, imu, intrinsics, cfg: SystemConfig,
             S.set(ba_edges_dropped=(S.ba_edges_dropped
                                     + up.ba_dropped).to(torch.int32))
 
-    cond(try_reloc, relocalization)
-    cond(need_kf, keyframe)
+    cond(try_reloc, relocalization, name="relocalization")
+    cond(need_kf, keyframe, name="keyframe")
     ref_pose = loop_mod._row(S.m.kf_pose, S.ref_slot)
     row = (loop_mod._row(S.m.kf_frame_id, S.ref_slot),
            geo.pose_inverse(ref_pose) @ S.T_wc, S.T_wc.clone(),
@@ -422,7 +424,15 @@ class ChunkedSlam:
     card that K8 cannot serve the chunk's frames take the host-branch route
     (`route`), whose branches wait on the host as well.  The trade is decision
     latency: keyframe, loop and relocalization actions land within the
-    chunk, and the host sees reports `chunk_size` frames late."""
+    chunk, and the host sees reports `chunk_size` frames late.
+
+    Spans (`utils/timing.RECORDER`), a chunk's request id on each:
+    `entry.frame`, `entry.copy`, `entry.chunk`, `entry.stack` and
+    `entry.fetch` as in `odometry.ChunkedOdometry`, here one fetch a chunk;
+    on the frame-graph route, for each body the chunk's replays took, one
+    record `graph.body.<name>` whose count is those replays and whose value
+    is their device ns (on the host-branch route and the CPU, each body
+    taken is a span of its own, `step_graph.cond`)."""
 
     def __init__(self, cfg: SystemConfig, intrinsics, chunk_size: int = 8,
                  seed: int = 0, mesh=None, device=None):
@@ -443,6 +453,7 @@ class ChunkedSlam:
         self._pending_iw: list = []      # per-frame gyro deltas (3,), host
         self._pending_iv: list = []      # per-frame IMU validity, host
         self.imu_state = imu_mod.init_state()
+        self._request = RECORDER.new_request()
 
     def process_frame(self, gray, depth, imu_packet=None) -> Optional[ScanOutput]:
         """Feed one frame (`depth` is the right image when `cfg.stereo` is
@@ -453,20 +464,29 @@ class ChunkedSlam:
         accel, gyro_valid, accel_valid).  The gyro integral between frames
         feeds `slam_scan`'s imu_delta_w motion prior; the packet is folded on
         the host and reaches the device with the chunk."""
-        delta_w, imu_ok = np.zeros(3, np.float32), False
-        if imu_packet is not None:
-            self.imu_state, delta_w = imu_mod.process_packet_with_delta(
-                self.imu_state, *imu_packet)
-            imu_ok = bool(np.any(np.asarray(imu_packet[3])))
-        if self.state is None:
-            self.state = init_scan_state(
-                gray, depth, self.intr, self.cfg, seed=self.seed,
-                device=self.device)
-            return None
-        self._pending_g.append(as_f32(gray, self.device))
-        self._pending_d.append(as_f32(depth, self.device))
-        self._pending_iw.append(delta_w)
-        self._pending_iv.append(imu_ok)
+        frame = RECORDER.begin("entry.frame", self._request)
+        try:
+            delta_w, imu_ok = np.zeros(3, np.float32), False
+            if imu_packet is not None:
+                self.imu_state, delta_w = imu_mod.process_packet_with_delta(
+                    self.imu_state, *imu_packet)
+                imu_ok = bool(np.any(np.asarray(imu_packet[3])))
+            if self.state is None:
+                self.state = init_scan_state(
+                    gray, depth, self.intr, self.cfg, seed=self.seed,
+                    device=self.device)
+                return None
+            # no local holds the frame: the chunk's stack must be its only
+            # copy once the pending lists are cleared
+            copy = RECORDER.begin("entry.copy")
+            self._pending_g.append(as_f32(gray, self.device))
+            self._pending_d.append(as_f32(depth, self.device))
+            RECORDER.end(copy, self._pending_g[-1].nbytes
+                         + self._pending_d[-1].nbytes)
+            self._pending_iw.append(delta_w)
+            self._pending_iv.append(imu_ok)
+        finally:
+            RECORDER.end(frame)
         if len(self._pending_g) < self.chunk:
             return None
         return self.flush()
@@ -477,24 +497,35 @@ class ChunkedSlam:
         chunk's length is no shape of it."""
         if not self._pending_g:
             return None
-        g, d = torch.stack(self._pending_g), torch.stack(self._pending_d)
-        iw = (slam_mod.imu_upload(np.stack(self._pending_iw), self.device)
-              if any(self._pending_iv) else None)
-        iv = list(self._pending_iv)
-        for pending in (self._pending_g, self._pending_d, self._pending_iw,
-                        self._pending_iv):
-            pending.clear()
-        self.state, out = slam_scan(
-            self.state, g, d, self.intr, self.cfg,
-            imu_delta_w=iw, imu_valid=iv, mesh=self.mesh)
-        graph = self.state.graph
-        counts = graph.branch_counts() if self.route == "frame_graph" else None
-        host = fetch(*out, *(() if counts is None else (counts,)))
-        if counts is not None:
-            graph.settle(host[-1])
-        out = ScanOutput(*host[:len(ScanOutput._fields)])
-        self._outs.append(out)
-        return out
+        chunk = RECORDER.begin("entry.chunk", self._request)
+        try:
+            stack = RECORDER.begin("entry.stack")
+            g, d = torch.stack(self._pending_g), torch.stack(self._pending_d)
+            RECORDER.end(stack, g.nbytes + d.nbytes)
+            iw = (slam_mod.imu_upload(np.stack(self._pending_iw), self.device)
+                  if any(self._pending_iv) else None)
+            iv = list(self._pending_iv)
+            for pending in (self._pending_g, self._pending_d,
+                            self._pending_iw, self._pending_iv):
+                pending.clear()
+            self.state, out = slam_scan(
+                self.state, g, d, self.intr, self.cfg,
+                imu_delta_w=iw, imu_valid=iv, mesh=self.mesh)
+            graph = self.state.graph
+            counts = (graph.branch_counts() if self.route == "frame_graph"
+                      else None)
+            span = RECORDER.begin("entry.fetch")
+            host = fetch(*out, *(() if counts is None else (counts,)))
+            RECORDER.end(span, sum(h.nbytes for h in host))
+            if counts is not None:
+                graph.settle(host[-1])
+                _record_bodies(graph.body_names, host[-1])
+            out = ScanOutput(*host[:len(ScanOutput._fields)])
+            self._outs.append(out)
+            return out
+        finally:
+            RECORDER.end(chunk)
+            self._request = RECORDER.new_request()
 
     def tracked(self) -> np.ndarray:
         """(N,) tracked flags of all processed frames (the bootstrap frame
@@ -514,6 +545,18 @@ class ChunkedSlam:
             np.concatenate([getattr(o, f) for o in self._outs])
             for f in ScanOutput._fields])
         return np.concatenate([kf0, compose_trajectory(self.state, merged)])
+
+
+def _record_bodies(names: list, counts: np.ndarray) -> None:
+    """One record `graph.body.<name>` for each body a chunk's replays took,
+    inside the chunk's span, at the moment the counts reached the host (no
+    duration of its own): the replays as its count, their device ns
+    (`FrameGraph.branch_counts`) as its value."""
+    now = time.perf_counter_ns()
+    for name, taken, ns in zip(names, counts[0].tolist(), counts[1].tolist()):
+        if taken:
+            RECORDER.record("graph.body." + name, now, now, value=int(ns),
+                            count=int(taken))
 
 
 def _numpy(x) -> np.ndarray:

@@ -100,7 +100,8 @@ def build_argparser():
     p.add_argument("--log-level", default="info",
                    choices=("debug", "info", "warning", "error"))
     p.add_argument("--json", action="store_true",
-                   help="print one JSON result line (for tooling)")
+                   help="print one JSON result line (for tooling), with the "
+                        "run's spans by name (`spans`)")
     return p
 
 
@@ -483,6 +484,7 @@ def main(argv=None) -> int:
     from jetracer_orbslam2_torch.utils.precision import set_exact_f32
 
     set_exact_f32()
+    t_spans = time.perf_counter_ns()
     had_group = dist.is_initialized()
     mesh = None
     try:
@@ -523,6 +525,10 @@ def main(argv=None) -> int:
     report, poses = res
     report["device"] = str(device)
     _accuracy(report, poses, src.gt, min(report["frames"], len(poses)))
+    if args.json:
+        from jetracer_orbslam2_torch.utils.timing import RECORDER
+
+        report["spans"] = RECORDER.summary(t_spans)
     print(json.dumps(report))
     return 0
 

@@ -55,6 +55,17 @@ replay only where the predicate in device memory holds.  A body's kernels
 count once for each replay that took the body: the graph counts on the
 device how many replays took each body, and `settle_launches` (or a caller
 that fetches the counts with its outputs, `FrameGraph.settle`) adds them.
+Each body also opens and closes with a one-thread kernel node that reads
+the device's clock, so the graph sums each body's device ns beside its
+count (`FrameGraph.branch_counts`); a body's time includes the bodies
+inside it.
+
+Spans (`utils/timing.RECORDER`): `graph.replay` for every call of a
+StepGraph or FrameGraph (the copies into the buffers, the generator's
+hand-over, the launch and the output copies; the bytes copied in as its
+value), `graph.warmup`, `graph.capture` and `graph.instantiate` for a
+graph's cold start, and `graph.body.<name>` for each body run as a host
+branch (its host ns as the value).
 """
 
 from __future__ import annotations
@@ -68,6 +79,8 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+
+from jetracer_orbslam2_torch.utils.timing import RECORDER
 
 Tensor = torch.Tensor
 
@@ -404,33 +417,40 @@ class StepGraph(_Handle):
         return [] if self._shared is None else _held(self._shared.copied)
 
     def __call__(self, *inputs):
-        leaves: list = []
-        spec = _flatten(inputs, leaves)
-        shared = self._bind(spec, leaves)
-        while True:
-            try:
-                return self._run(shared, leaves, inputs)
-            except _OtherShape:
-                if self.key is None:
-                    raise
-                shared = self._resolve(spec, leaves)
+        span = RECORDER.begin("graph.replay")
+        nbytes = 0
+        try:
+            leaves: list = []
+            spec = _flatten(inputs, leaves)
+            shared = self._bind(spec, leaves)
+            while True:
+                try:
+                    out, nbytes = self._run(shared, leaves, inputs)
+                    return out
+                except _OtherShape:
+                    if self.key is None:
+                        raise
+                    shared = self._resolve(spec, leaves)
+        finally:
+            RECORDER.end(span, nbytes)
 
-    def _load(self, shared, leaves: list) -> list:
-        shared.static, _ = _load("StepGraph", leaves, shared.static,
-                                 shared.copied, "input", shared.sig)
-        return shared.static
+    def _load(self, shared, leaves: list) -> tuple[list, int]:
+        shared.static, nbytes = _load("StepGraph", leaves, shared.static,
+                                      shared.copied, "input", shared.sig)
+        return shared.static, nbytes
 
-    def _run(self, shared, leaves: list, inputs: tuple):
+    def _run(self, shared, leaves: list, inputs: tuple) -> tuple[Any, int]:
+        """(The call's outputs, the bytes copied into the buffers)."""
         if leaves[0].device.type == "cuda":
             return self._run_cuda(shared, leaves, inputs)
-        static = self._load(shared, leaves)
+        static, nbytes = self._load(shared, leaves)
         generator = _lend(shared, self.generator)
         out = shared.fn(generator, *_unflatten(shared.spec, static))
         _give_back(shared, self.generator)
         self.eager_calls += 1
         out_leaves: list = []
         out_spec = _flatten(out, out_leaves)
-        return _unflatten(out_spec, [x.clone() for x in out_leaves])
+        return _unflatten(out_spec, [x.clone() for x in out_leaves]), nbytes
 
     def _run_cuda(self, shared, leaves: list, inputs: tuple):
         global _recording
@@ -440,35 +460,40 @@ class StepGraph(_Handle):
         if not shared.warmed:
             # the warm-up: a real step, eager, on the capture stream, with
             # the run's own generator
-            t0 = time.perf_counter()
+            t0 = time.perf_counter_ns()
             shared.stream.wait_stream(current)
             with torch.cuda.stream(shared.stream):
                 out = shared.fn(self.generator, *inputs)
             current.wait_stream(shared.stream)
             shared.warmed = True
-            shared.cold["warmup_ms"] = (time.perf_counter() - t0) * 1e3
+            t1 = time.perf_counter_ns()
+            RECORDER.record("graph.warmup", t0, t1)
+            shared.cold["warmup_ms"] = (t1 - t0) / 1e6
             self.eager_calls += 1
             self.warmups += 1
-            return out
-        static = self._load(shared, leaves)
+            return out, 0
+        static, nbytes = self._load(shared, leaves)
         if shared.graph is None:
             graph = torch.cuda.CUDAGraph()
             if self.generator is not None:
                 _lend(shared, self.generator)
                 graph.register_generator_state(shared.generator)
-            t0 = time.perf_counter()
+            t0 = time.perf_counter_ns()
             _recording = {}
             try:
                 with torch.cuda.graph(graph, stream=shared.stream,
                                       capture_error_mode="thread_local"):
                     out = shared.fn(shared.generator,
                                     *_unflatten(shared.spec, static))
+                    t1 = time.perf_counter_ns()
                 shared.nodes = _recording
             finally:
                 _recording = None
             # torch.cuda.graph ends the capture and instantiates as one step
-            shared.cold["capture_and_instantiate_ms"] = (
-                time.perf_counter() - t0) * 1e3
+            t2 = time.perf_counter_ns()
+            RECORDER.record("graph.capture", t0, t1)
+            RECORDER.record("graph.instantiate", t1, t2)
+            shared.cold["capture_and_instantiate_ms"] = (t2 - t0) / 1e6
             shared.out_leaves = []
             shared.out_spec = _flatten(out, shared.out_leaves)
             shared.graph = graph
@@ -481,7 +506,7 @@ class StepGraph(_Handle):
         for wrapper, k in shared.nodes.items():
             wrapper.launches += k
         return _unflatten(shared.out_spec,
-                          [x.clone() for x in shared.out_leaves])
+                          [x.clone() for x in shared.out_leaves]), nbytes
 
 
 # --- branches on the device -------------------------------------------------
@@ -519,15 +544,30 @@ def _cond_library():
         lib.graph_capture_node_types.argtypes = [
             ptr, ctypes.POINTER(ctypes.c_int), ctypes.c_size_t,
             ctypes.POINTER(ctypes.c_size_t)]
+        lib.graph_body_mark.argtypes = [ptr, ptr, ptr, ctypes.c_int,
+                                        ctypes.c_int]
         for fn in (lib.graph_cond_setup, lib.graph_cond_begin,
-                   lib.graph_cond_end, lib.graph_capture_node_types):
+                   lib.graph_cond_end, lib.graph_capture_node_types,
+                   lib.graph_body_mark):
             fn.restype = ctypes.c_int
         err = lib.graph_cond_setup()
         if err != 0:
             raise RuntimeError(f"graph_cond setup failed: cudaError {err}")
         _cond_fns.update(begin=lib.graph_cond_begin, end=lib.graph_cond_end,
-                         types=lib.graph_capture_node_types)
+                         types=lib.graph_capture_node_types,
+                         mark=lib.graph_body_mark)
     return _cond_fns["begin"], _cond_fns["end"]
+
+
+def _body_mark(stream, marks: Tensor, elapsed: Tensor, index: int,
+               last: bool) -> None:
+    """A one-thread kernel node on `stream` (capturing a body) that reads
+    the device's clock: at the body's first edge it keeps the time in
+    `marks[index]`, at its last it adds the time since to `elapsed[index]`."""
+    err = _cond_fns["mark"](stream.cuda_stream, marks.data_ptr(),
+                            elapsed.data_ptr(), index, int(last))
+    if err != 0:
+        raise RuntimeError(f"graph_body_mark failed: cudaError {err}")
 
 
 # cudaGraphNodeType, in the runtime's order
@@ -556,7 +596,18 @@ def _captured_node_types(stream) -> dict:
     return out
 
 
-def cond(pred, body: Callable[[], None]) -> None:
+def _host_body(body: Callable[[], None], name: str) -> None:
+    """`body()` as a host branch, a span `graph.body.<name>` whose value is
+    its host ns."""
+    span = RECORDER.begin("graph.body." + name)
+    t0 = time.perf_counter_ns()
+    try:
+        body()
+    finally:
+        RECORDER.end(span, time.perf_counter_ns() - t0)
+
+
+def cond(pred, body: Callable[[], None], name: str = "body") -> None:
     """Run `body()` where `pred` holds: the port's `lax.cond`.  A body returns
     nothing; it writes its results into tensors that exist before it (in a
     FrameGraph, the carried state's buffers), so a body not taken leaves
@@ -566,22 +617,27 @@ def cond(pred, body: Callable[[], None]) -> None:
     `if`.  A () bool tensor while a FrameGraph captures: an `if` node of the
     graph on the tensor; during its warm-up: the body runs, whatever pred
     holds.  A CPU tensor: a host `if`.  A CUDA tensor anywhere else raises:
-    reading it would make the host wait."""
+    reading it would make the host wait.
+
+    name: the body's, for its time.  A host branch taken is a span
+    `graph.body.<name>` of the recorder (host ns as its value); in a
+    FrameGraph the body's device ns are counted with its replays
+    (`FrameGraph.branch_counts`)."""
     if not isinstance(pred, Tensor):
         if pred:
-            body()
+            _host_body(body, name)
         return
     if _warming:
         body()
         return
     if _frame_capture is not None:
-        _frame_capture.record_if(pred, body)
+        _frame_capture.record_if(pred, body, name)
         return
     if pred.device.type != "cpu":
         raise ValueError("cond: a device predicate outside a FrameGraph "
                          "capture (fetch it with branch_values)")
     if bool(pred):
-        body()
+        _host_body(body, name)
 
 
 class Carry:
@@ -617,19 +673,25 @@ _POOL_MOVE = ("_cuda_beginAllocateCurrentStreamToPool", "_cuda_endAllocateToPool
 
 class _Capture:
     """A FrameGraph capture in progress: its `if` nodes in the order they
-    were recorded, each with the kernel launches of its body, the streams
-    bodies are captured on (one a nesting depth) and the memory pools their
-    allocations went to (held until the graph goes)."""
+    were recorded, each with its name and the kernel launches of its body,
+    the streams bodies are captured on (one a nesting depth) and the memory
+    pools their allocations went to (held until the graph goes).  Each body
+    opens and closes with a clock mark that adds its device ns to
+    `elapsed` (`marks` keeps its start)."""
 
-    def __init__(self, taken: Tensor, streams: list):
+    def __init__(self, taken: Tensor, marks: Tensor, elapsed: Tensor,
+                 streams: list):
         self.taken, self.streams = taken, streams
+        self.marks, self.elapsed = marks, elapsed
+        self.names: list[str] = []
         self.bodies: list[dict] = []
         self.body_nodes: list[int] = []    # graph nodes of each body
         self.body_types: list[dict] = []   # ... counted by node type
         self.pools: list = []
         self.depth = 0
 
-    def record_if(self, pred: Tensor, body: Callable[[], None]) -> None:
+    def record_if(self, pred: Tensor, body: Callable[[], None],
+                  name: str) -> None:
         global _recording
         if len(self.bodies) == MAX_BODIES:
             raise ValueError(f"FrameGraph: more than {MAX_BODIES} branches")
@@ -642,6 +704,7 @@ class _Capture:
         outer = torch.cuda.current_stream(dev)
         inner = self.streams[self.depth]
         index, nodes = len(self.bodies), {}
+        self.names.append(name)
         self.bodies.append(nodes)
         self.body_nodes.append(0)
         self.body_types.append({})
@@ -663,8 +726,10 @@ class _Capture:
                                        "capturing")
                 getattr(torch._C, _POOL_MOVE[0])(dev.index, pool)
                 try:
+                    _body_mark(inner, self.marks, self.elapsed, index, False)
                     self.taken[index].fill_(True)
                     body()
+                    _body_mark(inner, self.marks, self.elapsed, index, True)
                     types = _captured_node_types(inner)
                     self.body_types[index] = types
                     self.body_nodes[index] = sum(types.values())
@@ -703,6 +768,7 @@ class _FrameShared:
         self.fn, self.spec, self.sig, self.key = fn, spec, sig, key
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.nodes: dict = {}
+        self.body_names: list[str] = []
         self.bodies: list[dict] = []
         self.graph_nodes = 0             # graph nodes of the frame, bodies aside
         self.body_nodes: list[int] = []  # graph nodes of each body
@@ -716,6 +782,8 @@ class _FrameShared:
         self.stream = None
         self.taken: Optional[Tensor] = None     # (MAX_BODIES,) this replay's
         self.totals: Optional[Tensor] = None    # replays that took each body
+        self.elapsed: Optional[Tensor] = None   # ... and their device ns
+        self.marks: Optional[Tensor] = None     # each body's start, device ns
         self.unsettled = False
         self.generator: Optional[torch.Generator] = None
         self.dead: Optional[str] = None
@@ -726,14 +794,21 @@ class _FrameShared:
     def carried(self):
         return _unflatten(self.spec[0], self.carry)
 
+    def counts(self) -> Tensor:
+        """(2, bodies) int64 on the device: the replays that took each body
+        since the last settle, and their device ns."""
+        n = len(self.bodies)
+        return torch.stack([self.totals[:n], self.elapsed[:n]])
+
     def settle(self, counts=None) -> None:
         if not self.unsettled:
             return
         if counts is None:
-            counts = self.totals[:len(self.bodies)].cpu()
+            counts = self.counts().cpu()
         self.totals.zero_()
+        self.elapsed.zero_()
         self.unsettled = False
-        for taken, nodes in zip(np.asarray(counts).tolist(), self.bodies):
+        for taken, nodes in zip(np.asarray(counts)[0].tolist(), self.bodies):
             for wrapper, k in nodes.items():
                 wrapper.launches += k * int(taken)
 
@@ -747,9 +822,11 @@ class _FrameShared:
         streams = [torch.cuda.Stream(device=dev) for _ in range(3)]
         self.taken = torch.zeros(MAX_BODIES, dtype=torch.bool, device=dev)
         self.totals = torch.zeros(MAX_BODIES, dtype=torch.int64, device=dev)
+        self.elapsed = torch.zeros(MAX_BODIES, dtype=torch.int64, device=dev)
+        self.marks = torch.zeros(MAX_BODIES, dtype=torch.int64, device=dev)
         inputs = _unflatten(self.spec[1], self.inputs)
         events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         self.stream.wait_stream(current)
         with torch.cuda.stream(self.stream):
             events[0].record()
@@ -768,12 +845,12 @@ class _FrameShared:
                 torch.cuda.current_blas_handle()
         current.wait_stream(self.stream)
         _cond_library()
-        t1 = time.perf_counter()
+        t1 = time.perf_counter_ns()
         graph = torch.cuda.CUDAGraph()
         if generator is not None:
             _lend(self, generator)
             graph.register_generator_state(self.generator)
-        cap = _Capture(self.taken, streams)
+        cap = _Capture(self.taken, self.marks, self.elapsed, streams)
         enabled = gc.isenabled()
         gc.disable()                 # no finalizer may run inside a capture
         _frame_capture, _recording = cap, {}
@@ -789,7 +866,7 @@ class _FrameShared:
                     self.graph_nodes = sum(
                         _captured_node_types(self.stream).values())
                 finally:
-                    t2 = time.perf_counter()
+                    t2 = time.perf_counter_ns()
                     try:
                         graph.capture_end()     # instantiates the graph
                     except RuntimeError as e:
@@ -800,14 +877,17 @@ class _FrameShared:
             _frame_capture, _recording = None, None
             if enabled:
                 gc.enable()
-        t3 = time.perf_counter()
-        self.bodies, self.body_nodes = cap.bodies, cap.body_nodes
-        self.body_types = cap.body_types
+        t3 = time.perf_counter_ns()
+        for name, a, b in (("graph.warmup", t0, t1), ("graph.capture", t1, t2),
+                           ("graph.instantiate", t2, t3)):
+            RECORDER.record(name, a, b)
+        self.body_names, self.bodies = cap.names, cap.bodies
+        self.body_nodes, self.body_types = cap.body_nodes, cap.body_types
         self.out_leaves = []
         self.out_spec = _flatten(out, self.out_leaves)
         self.graph = graph
-        self.cold = {"warmup_ms": (t1 - t0) * 1e3, "capture_ms": (t2 - t1) * 1e3,
-                     "instantiate_ms": (t3 - t2) * 1e3, "warmup_events": events}
+        self.cold = {"warmup_ms": (t1 - t0) / 1e6, "capture_ms": (t2 - t1) / 1e6,
+                     "instantiate_ms": (t3 - t2) / 1e6, "warmup_events": events}
         self.release = weakref.finalize(self, _release, graph, dev.index,
                                         cap.pools)
         _stats["captures"] += 1
@@ -826,10 +906,11 @@ class FrameGraph(_Handle):
     are copies.  Counters (this run's): `eager_calls` (CPU), `captures`,
     `replays`, `warmups`, `cache_hits`, `state_bytes_in` (the bytes of
     state copied into the buffers); `nodes` maps each kernel wrapper to its
-    launches in every replay, `bodies` holds each branch's in capture order;
-    `graph_nodes` and `body_nodes` count the graph's nodes (a branch is one
-    node of the graph that holds it, and its body's nodes are counted
-    apart).
+    launches in every replay, `bodies` holds each branch's in capture order
+    and `body_names` their names (`cond`'s `name`); `graph_nodes` and
+    `body_nodes` count the graph's nodes (a branch is one node of the graph
+    that holds it, and its body's nodes, its two clock marks among them,
+    are counted apart).
 
     The first CUDA call of a key not in the cache warms up: `fn` runs once
     on a copy of the state with a generator of its own and every branch
@@ -852,6 +933,10 @@ class FrameGraph(_Handle):
         return _FrameShared(self.fn, spec, sig, self.key)
 
     # what the shared graph recorded at its capture
+    @property
+    def body_names(self) -> list:
+        return [] if self._shared is None else self._shared.body_names
+
     @property
     def bodies(self) -> list:
         return [] if self._shared is None else self._shared.bodies
@@ -889,6 +974,17 @@ class FrameGraph(_Handle):
         return _unflatten(shared.spec[0], out)
 
     def __call__(self, carry, *inputs):
+        span = RECORDER.begin("graph.replay")
+        nbytes = 0
+        try:
+            out, nbytes = self._call(carry, inputs)
+            return out
+        finally:
+            RECORDER.end(span, nbytes)
+
+    def _call(self, carry, inputs: tuple) -> tuple[Any, int]:
+        """(The step's outputs, the bytes of state and inputs copied into
+        the buffers)."""
         c_leaves: list = []
         c_spec = _flatten(carry, c_leaves)
         i_leaves: list = []
@@ -901,7 +997,7 @@ class FrameGraph(_Handle):
                 shared.carry, state_bytes = _load(
                     "FrameGraph", c_leaves, shared.carry, shared.carry_copied,
                     "state", shared.sig[:n])
-                shared.inputs, _ = _load(
+                shared.inputs, input_bytes = _load(
                     "FrameGraph", i_leaves, shared.inputs, shared.in_copied,
                     "input", shared.sig[n:])
                 break
@@ -939,22 +1035,24 @@ class FrameGraph(_Handle):
         # not copied in again
         shared.carry_copied = [(weakref.ref(x), x._version)
                                for x in shared.carry]
-        return out
+        return out, state_bytes + input_bytes
 
     def branch_counts(self) -> Optional[Tensor]:
-        """(bodies,) int64 on the device: how many replays of the graph
-        since the last `settle` took each branch, in capture order (None
-        when there is nothing to count)."""
+        """(2, bodies) int64 on the device, bodies in capture order
+        (`body_names`): how many replays of the graph since the last
+        `settle` took each branch (row 0), and the device ns those bodies
+        took (row 1, each body's time including the bodies inside it).
+        None when there is nothing to count."""
         shared = self._shared
         if shared is None or not shared.unsettled:
             return None
-        return shared.totals[:len(shared.bodies)].clone()
+        return shared.counts()
 
     def settle(self, counts=None) -> None:
         """Add each branch's kernel launches once for every replay that took
-        it, and start counting again.  counts: `branch_counts()` already
-        fetched with the caller's outputs (host values), else fetched here
-        (one wait)."""
+        it, and start counting (and timing) again.  counts: `branch_counts()`
+        already fetched with the caller's outputs (host values), else
+        fetched here (one wait)."""
         if self._shared is not None:
             self._shared.settle(counts)
 

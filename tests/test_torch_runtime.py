@@ -213,17 +213,21 @@ def _run(argv, capsys):
 def test_cli_checkpoint_then_resume(capsys, tmp_path):
     """The host loop saves its final map with --checkpoint and starts from it
     with --resume (the JAX CLI test's check: keyframes do not fall); the
-    report has the JAX report's keys plus the port's stereo and device."""
+    report has the JAX report's keys plus the port's stereo, device and
+    (--json) spans."""
     ck = str(tmp_path / "ck")
     first = _run(["--dataset", TUM, "--checkpoint", ck] + NARROW, capsys)
-    assert set(first) == JAX_REPORT_KEYS | {"checkpoint", "stereo", "device"}
+    assert set(first) == JAX_REPORT_KEYS | {"checkpoint", "stereo", "device",
+                                            "spans"}
+    # the host loop's workers decode, its tracking step is a graph call
+    assert {"stage.decode", "graph.replay"} <= set(first["spans"])
     assert first["checkpoint"] == ck and first["watchdog_stalls"] == 0
     assert first["frames"] == 24 and first["keyframes"] >= 2
     saved, extra = load_checkpoint(ck, device="cpu")
     assert extra == {"frames": 24} and int(saved.num_kf) == first["keyframes"]
     resumed = _run(["--dataset", TUM, "--resume", ck, "--max-frames", "8"]
                    + NARROW, capsys)
-    assert set(resumed) == JAX_REPORT_KEYS | {"stereo", "device"}
+    assert set(resumed) == JAX_REPORT_KEYS | {"stereo", "device", "spans"}
     assert resumed["frames"] == 8
     assert resumed["keyframes"] >= first["keyframes"]
     assert resumed["tracked_frac"] == 1.0
@@ -232,14 +236,15 @@ def test_cli_checkpoint_then_resume(capsys, tmp_path):
 def test_cli_telemetry_without_a_client(capsys):
     """--telemetry with no client connected: every frame is still published
     (sent or dropped for budget), and the report adds the JAX report's
-    telemetry keys."""
+    telemetry keys (and the port's stereo, device and spans)."""
     s = socket.socket()
     s.bind(("127.0.0.1", 0))
     port = s.getsockname()[1]
     s.close()
     report = _run(["--dataset", TUM, "--max-frames", "6", "--telemetry",
                    str(port)] + NARROW, capsys)
-    assert set(report) == JAX_REPORT_KEYS | JAX_TELEMETRY_KEYS | {"stereo", "device"}
+    assert set(report) == (JAX_REPORT_KEYS | JAX_TELEMETRY_KEYS
+                           | {"stereo", "device", "spans"})
     assert report["telemetry_sent"] + report["telemetry_dropped"] == 6
 
 
