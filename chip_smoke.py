@@ -278,6 +278,15 @@ Phases (any failure ends the run with a non-zero exit; there is no CPU path):
                   drops the mesh's graph; at the end the graphs held, hits,
                   misses, captures (never more than misses), and the device
                   memory reserved
+  27 entry        ChunkedOdometry --chunked 8 as the benchmark drives it:
+                  5 chunks of 8 and a tail of 3 of 640x480 pageable host
+                  frames from one buffer rewritten after each call,
+                  np.array_equal to odometry_scan on the same frames; under
+                  sync debug "warn" no synchronising call in a call that
+                  returns no chunk, two (the fetches) in one that completes
+                  a chunk; no staging wait; frames/s of a closed loop of
+                  240 frames and the device's idle share (a device-only
+                  traced pass)
 Launch counts: a wrapper counts one when it launches its kernel, a replay of
 a captured frame step counts each kernel node of the graph once, and a
 conditional body's kernels count once for each replay that took the body
@@ -313,7 +322,7 @@ F32_OPS_PER_S = 67e12
 FAST_THRESHOLD, FAST_ARC, FAST_BORDER = 13.0, 12, 19
 SLAM_FAST_MIN_THRESHOLD = 7.0   # the SLAM path's second FAST threshold
 N_FRAMES = 120
-N_PHASES = 26
+N_PHASES = 27
 BRANCHES_TITLE = (
     "branches: slam_scan's frame graph (relocalization and keyframe "
     "branches as conditional nodes) vs the host-branch step, torch.equal, "
@@ -5204,6 +5213,132 @@ def phase_graph_cache(source, args, dev) -> dict:
     return report
 
 
+ARRIVAL_TITLE = (
+    "entry: ChunkedOdometry --chunked 8 replays each frame in the call that "
+    "hands it in, its copy through pinned staging on a copy stream: 5 chunks "
+    "of 8 and a tail of 3 of 640x480 pageable host frames from one reused "
+    "buffer, np.array_equal to odometry_scan; host waits a call (sync debug "
+    "'warn'); staging waits; frames/s and the device's idle share")
+ARRIVAL_CHUNK, ARRIVAL_CHUNKS, ARRIVAL_TAIL = 8, 5, 3
+ARRIVAL_WINDOW = 240      # frames of each timed pass: 30 whole chunks
+
+
+def _busy_s(fn) -> tuple:
+    """(fn(), the seconds in which the device ran anything: the union of
+    the intervals of its operations in a device-only profiler pass)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.start_ns(), e.end_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if str(e.device_type()).endswith("CUDA")
+                   and not e.is_user_annotation() and e.duration_ns() > 0)
+    busy, end = 0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return out, busy / 1e9
+
+
+def phase_replay_on_arrival(source, args, dev) -> dict:
+    """Phase 27: `ChunkedOdometry` as the benchmark drives it.  Pageable
+    host frames handed from one buffer the caller rewrites after each call
+    give `odometry_scan`'s poses and flags on the same frames
+    (np.array_equal); under sync debug "warn" a call that returns no chunk
+    makes no synchronising call and one that completes a chunk (or the
+    tail's flush) makes two, the chunk's fetches; no staging wait.  Then
+    frames/s of a closed loop over the sequence's frames, and the device's
+    idle share: 1 - (device-busy s a frame in a traced pass) / (wall s a
+    frame of the untraced pass)."""
+    import numpy as np
+    import torch
+    from jetracer_orbslam2_torch import run
+    from jetracer_orbslam2_torch.config import TrackingConfig
+    from jetracer_orbslam2_torch.models import odometry as odo
+
+    fcfg, tcfg = run._frontend_cfg(args, source.hw, source.cal), TrackingConfig()
+    frames = [source.load(i)[:2] for i in range(source.n)]
+    gray = torch.stack([f[0] for f in frames]).cpu()     # pageable host
+    depth = torch.stack([f[1] for f in frames]).cpu()
+    n = 1 + ARRIVAL_CHUNK * ARRIVAL_CHUNKS + ARRIVAL_TAIL
+    # the reference first: a configuration not yet cached captures there
+    st = odo.init_state(gray[0], depth[0], source.intr, fcfg, tcfg, device=dev)
+    _, poses, ok = odo.odometry_scan(st, gray[1:n], depth[1:n], source.intr,
+                                     fcfg, tcfg)
+    poses, ok = poses.cpu().numpy(), ok.cpu().numpy()
+
+    buf_g, buf_d = torch.empty_like(gray[0]), torch.empty_like(depth[0])
+    ch = odo.ChunkedOdometry(source.intr, fcfg, tcfg, chunk_size=ARRIVAL_CHUNK,
+                             device=dev)
+    waits = {False: [], True: []}           # by "the call returns a chunk"
+    for i in range(n):
+        buf_g.copy_(gray[i])
+        buf_d.copy_(depth[i])
+        _, k = _count_waits(lambda: ch.process_frame(buf_g, buf_d))
+        waits[i > 0 and i % ARRIVAL_CHUNK == 0].append(k)
+        buf_g.fill_(-1.0)                   # the caller's next use of it
+        buf_d.fill_(0.0)
+    _, k = _count_waits(ch.flush)
+    waits[True].append(k)
+    got, got_ok = ch.result()
+    report = {"frames": n, "waits_no_chunk": sorted(set(waits[False])),
+              "waits_chunk": sorted(set(waits[True])),
+              "staging_waits": ch.staging_waits,
+              "frames_replayed_on_arrival": ch.frames_replayed_on_arrival,
+              "equal": bool(np.array_equal(got[1:], poses)
+                            and np.array_equal(got_ok[1:], ok))}
+    say(f"  {n} frames: np.array_equal to odometry_scan {report['equal']}; "
+        f"host waits a call returning no chunk {report['waits_no_chunk']}, "
+        f"a chunk (and the tail's flush) {report['waits_chunk']}; staging "
+        f"waits {ch.staging_waits}; frames replayed on arrival "
+        f"{ch.frames_replayed_on_arrival}")
+    bad = []
+    if not report["equal"]:
+        bad.append("poses or flags differ from odometry_scan")
+    if report["waits_no_chunk"] != [0] or report["waits_chunk"] != [2]:
+        bad.append("host waits a call")
+    if ch.staging_waits or ch.frames_replayed_on_arrival != n - 1:
+        bad.append("the counters")
+
+    def closed_loop(entry, start: int, frames: int) -> float:
+        """Wall s of `frames` frames handed as the benchmark hands them (a
+        chunk's last call returns after its fetches)."""
+        t0 = time.perf_counter()
+        for i in range(start, start + frames):
+            j = i % source.n
+            buf_g.copy_(gray[j])
+            buf_d.copy_(depth[j])
+            entry.process_frame(buf_g, buf_d)
+        return time.perf_counter() - t0
+
+    m = ARRIVAL_WINDOW
+    ch = odo.ChunkedOdometry(source.intr, fcfg, tcfg, chunk_size=ARRIVAL_CHUNK,
+                             device=dev)
+    closed_loop(ch, 0, 1 + m)               # the bootstrap and m / 8 chunks
+    wall = closed_loop(ch, 1 + m, m)
+    traced_wall, busy = _busy_s(lambda: closed_loop(ch, 1 + 2 * m, m))
+    report.update(fps=m / wall, ms_per_frame=1e3 * wall / m,
+                  device_busy_ms_per_frame=1e3 * busy / m,
+                  idle_pct=100.0 * (1.0 - busy / wall),
+                  staging_waits_timed=ch.staging_waits)
+    say(f"  closed loop, {m} frames of 640x480 in chunks of {ARRIVAL_CHUNK}: "
+        f"{report['fps']:.1f} frames/s ({report['ms_per_frame']:.3f} ms a "
+        f"frame); device busy {report['device_busy_ms_per_frame']:.3f} ms a "
+        f"frame (traced pass, {1e3 * traced_wall / m:.3f} ms of wall), idle "
+        f"{report['idle_pct']:.1f} %; staging waits {ch.staging_waits}")
+    if bad:
+        raise SystemExit("FAIL: replay on arrival: " + "; ".join(bad))
+    return report
+
+
 def graph_cache_summary() -> dict:
     """The cache at the end of the smoke: graphs held, hits, misses,
     captures (each a miss's: a key captures once until it is evicted),
@@ -6531,6 +6666,9 @@ def main(argv: list[str]) -> int:
         phase(26, GRAPH_CACHE_TITLE)
         graph_cache = phase_graph_cache(source, args, dev)
         graph_cache["end"] = graph_cache_summary()
+
+        phase(27, ARRIVAL_TITLE)
+        arrival = phase_replay_on_arrival(source, args, dev)
     torch.cuda.synchronize()
 
     k1 = times["odometry"]
@@ -6823,6 +6961,7 @@ def main(argv: list[str]) -> int:
     say(json.dumps({"ransac": ransac, "card": card}))
     say(json.dumps({"branches": branches, "card": card}))
     say(json.dumps({"graph_cache": graph_cache, "card": card}))
+    say(json.dumps({"replay_on_arrival": arrival, "card": card}))
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -27,7 +27,8 @@ import torch
 from jetracer_orbslam2_torch.config import FrontendConfig, TrackingConfig
 from jetracer_orbslam2_torch.models import tracking
 from jetracer_orbslam2_torch.models.frontend import Features, frontend_gray_depth
-from jetracer_orbslam2_torch.utils.device import as_f32, resolve_device
+from jetracer_orbslam2_torch.utils.device import (
+    HostStaging, as_f32, resolve_device)
 from jetracer_orbslam2_torch.utils.precision import set_exact_f32
 from jetracer_orbslam2_torch.utils.step_graph import StepGraph
 from jetracer_orbslam2_torch.utils.timing import RECORDER
@@ -153,14 +154,22 @@ def odometry_scan(
             poses.append(state.T_wc)
             oks.append(not_ok)
             continue
-        prev, T_wc, velocity, frame_idx, ok = graph(
-            state.prev, grays[i], depths[i], state.T_wc, state.velocity,
-            state.frame_idx, intrinsics)
-        state = OdomState(T_wc=T_wc, velocity=velocity, prev=prev,
-                          frame_idx=frame_idx, generator=state.generator)
-        poses.append(T_wc)
+        state, ok = _replay(graph, state, grays[i], depths[i], intrinsics)
+        poses.append(state.T_wc)
         oks.append(ok)
     return state._replace(graph=graph), torch.stack(poses), torch.stack(oks)
+
+
+def _replay(graph: StepGraph, state: OdomState, gray: Tensor, depth: Tensor,
+            intrinsics: Tensor) -> tuple[OdomState, Tensor]:
+    """One frame through `graph` from `state`: (the state after it, carrying
+    the graph; the frame's tracked_ok), device tensors."""
+    prev, T_wc, velocity, frame_idx, ok = graph(
+        state.prev, gray, depth, state.T_wc, state.velocity, state.frame_idx,
+        intrinsics)
+    return OdomState(T_wc=T_wc, velocity=velocity, prev=prev,
+                     frame_idx=frame_idx, generator=state.generator,
+                     graph=graph), ok
 
 
 def _fetch(t: Tensor) -> np.ndarray:
@@ -172,20 +181,34 @@ def _fetch(t: Tensor) -> np.ndarray:
 
 
 class ChunkedOdometry:
-    """Constant-memory streaming odometry: frames run through
-    `odometry_scan` in fixed-size chunks with `OdomState` carried across —
-    device memory holds one chunk instead of the whole sequence.  The host
-    waits twice a chunk, at its end: the chunk's poses are fetched, then
-    its tracked flags.  The state carries the step's graph, so the whole
-    run captures at most once (none when the configuration's graph is
-    cached).  Results equal the whole-sequence scan exactly (the same
-    generator is advanced by the same frames in the same order).
+    """Constant-memory streaming odometry, the same computation as
+    `odometry_scan` over the whole sequence: each frame is copied to the
+    device and replayed through the state's `StepGraph` in the
+    `process_frame` call that hands it in, so the device runs frame i while
+    the host copies and enqueues frame i + 1.  Results equal the
+    whole-sequence scan exactly (the same generator is advanced by the same
+    frames in the same order, through the same graph call).
+
+    Frames replay on a working state, which starts from `state` at each
+    chunk's first frame; `flush`, at a chunk's end, commits it to `state`
+    and fetches the chunk's results: the host waits twice a chunk, for its
+    poses, then its tracked flags.  So `state` is the state at the last
+    chunk committed, and device memory holds a chunk's poses and flags and
+    the frames still queued.  The state carries the step's graph, so the
+    whole run captures at most once (none when the configuration's graph is
+    cached).
+
+    On a CUDA device a host frame goes through pinned staging on a copy
+    stream (`utils/device.HostStaging`), so its copy neither waits for the
+    replays queued before it nor is queued behind them.  Counters:
+    `frames_replayed_on_arrival`, and `staging_waits`, the times the host
+    waited for a staging slot (0 when the copies keep up).
 
     Spans (`utils/timing.RECORDER`), a chunk's request id on each:
-    `entry.frame` for a frame's own part of `process_frame`, inside it
-    `entry.copy` (the frame's copies to the device; its bytes there as the
-    value); `entry.chunk` for each `flush`, inside it `entry.stack` (the
-    chunk's frames stacked), the replays' `graph.replay` and one
+    `entry.frame` for a frame's part of `process_frame`, inside it
+    `entry.copy` (the staging copy and the transfer's enqueue; the frame's
+    bytes on the device as the value; not the bootstrap frame's) and the
+    frame's `graph.replay`; `entry.chunk` for each `flush`, inside it one
     `entry.fetch` a wait (the bytes fetched)."""
 
     def __init__(self, intrinsics, fcfg: FrontendConfig,
@@ -197,48 +220,56 @@ class ChunkedOdometry:
         self.chunk = chunk_size
         self.seed = seed
         self.state: OdomState | None = None
-        self._pending_g: list = []
-        self._pending_d: list = []
+        self.frames_replayed_on_arrival = 0
+        self._staging = HostStaging(self.device)
+        self._work: OdomState | None = None     # the chunk's working state
+        self._pending_T: list = []               # the chunk's (4, 4) poses
+        self._pending_ok: list = []              # and () tracked flags
         self._poses: list = [np.eye(4, dtype=np.float32)[None]]
         self._ok: list = [np.ones(1, bool)]
         self._request = RECORDER.new_request()
+
+    @property
+    def staging_waits(self) -> int:
+        return self._staging.waits
 
     def process_frame(self, gray, depth) -> None:
         frame = RECORDER.begin("entry.frame", self._request)
         try:
             if self.state is None:
+                gray, depth = self._staging.to_device(gray, depth)
                 self.state = init_state(
                     gray, depth, self.intr, self.fcfg, self.tcfg,
                     seed=self.seed, device=self.device)
                 return
-            # no local holds the frame: the chunk's stack must be its only
-            # copy once the pending lists are cleared
             copy = RECORDER.begin("entry.copy")
-            self._pending_g.append(as_f32(gray, self.device))
-            self._pending_d.append(as_f32(depth, self.device))
-            RECORDER.end(copy, self._pending_g[-1].nbytes
-                         + self._pending_d[-1].nbytes)
+            gray, depth = self._staging.to_device(gray, depth)
+            RECORDER.end(copy, gray.nbytes + depth.nbytes)
+            if not self._pending_T:             # the chunk's first frame
+                set_exact_f32()
+                self._work = self.state
+            graph = step_graph(self._work, gray.shape, self.fcfg, self.tcfg)
+            self._work, ok = _replay(graph, self._work, gray, depth, self.intr)
+            self._pending_T.append(self._work.T_wc)
+            self._pending_ok.append(ok)
+            self.frames_replayed_on_arrival += 1
         finally:
             RECORDER.end(frame)
-        if len(self._pending_g) >= self.chunk:
+        if len(self._pending_T) >= self.chunk:
             self.flush()
 
     def flush(self) -> None:
-        n = len(self._pending_g)
-        if n == 0:
+        if not self._pending_T:
             return
         chunk = RECORDER.begin("entry.chunk", self._request)
         try:
             # a ragged tail is simply a shorter chunk: the graph holds one
             # frame's step, so a chunk's length is no shape of it
-            stack = RECORDER.begin("entry.stack")
-            g = torch.stack(self._pending_g)
-            d = torch.stack(self._pending_d)
-            RECORDER.end(stack, g.nbytes + d.nbytes)
-            self._pending_g.clear()
-            self._pending_d.clear()
-            self.state, poses, ok = odometry_scan(
-                self.state, g, d, self.intr, self.fcfg, self.tcfg)
+            poses = torch.stack(self._pending_T)
+            ok = torch.stack(self._pending_ok)
+            self._pending_T.clear()
+            self._pending_ok.clear()
+            self.state, self._work = self._work, None
             self._poses.append(_fetch(poses))
             self._ok.append(_fetch(ok))
         finally:

@@ -249,6 +249,9 @@ def _run_odometry(args, src: Source, device):
             "frames": count,
             "fps": round(count / wall, 2),
             "tracked_frac": float(np.mean(ok)),
+            "counters": {
+                "staging_waits": ch.staging_waits,
+                "frames_replayed_on_arrival": ch.frames_replayed_on_arrival},
         }, poses
 
     gray, depth = [], []

@@ -182,15 +182,24 @@ def test_chunked_odometry_spans(arc):
     assert len(named["entry.copy"]) == 16
     assert all(r.value == 2 * H * W * 4 for r in named["entry.copy"])
     assert all(ids[r.parent].name == "entry.frame" for r in named["entry.copy"])
+    # each frame replays in the call that hands it in: its replay inside its
+    # frame's span, after its copy
+    replays = named["graph.replay"]
+    assert len(replays) == 16
+    for r in replays:
+        f = ids[r.parent]
+        assert f.name == "entry.frame" and r.request == f.request
+        assert f.start_ns <= r.start_ns <= r.end_ns <= f.end_ns
+        copy = [c for c in named["entry.copy"] if c.parent == f.id]
+        assert len(copy) == 1 and copy[0].end_ns <= r.start_ns
     chunks = named["entry.chunk"]
-    assert len(chunks) == 2 and len(named["entry.stack"]) == 2
-    for name, per_chunk in (("graph.replay", 8), ("entry.fetch", 2),
-                            ("entry.stack", 1)):
-        for c in chunks:
-            inside = [r for r in named[name] if r.parent == c.id]
-            assert len(inside) == per_chunk, name
-            assert all(c.start_ns <= r.start_ns <= r.end_ns <= c.end_ns
-                       and r.request == c.request for r in inside)
+    assert len(chunks) == 2 and named["entry.stack"] == []
+    for c in chunks:
+        assert sum(r.request == c.request for r in replays) == 8
+        inside = [r for r in named["entry.fetch"] if r.parent == c.id]
+        assert len(inside) == 2
+        assert all(c.start_ns <= r.start_ns <= r.end_ns <= c.end_ns
+                   and r.request == c.request for r in inside)
     assert sum(r.value for r in named["entry.fetch"]) == 16 * (16 * 4 + 1)
     # a frame's request is the chunk it belongs to (the bootstrap frame's,
     # the first chunk's); each chunk its own
